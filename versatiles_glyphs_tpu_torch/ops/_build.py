@@ -1,0 +1,87 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
+compiled for Hopper into ``build/kernels/<name>-<hash>.so`` at the root
+of the checkout, where the hash covers the source and the flags, so a
+stale library is never loaded. A failed build raises with nvcc's
+output. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+
+# --fmad=false keeps every multiply and add separately rounded, which
+# the byte parity with the plain PyTorch versions needs.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+# name -> (library path, seconds spent in nvcc; 0.0 when it was cached)
+BUILDS: dict[str, tuple[str, float]] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        cand = os.path.join(
+            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"
+        )
+        if os.path.exists(cand):
+            path = cand
+    if path is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return path
+
+
+def library_path(name: str) -> str:
+    """Where the build of ``csrc/<name>.cu`` lives for its current
+    source and flags."""
+    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
+        src = f.read()
+    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its build exists; returns the
+    library path."""
+    so = library_path(name)
+    if os.path.exists(so):
+        BUILDS.setdefault(name, (so, 0.0))
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {name} (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
+        )
+    os.replace(tmp, so)
+    BUILDS[name] = (so, time.perf_counter() - t0)
+    return so
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = _LIBS[name] = ctypes.CDLL(build(name))
+        return lib

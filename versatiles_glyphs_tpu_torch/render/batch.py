@@ -1,0 +1,181 @@
+"""Glyph-group packing: host geometry → the device wire arrays.
+
+Copies of the packers of `versatiles_glyphs_tpu.render.batch`, which
+imports `ops.sdf_jax` at its top. They return the same arrays, array
+for array, including the lane slack (`WINDOW_LANES`) and the shape
+buckets, so the wire that crosses between the two packages is one
+format. Their arena buffers have keys of their own (``torch_`` prefix),
+so the two packages never hand out one buffer to each other.
+
+`wire_to_device` turns a pack tuple into tensors on an explicit device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from versatiles_glyphs_tpu.utils.arena import get_array
+
+SC = 128  # lanes of one chunk row of the TPU kernel's layout
+# The TPU kernel's historical window slack (`sdf_pallas.WINDOW_LANES`);
+# kept so that N_pad matches the JAX packers exactly.
+WINDOW_LANES = 12 * SC
+
+S_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+N_BUCKETS = tuple([16384, 32768] + [65536 * k for k in range(1, 65)])
+T_BUCKETS = (256, 1024, 4096, 8192, 12288)
+K_BUCKETS = (1024, 4096, 8192, 16384, 24576, 32768, 49152, 65536, 131072)
+
+
+def bucket(value: int, buckets) -> int:
+    """Smallest bucket ≥ value; past the largest, round up to its
+    multiple."""
+    for b in buckets:
+        if value <= b:
+            return b
+    step = buckets[-1]
+    return ((value + step - 1) // step) * step
+
+
+def _group_meta(preps):
+    G = len(preps)
+    meta = np.zeros((max(G, 1), 8), dtype=np.int32)
+    npts = np.asarray([p.npts for p in preps] + [0] * (not G), dtype=np.int64)
+    offs = np.concatenate([[0], np.cumsum(npts)[:-1]])
+    if G:
+        meta[:G, 0] = [p.x0 for p in preps]
+        meta[:G, 1] = [p.y0 for p in preps]
+        meta[:G, 2] = [p.width for p in preps]
+        meta[:G, 3] = [p.height for p in preps]
+        meta[:G, 4] = npts[:G]
+        meta[:G, 5] = offs[:G]
+    return meta, npts, offs
+
+
+def _n_pad(npts: np.ndarray) -> int:
+    N = int(npts.sum())
+    s_slack = bucket(int(npts.max(initial=1)) + WINDOW_LANES + 256, S_BUCKETS)
+    return bucket(max(N + s_slack, SC), N_BUCKETS)
+
+
+def _mask_words(preps, N: int, N_pad: int, arena_tag: str) -> np.ndarray:
+    valid = get_array(f"torch_pack_valid{arena_tag}", (N_pad,), np.uint8)
+    valid[N:] = 0
+    if preps and N:
+        np.concatenate([p.valid8 for p in preps], out=valid[:N])
+    return np.packbits(valid, bitorder="little").view("<u4").view(np.int32)
+
+
+def pack_points(preps, N_pad: int | None = None, dtype=np.float32, arena_tag: str = ""):
+    """Pack non-empty `GlyphPrep`s into the point-chain layout.
+
+    Returns (pts [2, N_pad] f32 or i16 x/y rows, mask_words [N_pad//32]
+    i32 — bit j of word w is lane 32w+j —, meta [G, 8] i32 with x0, y0,
+    w, h, npts, off; the JAX packer's fourth item, a pixel bucket, has
+    no use here). ``dtype=np.int16`` is the q16 wire; every prep must
+    then be ``q16_ok``. Lanes past each glyph's run may hold stale
+    values: every consumer masks them."""
+    meta, npts, _ = _group_meta(preps)
+    N = int(npts.sum())
+    if N_pad is None:
+        N_pad = _n_pad(npts)
+    i16 = np.dtype(dtype) == np.int16
+    pts = get_array(f"torch_pack_points_{'i16' if i16 else 'f32'}{arena_tag}", (2, N_pad), dtype)
+    if preps and N:
+        chains = [p.chain16 if i16 else p.chain32 for p in preps]
+        np.concatenate(chains, axis=1, out=pts[:, :N])
+    return pts, _mask_words(preps, N, N_pad, arena_tag), meta
+
+
+def pack_points_delta(preps, N_pad: int | None = None, arena_tag: str = ""):
+    """Pack non-empty `GlyphPrep`s into the i8-delta wire.
+
+    Lane-to-lane deltas of the q16 chain that fit a signed byte ship as
+    i8; the others (and every glyph's lane 0) are anchors whose true
+    delta rides in a sparse side table, scatter-added back before one
+    cumsum (`ops.sdf_torch.reconstruct_delta`). Returns (deltas
+    [2, N_pad] i8, mask_words [N_pad//32] i32, anchors [3, K_pad] i32 —
+    lane, x jump, y jump; padding columns are (0, 0, 0) —, meta [G, 8]
+    i32 as in `pack_points`)."""
+    G = len(preps)
+    meta, npts, offs = _group_meta(preps)
+    N = int(npts.sum())
+    if N_pad is None:
+        N_pad = _n_pad(npts)
+    deltas = get_array(f"torch_pack_delta_d8{arena_tag}", (2, N_pad), np.int8)
+    caches = [p.delta_cache for p in preps]
+    ancs = np.fromiter((c[1].shape[0] for c in caches), dtype=np.int64, count=G)
+    astarts = np.zeros(G, np.int64)
+    if G:
+        np.cumsum(ancs[:-1] + 1, out=astarts[1:])
+    K = int(ancs.sum()) + G
+    K_pad = bucket(max(K, 1), K_BUCKETS)
+    anchors = get_array(f"torch_pack_delta_anc{arena_tag}", (3, K_pad), np.int32)
+    anchors[:, K:] = 0
+    if G:
+        if N:
+            np.concatenate([c[0] for c in caches], axis=1, out=deltas[:, :N])
+        # Lane-0 jump of glyph g: q_first[g] − q_last[g−1] (q_last[−1] = 0).
+        qf_all = np.concatenate([c[3] for c in caches]).reshape(G, 2).T
+        ql_all = np.concatenate([c[4] for c in caches]).reshape(G, 2).T
+        j0 = qf_all.copy()
+        j0[:, 1:] -= ql_all[:, :-1]
+        anchors[0, astarts] = offs
+        anchors[1:3, astarts] = j0
+        Ka = int(ancs.sum())
+        if Ka:
+            ai_all = np.concatenate([c[1] for c in caches]).astype(np.int64)
+            aj_all = np.concatenate([c[2] for c in caches], axis=1)
+            within = np.arange(Ka) - np.repeat(
+                np.concatenate([[0], np.cumsum(ancs)[:-1]]), ancs
+            )
+            dst = np.repeat(astarts + 1, ancs) + within
+            anchors[0, dst] = ai_all + np.repeat(offs[:G], ancs)
+            anchors[1:3, dst] = aj_all
+    return deltas, _mask_words(preps, N, N_pad, arena_tag), anchors, meta
+
+
+def tile_starts(meta: np.ndarray, G: int, TP: int):
+    """Per-glyph first tile and the used tile count of a packed group:
+    glyph g's bitmap is ``out.reshape(-1)[starts[g]*TP : starts[g]*TP
+    + w·h]``."""
+    if G == 0:
+        return np.zeros(0, np.int64), 0
+    npix = meta[:G, 2].astype(np.int64) * meta[:G, 3]
+    ntiles = np.maximum(1, -(-npix // TP))
+    starts = np.concatenate([[0], np.cumsum(ntiles)[:-1]])
+    return starts, int(ntiles.sum())
+
+
+def plan_tiles(preps, meta: np.ndarray, TP: int, T_pad: int | None = None):
+    """The tile table [T_pad, 8] i32 of a group: glyph g owns
+    ``ceil(w·h / TP)`` consecutive rows ``[x0, y0, w, h, npts, off,
+    pix_base, 0]``; padding rows are zeros (w·h = 0, skipped). Returns
+    (tmeta, starts [G] i64, T_used)."""
+    G = len(preps)
+    if G == 0:
+        T0 = T_pad if T_pad is not None else T_BUCKETS[0]
+        return np.zeros((T0, 8), dtype=np.int32), np.zeros(0, np.int64), 0
+    starts, T = tile_starts(meta, G, TP)
+    if T_pad is None:
+        T_pad = bucket(max(T, 1), T_BUCKETS)
+    if T > T_pad:
+        raise ValueError(f"{T} tiles exceed T_pad={T_pad}")
+    ntiles = np.diff(np.append(starts, T))
+    tmeta = get_array("torch_plan_tiles", (T_pad, 8), np.int32)
+    tmeta[T:] = 0
+    g_of_tile = np.repeat(np.arange(G), ntiles)
+    tmeta[:T] = meta[g_of_tile]
+    tmeta[:T, 6] = (np.arange(T) - starts[g_of_tile]) * TP
+    return tmeta, starts, T
+
+
+def wire_to_device(pack_tuple, device: torch.device) -> tuple:
+    """The numpy arrays of a pack tuple as tensors on ``device``, each a
+    blocking copy (the packers' arena buffers are rewritten by the next
+    pack, so nothing may still read them)."""
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
+        for a in pack_tuple
+    )

@@ -1,0 +1,242 @@
+"""Render driver: pluggable SDF backends and the batched render session
+(counterpart of `versatiles_glyphs_tpu.render.driver`).
+
+Backends:
+
+- ``"cuda"``  — the hand-written tile kernel (`ops.sdf_cuda`) on the
+                first CUDA device; raises when there is none.
+- ``"torch"`` — the same session and wire on the CPU, through the
+                kernel's plain PyTorch version.
+- ``"exact"`` — the float64 native/NumPy renderer of the JAX package.
+- ``"zeros"`` — empty bitmaps of the right size (``--dummy``).
+- ``"auto"``  — ``"cuda"`` when a CUDA device is present, else
+                ``"exact"`` (the JAX package's contract for its
+                accelerator).
+
+Host prep (`prep_glyph`, `prep_block`) and PBF assembly are the JAX
+package's own methods, which are free of JAX; they are imported where
+they are called, because `versatiles_glyphs_tpu.render.driver` imports
+the font parser (fontTools) and this module must load without it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import cuda_device
+
+BACKENDS = ("auto", "cuda", "torch", "exact", "zeros")
+TRANSPORTS = ("auto", "i8", "i16", "f32")
+
+
+def _host_renderer():
+    from versatiles_glyphs_tpu.render.driver import Renderer as HostRenderer
+
+    return HostRenderer
+
+
+class Renderer:
+    # Soft caps on one device group (lanes, 256-px tiles), as in the JAX
+    # driver: a group closes when the next glyph would pass either.
+    _LANES_SOFT = 600_000
+    _TILES_SOFT = 4096
+
+    def __init__(self, backend: str = "auto", transport: str = "auto"):
+        if backend == "auto":
+            backend = "cuda" if torch.cuda.is_available() else "exact"
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown renderer backend {backend!r}")
+        if transport not in TRANSPORTS:
+            raise ValueError(f"unknown point transport {transport!r}")
+        self.backend = backend
+        # "i8" (default): i8 lane deltas of the q16 chain plus a sparse
+        # anchor table; "i16": the q16 chain (same decoded points, so the
+        # same bytes); "f32": f32 points (tighter parity, twice the bytes).
+        self.transport = "i8" if transport == "auto" else transport
+        self.device: torch.device | None = None
+        if backend == "cuda":
+            self.device = cuda_device()
+        elif backend == "torch":
+            self.device = torch.device("cpu")
+
+    # -- host prep and assembly (the JAX package's methods) ---------------
+
+    def prep_glyph(self, entry, codepoint: int):
+        return _host_renderer().prep_glyph(self, entry, codepoint)
+
+    def prep_block(self, sources):
+        return _host_renderer().prep_block(self, sources)
+
+    @staticmethod
+    def assemble_glyphs(preps, bitmap_iter):
+        return _host_renderer().assemble_glyphs(preps, bitmap_iter)
+
+    # -- batched rendering -----------------------------------------------
+
+    def start_session(self, parallel: bool = True, progress=None) -> "RenderSession":
+        """Open a render session. ``parallel`` is accepted for the JAX
+        manager's call; this driver renders on one device."""
+        return RenderSession(self, progress=progress)
+
+    def _dispatch_group(self, gitems, wire: str, TP: int):
+        """Pack one group, copy it to the device (blocking copies) and
+        launch its render. Returns (items, starts, out [T, TP] u8 on the
+        device); the result is fetched in `RenderSession.results`."""
+        from ..ops.sdf_cuda import render_bitmaps_cuda_delta, render_bitmaps_cuda_pts
+        from .batch import pack_points, pack_points_delta, plan_tiles, tile_starts, wire_to_device
+
+        gpreps = [p for _, p in gitems]
+        G = len(gpreps)
+        if wire == "i8":
+            deltas, words, anchors, meta = pack_points_delta(gpreps)
+            starts, T = tile_starts(meta, G, TP)
+            d, w, a, m = wire_to_device((deltas, words, anchors, meta), self.device)
+            out = render_bitmaps_cuda_delta(d, w, a, m, TP, T_pad=T)
+        else:
+            dt = np.int16 if wire == "i16" else np.float32
+            pts, words, meta = pack_points(gpreps, dtype=dt)
+            starts, T = tile_starts(meta, G, TP)
+            tmeta, _, _ = plan_tiles(gpreps, meta, TP, T_pad=T)
+            p, w, tm = wire_to_device((pts, words, tmeta.T), self.device)
+            out = render_bitmaps_cuda_pts(p, w, tm, TP)
+        return gitems, starts, out
+
+
+class RenderSession:
+    """Incremental batched render (see `Renderer.start_session`).
+
+    ::
+
+        with renderer.start_session(progress=tick) as s:
+            for block in blocks:
+                s.add(nonempty_preps_of(block))
+            for bitmap in s.results():   # in add() order
+                ...
+
+    Device backends route preps to a q16 "main" buffer (the i8 or i16
+    wire) and an f32 "aux" buffer (glyphs outside the q16 range,
+    `GlyphPrep.q16_ok`). A buffer that reaches the soft caps is packed
+    and dispatched at once; `results` dispatches the rest, then fetches
+    the groups in order and yields bitmaps in submit order. The
+    ``exact`` and ``zeros`` backends render inside `add`.
+
+    `close` drops every pending group; `results` calls it when it ends,
+    and so does leaving a ``with`` block.
+    """
+
+    _TP = 256  # the tile size `GlyphPrep.ntiles256` bakes in
+
+    def __init__(self, renderer: Renderer, progress=None):
+        self.r = renderer
+        self.tick = progress or (lambda n: None)
+        self.groups = 0  # device groups dispatched
+        self._n = 0  # preps submitted
+        self._eager: list[np.ndarray] = []
+        self._pending: list = []
+        self._main: list = []
+        self._aux: list = []
+        self._main_sz = [0, 0]
+        self._aux_sz = [0, 0]
+        self._closed = False
+
+    def __enter__(self) -> "RenderSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        self._closed = True
+        self._pending = []
+        self._eager = []
+        self._main = []
+        self._aux = []
+
+    # -- submission ------------------------------------------------------
+
+    def add(self, preps) -> None:
+        """Submit non-empty preps; may dispatch filled device groups."""
+        if self._closed:
+            raise RuntimeError("render session is closed")
+        r = self.r
+        if r.device is not None:
+            q16 = r.transport in ("i8", "i16")
+            for p in preps:
+                item = (self._n, p)
+                self._n += 1
+                if q16 and not p.q16_ok:
+                    self._buf_add(self._aux, self._aux_sz, item, "f32")
+                else:
+                    self._buf_add(self._main, self._main_sz, item, r.transport)
+            return
+        self._n += len(preps)
+        if not preps:
+            return
+        if r.backend == "zeros":
+            self._eager.extend(np.zeros(p.width * p.height, dtype=np.uint8) for p in preps)
+            self.tick(len(preps))
+            return
+        from versatiles_glyphs_tpu.proto import native
+
+        if native.available():
+            for i in range(0, len(preps), 512):
+                chunk = preps[i : i + 512]
+                self._eager.extend(native.render_sdf_batch(chunk))
+                self.tick(len(chunk))
+        else:
+            from versatiles_glyphs_tpu.ops.sdf_ref import render_sdf_exact
+
+            for p in preps:
+                self._eager.append(render_sdf_exact(p.segments, p.width, p.height, p.x0, p.y0))
+                self.tick(1)
+
+    def _buf_add(self, buf: list, sz: list, item, wire: str) -> None:
+        _, p = item
+        if buf and (
+            sz[0] + p.npts > self.r._LANES_SOFT or sz[1] + p.ntiles256 > self.r._TILES_SOFT
+        ):
+            self._dispatch(buf, wire)
+            del buf[:]
+            sz[0] = sz[1] = 0
+        buf.append(item)
+        sz[0] += p.npts
+        sz[1] += p.ntiles256
+
+    def _dispatch(self, items: list, wire: str) -> None:
+        self._pending.append(self.r._dispatch_group(list(items), wire, self._TP))
+        self.groups += 1
+
+    # -- consumption -----------------------------------------------------
+
+    def results(self):
+        """Yield bitmaps in `add` order (a generator; see class doc)."""
+        if self._closed:
+            raise RuntimeError("render session is closed")
+        try:
+            if self.r.device is None:
+                yield from self._eager
+                return
+            if self._main:
+                self._dispatch(self._main, self.r.transport)
+            if self._aux:
+                self._dispatch(self._aux, "f32")
+            self._main, self._aux = [], []
+
+            TP = self._TP
+            placed: list = [None] * self._n
+            ptr = 0
+            for gitems, starts, out in self._pending:
+                flat = out.cpu().numpy().reshape(-1)
+                # Placed by submit index: the q16/aux partition reorders.
+                for g, (i, p) in enumerate(gitems):
+                    placed[i] = flat[starts[g] * TP : starts[g] * TP + p.width * p.height]
+                self.tick(len(gitems))
+                while ptr < self._n and placed[ptr] is not None:
+                    yield placed[ptr]
+                    placed[ptr] = False  # drop the reference once consumed
+                    ptr += 1
+            if ptr != self._n:
+                raise RuntimeError(f"render session lost results ({ptr} of {self._n})")
+        finally:
+            self.close()

@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's atlas render path once on one GPU.
+"""Drive the PyTorch/CUDA port's atlas render path and its outline-fitting
+path once on one GPU.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA device (built
 for Hopper, sm_90a). It imports the port (`versatiles_glyphs_tpu_torch`),
 its host modules from `versatiles_glyphs_tpu`, torch and numpy, and
-never JAX. Phases, each printing one JSON line:
+never JAX. Phases, each printing JSON lines:
 
 1. device — the card's name and power limit (nvidia-smi).
-2. build  — nvcc builds every kernel of the path from ``csrc/``.
+2. build  — nvcc builds every kernel from ``csrc/``, one process each,
+   all at once.
 3. kernel — each kernel against its plain PyTorch version on the card,
-   at the render path's shapes (group 0 of the first font, i8 and f32
-   wires) and on degenerate segments; bytes must be equal. Times both.
+   at its path's shapes; times both by CUDA events (the kernel by its
+   launch alone, and by its wrapper's call with the checks). The render tile
+   kernel at group 0 of the first font (i8 and f32 wires) and on
+   degenerate segments: bytes equal. The min-field kernel at the full
+   fit batch and on degenerate segments: d² bit-equal, winding and
+   argmin exact. The backward kernel at the full fit batch: within
+   1e-4·max|dpts| of the plain version (whose scatter-add on the card
+   sums in no fixed order), and bit-identical across two runs.
 4. slice  — two synthesized fonts at real sizes (a text font of 1,700
    glyphs over 7 blocks, a heavy one of 1,150 glyphs of ~1,000 points)
    through the port's renderer, render session, native PBF encode and
@@ -20,12 +28,20 @@ never JAX. Phases, each printing one JSON line:
    against the exact f64 renderer (integer metrics equal, bitmaps
    within 1 on at most 5 % of pixels) and one block against the
    ``torch`` backend on the CPU byte for byte.
+5. fit    — a self-fit of the text font's 1,700 glyphs at depth 3 from
+   a perturbed start (`utils.synth_font.synth_fit_batch`): 20 Adam steps
+   of the ``flat`` backend with the counts reset just before (each
+   fitting kernel launches once a step, the loss descends); 5 + 5 steps
+   through a checkpoint against 10 (Δ = 0); the ``torch`` and ``flat``
+   backends' loss and gradients on the first 256-codepoint block; the
+   fitted atlas through the ``cuda`` renderer (f32 wire) against the
+   exact one; seconds per step, warm.
 
-The slice enters at the renderer, below the font parser, so that it
-needs no fontTools: its outlines are synthesized and flattened by
-`ops.flatten` (the CLI over the same outlines as a TTF is held against
-the JAX CLI by the CPU tests). Then a ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
+The slice and the fit enter below the font parser, so that they need no
+fontTools: their outlines are synthesized (the same outlines as a TTF
+through the CLIs are held against the JAX package by the CPU tests).
+Then a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
+{...}}``. Any failure raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -45,6 +61,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 TP = 256
+FIT_DEPTH = 3
+FIT_STEPS = 20
 
 
 def emit(obj) -> None:
@@ -68,11 +86,13 @@ def phase_build() -> None:
     from versatiles_glyphs_tpu_torch.ops import _build, sdf_cuda
 
     t0 = time.perf_counter()
-    _build.load(sdf_cuda.KERNEL)
-    so, nvcc_s = _build.BUILDS[sdf_cuda.KERNEL]
-    emit({"phase": "build", "kernel": sdf_cuda.KERNEL, "arch": "sm_90a",
-          "so": os.path.relpath(so, ROOT), "nvcc_s": nvcc_s,
-          "load_s": time.perf_counter() - t0})
+    _build.build_all(sdf_cuda.KERNELS)
+    for name in sdf_cuda.KERNELS:
+        _build.load(name)
+        so, nvcc_s = _build.BUILDS[name]
+        emit({"phase": "build", "kernel": name, "arch": "sm_90a",
+              "so": os.path.relpath(so, ROOT), "nvcc_s": nvcc_s})
+    emit({"phase": "build", "all_s": time.perf_counter() - t0})
 
 
 def fonts():
@@ -153,10 +173,12 @@ def phase_kernel(preps) -> dict:
             sdf_torch.dequantize(sdf_torch.reconstruct_delta(d, a)), w,
             sdf_torch.derive_tmeta(m, TP, T), TP),
     )
+    f32_inputs = None
     for key, gp in (("f32", group), ("degenerate", degenerate_preps())):
         pts, pw, pm = pack_points(gp, dtype=np.float32, arena_tag=key)
         tm = plan_tiles(gp, pm, TP, T_pad=tile_starts(pm, len(gp), TP)[1])[0]
         p_d, pw_d, tm_d = wire_to_device((pts, pw, tm.T), dev)
+        f32_inputs = f32_inputs or (p_d, pw_d, tm_d)
         cases[key] = (
             lambda p_d=p_d, pw_d=pw_d, tm_d=tm_d: sdf_cuda.render_bitmaps_cuda_pts(p_d, pw_d, tm_d, TP),
             lambda p_d=p_d, pw_d=pw_d, tm_d=tm_d: sdf_torch.render_tiles_pts(p_d, pw_d, tm_d, TP),
@@ -185,9 +207,121 @@ def phase_kernel(preps) -> dict:
         if mismatches:
             raise AssertionError(f"{key}: kernel and plain version differ on {mismatches} bytes")
 
-    # The tile kernel alone, on the f32 wire: the numbers of the kernels line.
+    # The tile kernel on the f32 wire: the numbers of the kernels line.
+    # "ms" is the launch alone; "call_ms" adds the wrapper's checks.
     kern, plain = cases["f32"]
-    return {"max_abs_err": max_err, "ms": time_ms(kern, 50), "plain_ms": time_ms(plain, 3)}
+    rec = {"phase": "kernel", "kernel": "sdf_tiles_pts", "case": "f32",
+           "ms": time_ms(lambda: sdf_cuda.launch_tiles_pts(*f32_inputs, TP), 50),
+           "call_ms": time_ms(kern, 50), "plain_ms": time_ms(plain, 3)}
+    emit(rec)
+    return {"max_abs_err": max_err, "ms": rec["ms"], "plain_ms": rec["plain_ms"]}
+
+
+def fit_batch():
+    """The fit phase's batch: every glyph of the text font, perturbed
+    start; host work done once, outside every timed region."""
+    from versatiles_glyphs_tpu_torch.utils.synth_font import synth_fit_batch
+
+    return synth_fit_batch(1700, 32, seed=0, quads=8, depth=FIT_DEPTH, perturb=0.35)
+
+
+def degenerate_fit_case():
+    """A flat-plan point chain with zero-length curves, a horizontal line,
+    a square, and a glyph with no live segment (the argmin sentinel)."""
+    from versatiles_glyphs_tpu_torch.models import fitting
+
+    curves = np.zeros((3, 8, 4, 2), np.float32)
+    mask = np.zeros((3, 8), bool)
+    lines = [((3, 4), (7, 4)), ((2, 2), (6, 2)), ((6, 2), (6, 6)), ((6, 6), (2, 6)),
+             ((2, 6), (2, 2))]
+    for c, (a, b) in enumerate(lines):
+        a, b = np.array(a, np.float32), np.array(b, np.float32)
+        curves[0, c] = [a, a + (b - a) / 3, a + 2 * (b - a) / 3, b]
+    curves[0, 5:7] = 4.5
+    mask[0, :7] = True
+    meta = np.array([[0, 0, 10, 9], [0, 0, 17, 17], [-2, -1, 12, 6]], np.int32)
+    plan = fitting.build_flat_plan(mask, meta, 2, 512)
+    chain = fitting.flat_chain_points(torch.tensor(curves), torch.zeros(3, 2), 2,
+                                      torch.as_tensor(plan.chunk_map).long())
+    return plan, chain.contiguous()
+
+
+def fit_inputs(batch, dev):
+    """The flat backend's kernel inputs at the start of the fit: the
+    point chain [2, N], mask words and tile table on the card."""
+    from versatiles_glyphs_tpu_torch.models import fitting
+
+    fitter = fitting.FontFitter(depth=FIT_DEPTH, backend="flat", device=dev)
+    params, _, db = fitter.init(batch)
+    with torch.no_grad():
+        pts = fitting.flat_chain_points(params["curves"], params["translate"], FIT_DEPTH,
+                                        db["chunk_map"]).contiguous()
+    return pts, db["plan_words"], db["plan_tmeta"]
+
+
+def phase_fit_kernels(batch) -> dict:
+    """Kernels 2 and 3 against their plain versions at the fit's shapes.
+    Returns the numbers of the kernels line."""
+    from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
+
+    dev = torch.device("cuda", 0)
+    pts, words, tmeta = fit_inputs(batch, dev)
+    plan, dpts_ = degenerate_fit_case()
+    cases = {"fit": (pts, words, tmeta),
+             "degenerate": tuple(t.to(dev) for t in (dpts_, torch.as_tensor(plan.mask_words),
+                                                     torch.as_tensor(plan.tmeta.T.copy())))}
+    out = {}
+    for key, (p, w, tm) in cases.items():
+        got = sdf_cuda.min_field_cuda_pts(p, w, tm, TP)
+        want = sdf_torch.min_field_pts(p, w, tm, TP)
+        torch.cuda.synchronize()
+        d2_bits = int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())
+        wn_off = int((got[1] != want[1]).sum())
+        am_off = int((got[2] != want[2]).sum())
+        rec = {"phase": "kernel", "kernel": "sdf_min_field_pts", "case": key,
+               "tiles": int(tm.shape[1]), "lanes": int(p.shape[1]),
+               "d2_bits_differ": d2_bits, "wn_differ": wn_off, "am_differ": am_off,
+               "max_abs_err": float((got[0] - want[0]).abs().max()),
+               "sentinels": int((got[2] == sdf_torch._BIGI).sum())}
+        if key == "fit":
+            rec["kernel_ms"] = out["min_ms"] = time_ms(
+                lambda: sdf_cuda.launch_min_field_pts(p, w, tm, TP), 50)
+            rec["call_ms"] = time_ms(lambda: sdf_cuda.min_field_cuda_pts(p, w, tm, TP), 50)
+            rec["plain_ms"] = out["min_plain_ms"] = time_ms(
+                lambda: sdf_torch.min_field_pts(p, w, tm, TP), 3)
+            out["min_err"] = rec["max_abs_err"]
+        emit(rec)
+        if d2_bits or wn_off or am_off:
+            raise AssertionError(f"min field {key}: kernel and plain version differ")
+        if key == "degenerate" and not rec["sentinels"]:
+            raise AssertionError("degenerate case: no sentinel pixel")
+
+    _, _, am = sdf_cuda.min_field_cuda_pts(pts, words, tmeta, TP)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ct = torch.randn(am.shape, generator=gen, device=dev)
+    i = tmeta[6][:, None] + torch.arange(TP, device=dev)[None, :]
+    ct = torch.where(i < (tmeta[2] * tmeta[3])[:, None], ct, 0.0).contiguous()
+    got = sdf_cuda.min_field_bwd_cuda(pts, am, ct, tmeta, TP)
+    again = sdf_cuda.min_field_bwd_cuda(pts, am, ct, tmeta, TP)
+    want = sdf_torch.min_field_bwd_pts(pts, am, ct, tmeta, TP)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    identical = bool(torch.equal(got, again))
+    rec = {"phase": "kernel", "kernel": "sdf_min_field_bwd", "case": "fit",
+           "tiles": int(tmeta.shape[1]), "lanes": int(pts.shape[1]),
+           "max_abs_err": err, "max_abs_plain": scale, "tolerance": 1e-4 * scale,
+           "bit_identical_rerun": identical,
+           "kernel_ms": time_ms(lambda: sdf_cuda.launch_min_field_bwd(pts, am, ct, tmeta, TP), 50),
+           "call_ms": time_ms(lambda: sdf_cuda.min_field_bwd_cuda(pts, am, ct, tmeta, TP), 50),
+           "plain_ms": time_ms(lambda: sdf_torch.min_field_bwd_pts(pts, am, ct, tmeta, TP), 3)}
+    emit(rec)
+    if not scale > 0 or err > 1e-4 * scale:
+        raise AssertionError(f"backward kernel off by {err} (plain max {scale})")
+    if not identical:
+        raise AssertionError("backward kernel differs between two runs")
+    out.update(bwd_err=err, bwd_ms=rec["kernel_ms"], bwd_plain_ms=rec["plain_ms"])
+    return out
 
 
 def render_font(name, preps, renderer, out_dir):
@@ -284,7 +418,7 @@ def phase_slice(font_list, work) -> int:
         got_dir = os.path.join(work, "cuda")
         sdf_cuda.reset_launches()
         secs, groups = render_font(name, preps, cuda_r, got_dir)
-        n_launch = sdf_cuda.LAUNCHES
+        n_launch = sdf_cuda.LAUNCHES["sdf_tiles_pts"]
         if not (n_launch > 0 and n_launch == groups):
             raise AssertionError(f"{name}: {n_launch} kernel launches for {groups} groups")
         launches += n_launch
@@ -327,6 +461,125 @@ def phase_slice(font_list, work) -> int:
     return launches
 
 
+def grads_agree(gt, gf, loss_t, loss_f) -> dict:
+    """The JAX package's check between its jnp and kernel backends: the
+    loss within 1e-5 relative; the translate and gain gradients within
+    1e-4·max|g|; curve gradients within 1e-3·max|g| on ≥ 85 % of
+    elements (the torch backend splits exact distance ties evenly, the
+    flat kernels give them to the first argmin) and per-glyph sums
+    within 1e-4·max|g|."""
+    res = {"loss_torch": loss_t, "loss_flat": loss_f,
+           "loss_rel_diff": abs(loss_t - loss_f) / max(abs(loss_t), 1e-12)}
+    ok = res["loss_rel_diff"] <= 1e-5
+    for k in ("translate", "log_gain"):
+        scale = max(float(gt[k].abs().max()), 1e-6)
+        res[f"{k}_max_diff_rel"] = float((gt[k] - gf[k]).abs().max()) / scale
+        ok &= res[f"{k}_max_diff_rel"] <= 1e-4
+    scale = max(float(gt["curves"].abs().max()), 1e-6)
+    delta = (gt["curves"] - gf["curves"]).abs()
+    res["curves_frac_off"] = float((delta > 1e-3 * scale).float().mean())
+    res["curves_glyph_sum_diff_rel"] = float(
+        (gt["curves"].sum((1, 2)) - gf["curves"].sum((1, 2))).abs().max()) / scale
+    ok &= res["curves_frac_off"] < 0.15 and res["curves_glyph_sum_diff_rel"] <= 1e-4
+    res["agree"] = bool(ok)
+    return res
+
+
+def phase_fit(batch, work) -> dict:
+    import dataclasses
+
+    from versatiles_glyphs_tpu_torch.models.fitting import FontFitter, build_flat_plan
+    from versatiles_glyphs_tpu_torch.models.render_fitted import render_fitted_pbfs
+    from versatiles_glyphs_tpu_torch.ops import sdf_cuda
+    from versatiles_glyphs_tpu_torch.render.driver import Renderer
+    from versatiles_glyphs_tpu_torch.utils.synth_font import SynthEntry
+
+    dev = torch.device("cuda", 0)
+    plan = build_flat_plan(batch.curve_mask, batch.meta, FIT_DEPTH, batch.target.shape[1])
+    emit({"phase": "fit", "step": "batch", "glyphs": int(batch.curves0.shape[0]),
+          "curves": int(batch.curve_mask.sum()), "curves_max": int(batch.curves0.shape[1]),
+          "depth": FIT_DEPTH, "lanes": plan.N, "tiles": plan.T,
+          "pixels": int(batch.pix_mask.sum()), "pixels_padded": int(batch.pix_mask.size),
+          "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+          "f32_matmul_precision": torch.get_float32_matmul_precision()})
+
+    fitter = FontFitter(depth=FIT_DEPTH, backend="flat", device=dev)
+    params, opt, db = fitter.init(batch)
+    torch.cuda.synchronize()
+    sdf_cuda.reset_launches()
+    t0 = time.perf_counter()
+    params, opt, losses = fitter.step_many(params, opt, db, FIT_STEPS)
+    secs = time.perf_counter() - t0
+    launches = dict(sdf_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    params, opt, more = fitter.step_many(params, opt, db, 10)
+    warm = (time.perf_counter() - t0) / 10
+    rec = {"phase": "fit", "step": "descend", "steps": FIT_STEPS, "seconds": secs,
+           "seconds_per_step_warm": warm, "loss_first": float(losses[0]),
+           "loss_min": float(losses.min()), "loss_last": float(losses[-1]),
+           "loss_after_30": float(more[-1]), "launches": launches}
+    emit(rec)
+    if not (np.isfinite(losses).all() and losses.min() < losses[0]):
+        raise AssertionError(f"the fit did not descend: {losses.tolist()}")
+    if not (launches["sdf_min_field_pts"] == launches["sdf_min_field_bwd"] == FIT_STEPS):
+        raise AssertionError(f"{launches} kernel launches for {FIT_STEPS} steps")
+
+    # 5 + 5 steps through a checkpoint against 10 steps.
+    p10, o10, d10 = fitter.init(batch)
+    fitter.step_many(p10, o10, d10, 10)
+    pa, oa, da = fitter.init(batch)
+    fitter.step_many(pa, oa, da, 5)
+    ckpt = os.path.join(work, "checkpoint")
+    FontFitter.save_checkpoint(ckpt, pa, oa)
+    pb, ob, db_ = fitter.init(batch)
+    pb, ob = FontFitter.restore_checkpoint(ckpt, like=(pb, ob))
+    fitter.step_many(pb, ob, db_, 5)
+    delta = max(float((p10[k] - pb[k]).detach().abs().max()) for k in p10)
+    emit({"phase": "fit", "step": "resume", "max_abs_diff_5_5_vs_10": delta})
+    if delta != 0.0:
+        raise AssertionError(f"5 + 5 resumed steps differ from 10 by {delta}")
+
+    # The torch and flat backends on the first 256-codepoint block.
+    rows = batch.codepoints < 256
+    block = dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name)[rows] for f in dataclasses.fields(batch)})
+    ft = FontFitter(depth=FIT_DEPTH, backend="torch", device=dev)
+    ff = FontFitter(depth=FIT_DEPTH, backend="flat", device=dev)
+    pt, _, dt = ft.init(block)
+    pf, _, df = ff.init(block)
+    lt, gt = ft.value_and_grad(pt, dt)
+    lf, gf = ff.value_and_grad(pf, df)
+    cmp = grads_agree(gt, gf, float(lt), float(lf))
+    emit({"phase": "fit", "step": "backends", "glyphs": int(rows.sum()), **cmp})
+    if not cmp["agree"]:
+        raise AssertionError("torch and flat backends disagree")
+
+    # The fitted atlas: cuda renderer against the exact one, on the f32
+    # wire. Fitted curves no longer share end points, so every curve is
+    # an open chain; on the q16 wires a pixel row through a chain end
+    # within rounding of its center flips its winding (the JAX package
+    # renders fitted atlases the same way).
+    entry = SynthEntry(1700, 32, seed=0, quads=8)
+    host = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    sdf_cuda.reset_launches()
+    t0 = time.perf_counter()
+    written = render_fitted_pbfs(host, batch, entry, FIT_DEPTH, os.path.join(work, "fit_cuda"),
+                                 "synth_fit", renderer=Renderer("cuda", transport="f32"))
+    render_s = time.perf_counter() - t0
+    render_launches = sdf_cuda.LAUNCHES["sdf_tiles_pts"]
+    render_fitted_pbfs(host, batch, entry, FIT_DEPTH, os.path.join(work, "fit_exact"),
+                       "synth_fit", renderer=Renderer("exact"))
+    files, n_glyphs, n_pix, n_diff, max_d = compare_trees(
+        "synth_fit", os.path.join(work, "fit_cuda"), os.path.join(work, "fit_exact"))
+    frac = n_diff / max(n_pix, 1)
+    emit({"phase": "fit", "step": "render", "blocks": files, "written": len(written),
+          "glyphs": n_glyphs, "seconds": render_s, "launches": render_launches,
+          "pixels": n_pix, "pixels_off_by_1": n_diff, "frac_off": frac, "max_abs_diff": max_d})
+    if max_d > 1 or frac > 0.05 or not render_launches or files != len(written):
+        raise AssertionError(f"fitted atlas: max |Δ| {max_d} on {frac:.4%} of pixels")
+    return launches
+
+
 def main() -> None:
     # Both checks come before any output: without a card, or outside a
     # checkout of the repo, the script prints no result.
@@ -337,20 +590,31 @@ def main() -> None:
     phase_device()
     phase_build()
     font_list = fonts()
+    batch = fit_batch()
     k = phase_kernel(font_list[0][1])
+    kf = phase_fit_kernels(batch)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
         launches = phase_slice(font_list, work)
+        fit_launches = phase_fit(batch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    emit({"kernels": [{
-        "name": "sdf_tiles_pts", "route": "cuda",
-        "source": "versatiles_glyphs_tpu_torch/csrc/sdf_tiles_pts.cu",
-        "replaces": "versatiles_glyphs_tpu/ops/sdf_pallas.py:61",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"],
-    }]})
+    src = "versatiles_glyphs_tpu_torch/csrc/"
+    emit({"kernels": [
+        {"name": "sdf_tiles_pts", "route": "cuda", "source": src + "sdf_tiles_pts.cu",
+         "replaces": "versatiles_glyphs_tpu/ops/sdf_pallas.py:61",
+         "launches": launches, "max_abs_err": k["max_abs_err"],
+         "ms": k["ms"], "plain_ms": k["plain_ms"]},
+        {"name": "sdf_min_field_pts", "route": "cuda", "source": src + "sdf_min_field_pts.cu",
+         "replaces": "versatiles_glyphs_tpu/ops/sdf_pallas.py:339",
+         "launches": fit_launches["sdf_min_field_pts"], "max_abs_err": kf["min_err"],
+         "ms": kf["min_ms"], "plain_ms": kf["min_plain_ms"]},
+        {"name": "sdf_min_field_bwd", "route": "cuda", "source": src + "sdf_min_field_bwd.cu",
+         "replaces": "versatiles_glyphs_tpu/ops/sdf_grad.py:492",
+         "launches": fit_launches["sdf_min_field_bwd"], "max_abs_err": kf["bwd_err"],
+         "ms": kf["bwd_ms"], "plain_ms": kf["bwd_plain_ms"]},
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -1,9 +1,11 @@
-"""versatiles_glyphs_tpu_torch — the atlas render path on PyTorch and CUDA.
+"""versatiles_glyphs_tpu_torch — the atlas render and outline-fitting
+paths on PyTorch and CUDA.
 
 A port of `versatiles_glyphs_tpu` (JAX/Pallas on a TPU) to PyTorch with
 hand-written CUDA kernels for NVIDIA Hopper (``sm_90a``). The JAX
 package stays the reference every module here is held against. This
-package imports `torch` and never `jax`.
+package imports `torch` and never `jax`; the fit path below the CLI
+also imports no optax, orbax or fontTools.
 
 Reused by import from `versatiles_glyphs_tpu` (free of JAX, so byte
 parity of metrics, PBF and tar holds by construction):
@@ -13,25 +15,46 @@ parity of metrics, PBF and tar holds by construction):
 - ``proto.{pbf, native}``
 - ``writer``
 - ``ops.{flatten, sdf_ref}``
+- ``models.render_fitted.{fitted_prep, fitted_preps}`` (fitted control
+  points → `GlyphPrep`s; free of JAX and fontTools at import time)
 - ``utils.{arena, progress, output_dir, synth_font}``
 - ``constants``
 
 A module has a counterpart here only where its import chain or call
 path reaches JAX.
 
-Layers, from the entry point down to the device:
+Layers, from the entry points down to the device:
 
-- ``cli``             — recurse / merge / debug (``--renderer cuda``)
-- ``font.manager``    — the JAX package's scheduler, single-process
-- ``render.driver``   — `Renderer` backends and the `RenderSession`
-                        that packs glyph groups and dispatches them
-- ``render.batch``    — the point-chain and i8-delta packers, and
-                        `wire_to_device`
-- ``ops.sdf_cuda``    — kernel wrappers with the launch counter
-- ``ops.sdf_torch``   — plain PyTorch versions of every device op
-- ``ops._build``      — nvcc build of ``csrc/*.cu``, loaded by ctypes
-- ``csrc/sdf_tiles_pts.cu`` — the per-pixel SDF tile kernel
-- ``device``          — the CUDA device predicate (no CPU fallback)
+- ``cli``                   — recurse / merge / debug (``--renderer
+                              cuda``) and fit (``--backend {torch,flat}``,
+                              ``--device``, ``--resume``, ``--render``)
+- ``font.manager``          — the JAX package's scheduler, single-process
+- ``models.fitting``        — `FontFitter` (`torch.optim.Adam`, torch
+                              checkpoints), the flat plan, the Bernstein
+                              point chain, the batches, and the carry of
+                              JAX parameters and optax state
+- ``models.glyph_model``    — the differentiable pair-tensor model (the
+                              ``torch`` backend)
+- ``models.render_fitted``  — fitted parameters → a glyph atlas
+- ``render.driver``         — `Renderer` backends and the `RenderSession`
+                              that packs glyph groups and dispatches them
+- ``render.batch``          — the point-chain and i8-delta packers, and
+                              `wire_to_device`
+- ``ops.sdf_grad``          — `signed_field_flat`, the autograd function
+                              over the fitting kernels (the ``flat``
+                              backend)
+- ``ops.sdf_cuda``          — kernel wrappers with the launch counters
+- ``ops.sdf_torch``         — plain PyTorch versions of every device op
+- ``ops._build``            — nvcc build of ``csrc/*.cu``, loaded by ctypes
+- ``csrc/sdf_tiles_pts.cu``     — the per-pixel SDF tile kernel (render)
+- ``csrc/sdf_min_field_pts.cu`` — min d², winding, first argmin (fit
+                                  forward)
+- ``csrc/sdf_min_field_bwd.cu`` — the deterministic per-lane gradient
+                                  reduction (fit backward)
+- ``csrc/sdf_pair.cuh``         — the per-pixel math the three share
+- ``device``                — the CUDA device predicate (no CPU fallback)
+- ``utils.synth_font``      — synthesized curved fonts, fit batches and
+                              entries, with no font file
 """
 
 __version__ = "0.1.0"

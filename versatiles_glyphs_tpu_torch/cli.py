@@ -1,19 +1,23 @@
-"""Command-line interface of the port: recurse / merge / debug.
+"""Command-line interface of the port: recurse / merge / debug / fit.
 
 The same commands and flags as `versatiles_glyphs_tpu.cli`, except
-``--renderer {auto,cuda,torch,exact,zeros}``. ``fit`` comes with the
-fitting slice. The directory scan and ``debug`` are the JAX package's
-own functions. stdout carries the payload (tar stream, debug CSV);
-status goes to stderr.
+``--renderer {auto,cuda,torch,exact,zeros}`` and, for ``fit``,
+``--backend {torch,flat}`` (the JAX ``jnp``/``pallas``) and
+``--device`` (default: the first CUDA device; the CPU only by name).
+``fit --mesh`` above 1 is refused until the port runs on several
+devices. The directory scan, the codepoint parser and ``debug`` are the
+JAX package's own functions. stdout carries the payload (tar stream,
+debug CSV); status goes to stderr.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
-from versatiles_glyphs_tpu.cli import cmd_debug, scan
+from versatiles_glyphs_tpu.cli import _parse_codepoints, cmd_debug, scan
 from versatiles_glyphs_tpu.utils.output_dir import prepare_output_directory
 from versatiles_glyphs_tpu.writer import Writer
 
@@ -78,6 +82,92 @@ def cmd_merge(args, stdout) -> None:
     _run_pipeline(args, manager, stdout)
 
 
+def cmd_fit(args, stdout) -> None:
+    """Fit a font's outlines to another font's SDF bitmaps by gradient
+    descent on control points. Writes ``fitted.npz`` (the JAX CLI's keys
+    and row mapping), ``checkpoint`` (`FontFitter.save_checkpoint`) and
+    ``history.json``; ``--render`` adds the fitted atlas under
+    ``glyphs/``."""
+    import numpy as np
+
+    from versatiles_glyphs_tpu.font.entry import FontFileEntry
+
+    from .models.fitting import FontFitter, make_fit_batch
+
+    if args.mesh > 1:
+        raise ValueError(
+            f"--mesh {args.mesh}: the port fits on one device for now "
+            "(multi-device fitting comes with the torch.distributed slice)"
+        )
+    with open(args.font, "rb") as f:
+        entry = FontFileEntry(f.read())
+    target_entry = entry
+    if args.target_font:
+        with open(args.target_font, "rb") as f:
+            target_entry = FontFileEntry(f.read())
+
+    fitter = FontFitter(
+        depth=args.depth, learning_rate=args.lr, sharpness=args.sharpness,
+        backend=args.backend, device=args.device,
+    )
+    batch = make_fit_batch(entry, _parse_codepoints(args.codepoints), depth=args.depth,
+                           target_entry=target_entry)
+    print(
+        f"Fitting {batch.curves0.shape[0]} glyphs ({batch.curves0.shape[1]} curves max, "
+        f"depth {args.depth}) for {args.steps} steps on {fitter.device}",
+        file=sys.stderr,
+    )
+    params, opt, dev_batch = fitter.init(batch)
+    if args.resume:
+        params, opt = FontFitter.restore_checkpoint(args.resume, like=(params, opt))
+        print(f"Resumed from checkpoint {args.resume!r}", file=sys.stderr)
+
+    # The losses come back to the host once per chunk of steps.
+    log_every = max(1, args.steps // 20)
+    chunk = min(FontFitter.CHUNK, log_every)
+    history = []
+    done = 0
+    while done < args.steps:
+        k = min(chunk, args.steps - done)
+        params, opt, losses = fitter.step_many(params, opt, dev_batch, k)
+        for j in range(k):
+            i = done + j
+            if i % log_every == 0 or i == args.steps - 1:
+                history.append((i, float(losses[j])))
+                print(f"step {i}: loss {float(losses[j]):.6f}", file=sys.stderr)
+        done += k
+
+    out = os.path.abspath(args.output)
+    os.makedirs(out, exist_ok=True)
+    host = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    np.savez(
+        os.path.join(out, "fitted.npz"),
+        curves=host["curves"],
+        translate=host["translate"],
+        log_gain=host["log_gain"],
+        curve_mask=batch.curve_mask,
+        # The FITTED codepoints: rows map to these, not to the request.
+        codepoints=np.asarray(batch.codepoints),
+    )
+    FontFitter.save_checkpoint(os.path.join(out, "checkpoint"), params, opt)
+    with open(os.path.join(out, "history.json"), "w") as f:
+        json.dump([{"step": s, "loss": v} for s, v in history], f, indent=2)
+    print(f"Wrote fitted parameters to {out!r}", file=sys.stderr)
+
+    if args.render:
+        from versatiles_glyphs_tpu.font.names import name_to_id
+
+        from .models.render_fitted import render_fitted_pbfs
+
+        glyph_dir = os.path.join(out, "glyphs")
+        written = render_fitted_pbfs(
+            host, batch, entry, args.depth, glyph_dir,
+            name_to_id(entry.metadata.generate_name()),
+            renderer=Renderer(args.render_backend),
+        )
+        print(f"Rendered {len(written)} fitted glyph block(s) to {glyph_dir!r}", file=sys.stderr)
+
+
 def build_parser() -> argparse.ArgumentParser:
     from . import __version__
 
@@ -103,6 +193,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("glyph_directory")
     p.add_argument("--format", "-f", choices=("csv", "tsv"), default="csv")
     p.set_defaults(func=cmd_debug)
+
+    p = sub.add_parser("fit", help="fit outlines to target SDFs by gradient descent")
+    p.add_argument("font", help="font whose outlines are optimized")
+    p.add_argument("--target-font", default=None,
+                   help="font providing target SDF bitmaps (default: self)")
+    p.add_argument("--codepoints", default="65-90", help="e.g. '65-90,97,0x100-0x17F'")
+    p.add_argument("-o", "--output", default="fit_output")
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--depth", type=int, default=3, help="fixed Bezier subdivision depth")
+    p.add_argument("--sharpness", type=float, default=None,
+                   help="softmin sharpness (default: hard min; torch backend only)")
+    p.add_argument("--backend", choices=("torch", "flat"), default="torch",
+                   help="gradient backend: autograd of the pair-tensor model, or "
+                   "the flat min-field kernel pair (hard min only)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: the first CUDA device; 'cpu' runs "
+                   "the kernels' plain versions)")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="shard the batch over this many devices (only 0 or 1 for now)")
+    p.add_argument("--render", action="store_true",
+                   help="after fitting, render the fitted outlines into "
+                   "{output}/glyphs/ (readable by `debug`)")
+    p.add_argument("--resume", default=None, metavar="CHECKPOINT",
+                   help="resume from a previous run's {output}/checkpoint file")
+    p.add_argument("--render-backend", choices=BACKENDS, default="auto",
+                   help=argparse.SUPPRESS)
+    p.set_defaults(func=cmd_fit)
     return parser
 
 

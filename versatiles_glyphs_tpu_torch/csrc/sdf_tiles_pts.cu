@@ -28,16 +28,16 @@
 // byte equality. The build passes --fmad=false so that no multiply and
 // add contract into an FMA, and the divides and the square root are
 // the correctly rounded intrinsics. 1/l2 and 1/dy are reciprocals that
-// multiply, as on the TPU; they are not folded into one divide. Rows
-// and columns come from integer div/mod, as in ops/sdf_jax.py.
+// multiply, as on the TPU; they are not folded into one divide. The
+// per-pixel math is shared with the fitting kernels (sdf_pair.cuh).
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "sdf_pair.cuh"
 
-constexpr float kBig = 3.0e38f;  // distance of a masked segment
+namespace {
 
 __global__ void sdf_tiles_pts_kernel(
     const float* __restrict__ pts, int n_lanes,
@@ -47,82 +47,32 @@ __global__ void sdf_tiles_pts_kernel(
     uint8_t* __restrict__ out) {
   extern __shared__ float smem[];
   const int tp = blockDim.x;
-  float* s_vx = smem;
-  float* s_vy = s_vx + tp;
-  float* s_wy = s_vy + tp;
-  float* s_dx = s_wy + tp;
-  float* s_dy = s_dx + tp;
-  float* s_l2inv = s_dy + tp;
-  float* s_dyinv = s_l2inv + tp;
-  int* s_ok = reinterpret_cast<int*>(s_dyinv + tp);
+  const vg::SegChunk seg(smem, tp);
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  const int x0 = tmeta[0 * n_tiles + t];
-  const int y0 = tmeta[1 * n_tiles + t];
-  const int w = tmeta[2 * n_tiles + t];
-  const int h = tmeta[3 * n_tiles + t];
-  const int npts = tmeta[4 * n_tiles + t];
-  const int off = tmeta[5 * n_tiles + t];
-  const int base = tmeta[6 * n_tiles + t];
+  const vg::TileRow r = vg::load_tile(tmeta, n_tiles, t);
   uint8_t* dst = out + static_cast<size_t>(t) * tp + tid;
 
-  if (base >= w * h) {  // the same for every thread of the block
+  if (r.base >= r.w * r.h) {  // the same for every thread of the block
     *dst = 0;
     return;
   }
 
-  const int i = base + tid;
-  const int ws = max(w, 1);
-  const int row = i / ws;
-  const int x = i - row * ws;
-  const int y = h - 1 - row;
-  const float pxc = static_cast<float>(x0) + static_cast<float>(x) + 0.5f;
-  const float pyc = static_cast<float>(y0) + static_cast<float>(y) + 0.5f;
+  float pxc, pyc;
+  vg::pixel_center(r, r.base + tid, pxc, pyc);
 
-  float dmin = kBig;
+  float dmin = vg::kBig;
   int wn = 0;
-  const int last = off + npts - 1;  // segments are lanes [off, last)
-  for (int c0 = off; c0 < last; c0 += tp) {
+  const int last = r.off + r.npts - 1;  // segments are lanes [off, last)
+  for (int c0 = r.off; c0 < last; c0 += tp) {
     const int lane = c0 + tid;
-    if (lane < last) {
-      const float vx = pts[lane];
-      const float vy = pts[n_lanes + lane];
-      const float wx = pts[lane + 1];
-      const float wy = pts[n_lanes + lane + 1];
-      const float dx = wx - vx;
-      const float dy = wy - vy;
-      const float l2 = dx * dx + dy * dy;
-      const uint32_t word = static_cast<uint32_t>(mask_words[lane >> 5]);
-      s_vx[tid] = vx;
-      s_vy[tid] = vy;
-      s_wy[tid] = wy;
-      s_dx[tid] = dx;
-      s_dy[tid] = dy;
-      s_l2inv[tid] = l2 > 0.0f ? __fdiv_rn(1.0f, l2) : 0.0f;
-      s_dyinv[tid] = dy != 0.0f ? __fdiv_rn(1.0f, dy) : 0.0f;
-      s_ok[tid] = (word >> (lane & 31)) & 1u;
-    }
+    if (lane < last) seg.stage(pts, n_lanes, mask_words, lane, tid);
     __syncthreads();
     const int nseg = min(tp, last - c0);
     for (int j = 0; j < nseg; ++j) {
-      if (!s_ok[j]) continue;  // the same segment for every thread
-      const float vx = s_vx[j];
-      const float vy = s_vy[j];
-      const float dx = s_dx[j];
-      const float dy = s_dy[j];
-      const float ex = pxc - vx;
-      const float ey = pyc - vy;
-      const float num = ex * dx + ey * dy;
-      const float tc = fminf(fmaxf(num * s_l2inv[j], 0.0f), 1.0f);
-      const float qx = ex - tc * dx;
-      const float qy = ey - tc * dy;
-      dmin = fminf(dmin, qx * qx + qy * qy);
-
-      const bool c1 = vy <= pyc;
-      const bool cross = c1 != (s_wy[j] <= pyc);
-      const float cx = vx + (ey * s_dyinv[j]) * dx;
-      if (cross && cx <= pxc) wn += c1 ? 1 : -1;
+      if (!seg.ok[j]) continue;  // the same segment for every thread
+      dmin = fminf(dmin, seg.d2_and_winding(j, pxc, pyc, wn));
     }
     __syncthreads();
   }
@@ -145,7 +95,7 @@ extern "C" int vg_sdf_tiles_pts(
     const void* pts, int n_lanes, const void* mask_words, const void* tmeta,
     int n_tiles, int tp, float scale, float cutoff, void* out, void* stream) {
   if (n_tiles == 0) return 0;
-  const size_t smem = 8 * static_cast<size_t>(tp) * sizeof(float);
+  const size_t smem = vg::kSegChunkWords * static_cast<size_t>(tp) * sizeof(float);
   sdf_tiles_pts_kernel<<<n_tiles, tp, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pts), n_lanes,
       static_cast<const int32_t*>(mask_words),

@@ -1,0 +1,455 @@
+"""Font fitting: gradient descent on outline control points
+(counterpart of `versatiles_glyphs_tpu.models.fitting`).
+
+Parameters, a dict of f32 leaf tensors:
+
+- ``curves``    [B, C, 4, 2] — per-glyph cubic control points (pixels)
+- ``translate`` [B, 2]       — per-glyph placement
+- ``log_gain``  []           — a shared global scale
+
+Two gradient backends:
+
+- ``"torch"`` (the JAX package's ``jnp``): autograd of the pair-tensor
+  model `models.glyph_model.glyph_field`, hard min or softmin;
+- ``"flat"`` (the JAX package's ``pallas``): the flat point-chain /
+  tile-table layout of `build_flat_plan` through `ops.sdf_grad`, whose
+  forward and backward are the hand-written min-field kernels on a CUDA
+  device and their plain versions on the CPU. Hard min only.
+
+`torch.optim.Adam` takes optax's place and `torch.save` orbax's;
+`params_from_numpy` and `adam_state_from_optax` carry a JAX run's
+parameters and Adam state across. `make_fit_batch` reads a font file
+(fontTools, through the entry it is given); nothing here imports
+fontTools, JAX, optax or orbax.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..device import cuda_device
+from ..render.batch import S_BUCKETS, SC, bucket
+from .glyph_model import bytes_to_field, glyph_field, sdf_loss
+
+PARAM_KEYS = ("curves", "translate", "log_gain")
+BT = 4  # tile rows per TPU grid program: the flat plan pads T to a multiple
+
+
+@dataclass
+class FitBatch:
+    """Host-side fitting workload (see `make_fit_batch`)."""
+
+    curves0: np.ndarray  # [B, C, 4, 2] initial control points
+    curve_mask: np.ndarray  # [B, C] bool
+    px: np.ndarray  # [B, P] pixel-center x
+    py: np.ndarray  # [B, P] pixel-center y
+    pix_mask: np.ndarray  # [B, P] f32 (1 = real pixel)
+    target: np.ndarray  # [B, P] target signed distances
+    meta: np.ndarray | None = None  # [B, 4] i32 (x0, y0, w, h) per glyph
+    codepoints: np.ndarray | None = None  # [B] i32: the FITTED codepoints
+
+
+def params_from_numpy(params, device=None) -> dict:
+    """Parameters as f32 leaf tensors that require grad, from numpy
+    arrays (the JAX package's ``fitted.npz`` or `np.asarray` of its
+    parameter pytree) under the keys ``curves``, ``translate``,
+    ``log_gain``."""
+    return {
+        k: torch.tensor(np.asarray(params[k], np.float32), device=device).requires_grad_()
+        for k in PARAM_KEYS
+    }
+
+
+def init_params(curves0: np.ndarray, device=None) -> dict:
+    return params_from_numpy(
+        {
+            "curves": curves0,
+            "translate": np.zeros((curves0.shape[0], 2), np.float32),
+            "log_gain": np.zeros((), np.float32),
+        },
+        device,
+    )
+
+
+def adam_state_from_optax(opt_state, opt: torch.optim.Adam) -> dict:
+    """A state dict for ``opt.load_state_dict`` from an optax Adam state
+    as numpy (``jax.tree.map(np.asarray, opt_state)``): the
+    ``ScaleByAdamState`` (count, mu, nu), alone or inside optax.adam's
+    chain tuple. ``opt`` must hold the parameters in `PARAM_KEYS` order.
+    optax and `torch.optim.Adam` compute the same update but round it
+    differently in f32."""
+    parts = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    adam = next((s for s in parts if hasattr(s, "mu") and hasattr(s, "nu")), None)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the optax state")
+    sd = opt.state_dict()
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    sd["state"] = {
+        i: {
+            "step": step.clone(),
+            "exp_avg": torch.tensor(np.asarray(adam.mu[k], np.float32)),
+            "exp_avg_sq": torch.tensor(np.asarray(adam.nu[k], np.float32)),
+        }
+        for i, k in enumerate(PARAM_KEYS)
+    }
+    return sd
+
+
+def batch_loss(params, batch: dict, depth: int, sharpness) -> torch.Tensor:
+    """Mean over glyphs of the masked SDF loss, the pair-tensor model
+    broadcast over the batch (the JAX package vmaps it)."""
+    field = glyph_field(
+        params["curves"], batch["curve_mask"], params["translate"],
+        batch["px"], batch["py"], depth=depth, sharpness=sharpness,
+    )
+    losses = sdf_loss(field * torch.exp(params["log_gain"]), batch["target"], batch["pix_mask"])
+    return torch.mean(losses)
+
+
+@dataclass
+class FlatKernelPlan:
+    """Static launch plan of the flat backend (see `build_flat_plan`)."""
+
+    K: int  # chain points per curve (2^depth + 1)
+    N: int  # flat lane count (a multiple of SC, with slack)
+    T: int  # real tiles
+    TP: int
+    L_max: int  # bucketed max chain length (sizes the slack)
+    tmeta: np.ndarray  # [T_pad, 8] i32 row-major tile table
+    mask_words: np.ndarray  # [N//32] i32 validity bits
+    row_map: np.ndarray  # [B, P_pad//TP] i32 field-row gather map
+    chunk_map: np.ndarray  # [N//128] i32: lane chunk → source 128-block
+
+
+def build_flat_plan(
+    curve_mask: np.ndarray,
+    metas: np.ndarray,
+    depth: int,
+    P_pad: int,
+    TP: int = 256,
+) -> FlatKernelPlan:
+    """Host-side static plan of the flat backend, array for array the
+    JAX package's (`models.fitting.build_flat_plan`).
+
+    Glyph ``g``'s chain takes lanes ``[offs_g, offs_g + npts_g)``,
+    ``npts_g = ncurves_g·K``, at tight SC-aligned offsets; each curve
+    gives its K points with the last one's validity bit cleared (a chain
+    break). Glyph g owns ``ceil(w·h / TP)`` consecutive tile rows whose
+    pix_base runs 0, TP, 2·TP, …, which is also the per-glyph table the
+    backward kernel reads (first row: pix_base 0). The table is padded
+    to a multiple of BT with skip rows. ``chunk_map`` maps each 128-lane
+    chunk to a 128-point block of the chain tensor; ``row_map[g, t]``
+    maps loss-layout pixel tiles to field rows (out-of-range tiles point
+    at the glyph's last tile; their pixels are masked)."""
+    B, C_pad = curve_mask.shape
+    K = (1 << depth) + 1
+    npts = curve_mask.sum(axis=1).astype(np.int64) * K
+    runs = -(-np.maximum(npts, 1) // SC) * SC
+    offs = np.concatenate([[0], np.cumsum(runs)[:-1]])
+    wh = metas[:, 2].astype(np.int64) * metas[:, 3].astype(np.int64)
+    ntiles = np.maximum(1, -(-wh // TP))
+    tstart = np.concatenate([[0], np.cumsum(ntiles)[:-1]])
+    T = int(ntiles.sum())
+    T_pad = -(-T // BT) * BT
+
+    tmeta = np.zeros((T_pad, 8), np.int32)
+    g_of = np.repeat(np.arange(B), ntiles)
+    tmeta[:T, :4] = metas[g_of, :4]
+    tmeta[:T, 4] = npts[g_of]
+    tmeta[:T, 5] = offs[g_of]
+    tmeta[:T, 6] = (np.arange(T) - tstart[g_of]) * TP
+
+    L_max = bucket(int(npts.max(initial=1)), S_BUCKETS)
+    N = int(runs.sum()) + -(-(L_max + 1) // SC) * SC
+
+    valid = np.zeros(N, np.uint8)
+    nblk = -(-(C_pad * K) // SC) * SC // 128
+    chunk_map = np.zeros(N // 128, np.int32)
+    # Lane offs_g + c·K + j (c < ncurves_g) starts a live segment iff j < K-1.
+    jpat = (np.arange(C_pad * K) % K) < (K - 1)
+    for g in range(B):
+        n = int(npts[g])
+        valid[offs[g] : offs[g] + n] = jpat[:n]
+        nb = int(runs[g]) // 128
+        c0 = int(offs[g]) // 128
+        chunk_map[c0 : c0 + nb] = g * nblk + np.arange(nb)
+    mask_words = np.packbits(valid, bitorder="little").view("<u4").view(np.int32).copy()
+
+    if P_pad % TP:
+        raise ValueError(f"P_pad={P_pad} must be a multiple of TP={TP}")
+    t = np.arange(P_pad // TP)[None, :]
+    row_map = (tstart[:, None] + np.minimum(t, (ntiles - 1)[:, None])).astype(np.int32)
+    return FlatKernelPlan(
+        K=K, N=N, T=T, TP=TP, L_max=L_max,
+        tmeta=tmeta, mask_words=mask_words, row_map=row_map, chunk_map=chunk_map,
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _bernstein_matrix(depth: int, device: torch.device) -> torch.Tensor:
+    """[K, 4] f32 Bernstein evaluation matrix at the K = 2^depth + 1
+    dyadic parameters, on ``device`` (made once: a copy from the host
+    would synchronize every step). The rows at t = 0 and 1 are exact
+    unit vectors, so chain endpoints equal the control points bitwise."""
+    K = (1 << depth) + 1
+    t = np.arange(K, dtype=np.float64) / (K - 1)
+    M = np.stack([(1 - t) ** 3, 3 * t * (1 - t) ** 2, 3 * t * t * (1 - t), t**3], axis=1)
+    return torch.from_numpy(M.astype(np.float32)).to(device)
+
+
+def flat_chain_points(curves, translate, depth: int, chunk_map) -> torch.Tensor:
+    """The flat point chain [2, N] f32 from padded control points: per
+    curve the K = 2^depth + 1 points at dyadic parameters by one
+    Bernstein matmul in full f32, then one gather of 128-point blocks
+    into the plan's lane layout (its backward is a scatter-add)."""
+    B, C_pad = curves.shape[:2]
+    K = (1 << depth) + 1
+    c = curves + translate[:, None, None, :]
+    chain = torch.einsum("kj,bcjd->bckd", _bernstein_matrix(depth, c.device), c)
+    CK = C_pad * K
+    CK_pad = -(-CK // SC) * SC
+    chain = torch.nn.functional.pad(chain.reshape(B, CK, 2), (0, 0, 0, CK_pad - CK))
+    nblk = CK_pad // 128
+    blocks = chain.reshape(B * nblk, 128, 2).transpose(1, 2)  # [B·nblk, 2, 128]
+    return blocks.index_select(0, chunk_map).transpose(0, 1).reshape(2, -1)
+
+
+def make_flat_kernel_loss(plan: FlatKernelPlan, depth: int):
+    """Loss of the flat backend. The plan's arrays ride in the device
+    batch (``plan_tmeta`` [8, T_pad], ``plan_words``, ``row_map``,
+    ``chunk_map``); its static ints are closed over."""
+    from ..ops.sdf_grad import signed_field_flat
+
+    TP = plan.TP
+
+    def loss_fn(params, batch):
+        flat = flat_chain_points(params["curves"], params["translate"], depth, batch["chunk_map"])
+        field = signed_field_flat(flat, batch["plan_words"], batch["plan_tmeta"], TP)
+        B = params["curves"].shape[0]
+        fb = field.index_select(0, batch["row_map"].reshape(-1)).reshape(B, -1)
+        losses = sdf_loss(fb * torch.exp(params["log_gain"]), batch["target"], batch["pix_mask"])
+        return torch.mean(losses)
+
+    return loss_fn
+
+
+class FontFitter:
+    """Owns the loss, the optimizer and the train step on one device."""
+
+    # Steps per `fit` chunk: the losses are fetched once per chunk.
+    CHUNK = 10
+
+    def __init__(
+        self,
+        depth: int = 3,
+        learning_rate: float = 0.01,
+        sharpness: float | None = None,
+        backend: str = "torch",
+        device=None,
+    ):
+        """``backend="torch"`` autodiffs the pair-tensor model;
+        ``"flat"`` runs forward and backward through the min-field
+        kernels (hard min only). ``device``: a torch device or its name;
+        None or ``"cuda"`` is the first CUDA device and raises without
+        one. The CPU runs only when asked for by name."""
+        if backend not in ("torch", "flat"):
+            raise ValueError(f"unknown fitting backend {backend!r}")
+        if backend == "flat" and sharpness is not None:
+            raise ValueError("backend='flat' supports hard-min only")
+        self.device = cuda_device() if device in (None, "cuda") else torch.device(device)
+        if self.device.type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"
+        ):
+            raise ValueError(
+                "the Bernstein matmul needs full f32: turn TF32 matmuls off "
+                "(torch.backends.cuda.matmul.allow_tf32 = False, float32 "
+                "matmul precision 'highest')"
+            )
+        self.depth = depth
+        self.learning_rate = learning_rate
+        self.sharpness = sharpness
+        self.backend = backend
+        self._loss = None  # built by init()
+
+    # -- state ----------------------------------------------------------
+
+    def init(self, batch: FitBatch):
+        """Initial (params, optimizer, device batch)."""
+        dev = self.device
+        if self.backend == "flat" and batch.meta is None:
+            raise ValueError("backend='flat' needs FitBatch.meta")
+        dev_batch = {
+            "curve_mask": torch.as_tensor(batch.curve_mask, device=dev),
+            "px": torch.as_tensor(batch.px, dtype=torch.float32, device=dev),
+            "py": torch.as_tensor(batch.py, dtype=torch.float32, device=dev),
+            "pix_mask": torch.as_tensor(batch.pix_mask, dtype=torch.float32, device=dev),
+            "target": torch.as_tensor(batch.target, dtype=torch.float32, device=dev),
+        }
+        if self.backend == "flat":
+            plan = build_flat_plan(batch.curve_mask, batch.meta, self.depth, batch.target.shape[1])
+            self._loss = make_flat_kernel_loss(plan, self.depth)
+            dev_batch["plan_tmeta"] = torch.as_tensor(plan.tmeta.T.copy(), device=dev)
+            dev_batch["plan_words"] = torch.as_tensor(plan.mask_words, device=dev)
+            dev_batch["row_map"] = torch.as_tensor(plan.row_map, dtype=torch.int64, device=dev)
+            dev_batch["chunk_map"] = torch.as_tensor(plan.chunk_map, dtype=torch.int64, device=dev)
+        else:
+            depth, sharpness = self.depth, self.sharpness
+            self._loss = lambda p, b: batch_loss(p, b, depth, sharpness)
+        params = init_params(batch.curves0, dev)
+        opt = torch.optim.Adam([params[k] for k in PARAM_KEYS], lr=self.learning_rate)
+        return params, opt, dev_batch
+
+    def loss(self, params, dev_batch) -> torch.Tensor:
+        return self._loss(params, dev_batch)
+
+    def value_and_grad(self, params, dev_batch):
+        """(loss, {key: gradient}) at ``params``, leaving their .grad
+        untouched."""
+        loss = self._loss(params, dev_batch)
+        grads = torch.autograd.grad(loss, [params[k] for k in PARAM_KEYS])
+        return loss.detach(), dict(zip(PARAM_KEYS, grads))
+
+    def step(self, params, opt, dev_batch):
+        """One Adam step in place; returns (params, opt, loss)."""
+        opt.zero_grad(set_to_none=True)
+        loss = self._loss(params, dev_batch)
+        loss.backward()
+        opt.step()
+        return params, opt, loss.detach()
+
+    def step_many(self, params, opt, dev_batch, k: int):
+        """``k`` steps; the losses come back to the host once, as a
+        numpy array [k]."""
+        losses = [self.step(params, opt, dev_batch)[2] for _ in range(k)]
+        return params, opt, torch.stack(losses).cpu().numpy()
+
+    def fit(self, batch: FitBatch, steps: int = 200, log_every: int = 0):
+        params, opt, dev_batch = self.init(batch)
+        history = []
+        chunk = min(self.CHUNK, log_every) if log_every else self.CHUNK
+        i = 0
+        while i < steps:
+            k = min(chunk, steps - i)
+            params, opt, losses = self.step_many(params, opt, dev_batch, k)
+            if log_every:
+                for j in range(k):
+                    s = i + j
+                    if s % log_every == 0 or s == steps - 1:
+                        history.append((s, float(losses[j])))
+            i += k
+        return params, history
+
+    # -- checkpointing (torch.save) --------------------------------------
+
+    @staticmethod
+    def save_checkpoint(path: str, params, opt) -> None:
+        """One file: the parameters and Adam's state on the host, and
+        the number of steps taken."""
+        state = opt.state_dict()
+        steps = int(state["state"][0]["step"]) if state["state"] else 0
+        torch.save(
+            {
+                "params": {k: params[k].detach().cpu() for k in PARAM_KEYS},
+                "opt": state,
+                "step": steps,
+            },
+            path,
+        )
+
+    @staticmethod
+    def restore_checkpoint(path: str, like):
+        """Load a checkpoint into ``like = (params, opt)`` (e.g. a fresh
+        `init`) in place and return them."""
+        params, opt = like
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        with torch.no_grad():
+            for k in PARAM_KEYS:
+                params[k].copy_(state["params"][k])
+        opt.load_state_dict(state["opt"])
+        return params, opt
+
+
+# -- batches ------------------------------------------------------------
+
+
+def pixel_grid(prep) -> tuple[np.ndarray, np.ndarray]:
+    """Pixel-center coordinates of a `GlyphPrep`'s bitmap in PBF
+    (Y-flipped row-major) order."""
+    w, h = prep.width, prep.height
+    i = np.arange(w * h)
+    x = i % w
+    y = h - 1 - i // w
+    return (prep.x0 + x + 0.5).astype(np.float32), (prep.y0 + y + 0.5).astype(np.float32)
+
+
+def fit_item(cp: int, curves: np.ndarray, prep, bitmap: np.ndarray):
+    """One glyph of a batch: font-unit curves already scaled to pixels
+    and shifted by ``prep.dx``; the target from the exact SDF bitmap."""
+    px, py = pixel_grid(prep)
+    target = bytes_to_field(torch.from_numpy(np.asarray(bitmap, np.uint8))).numpy()
+    return (cp, curves, px, py, target,
+            (prep.x0, prep.y0, prep.width, prep.height))
+
+
+def assemble_fit_batch(items) -> FitBatch:
+    """Pad `fit_item`s into a `FitBatch` (pixel axis padded to a
+    multiple of 256, the flat tile size)."""
+    if not items:
+        raise ValueError("no fittable glyphs among the given codepoints")
+    B = len(items)
+    C_max = max(c.shape[0] for _, c, *_ in items)
+    P_max = -(-max(len(px) for _, _, px, *_ in items) // 256) * 256
+    curves0 = np.zeros((B, C_max, 4, 2), np.float32)
+    curve_mask = np.zeros((B, C_max), bool)
+    pxs = np.zeros((B, P_max), np.float32)
+    pys = np.zeros((B, P_max), np.float32)
+    pix_mask = np.zeros((B, P_max), np.float32)
+    targets = np.zeros((B, P_max), np.float32)
+    metas = np.zeros((B, 4), np.int32)
+    kept = np.zeros(B, np.int32)
+    for b, (cp, c, px, py, tg, m) in enumerate(items):
+        kept[b] = cp
+        curves0[b, : c.shape[0]] = c
+        curve_mask[b, : c.shape[0]] = True
+        n = len(px)
+        pxs[b, :n] = px
+        pys[b, :n] = py
+        pix_mask[b, :n] = 1.0
+        targets[b, :n] = tg
+        metas[b] = m
+    return FitBatch(curves0, curve_mask, pxs, pys, pix_mask, targets, metas, kept)
+
+
+def make_fit_batch(entry, codepoints, depth: int = 3, target_entry=None) -> FitBatch:
+    """A FitBatch from a font (`versatiles_glyphs_tpu.font.entry.
+    FontFileEntry`, which needs fontTools): initial curves from
+    ``entry``'s outlines, scaled to 24 px/EM and shifted by the parity
+    pipeline's dx; targets from the exact renderer on ``target_entry``
+    (default: the same font, a self-fit). Unfittable codepoints are
+    skipped; ``codepoints`` of the result lists the fitted ones."""
+    from versatiles_glyphs_tpu.ops.sdf_ref import render_sdf_exact
+    from versatiles_glyphs_tpu.render.metrics import prepare_glyph
+
+    target_entry = target_entry or entry
+    items = []
+    for cp in codepoints:
+        name = entry.glyph_name(cp)
+        tname = target_entry.glyph_name(cp)
+        if name is None or tname is None:
+            continue
+        rings = target_entry.outline_rings(tname)
+        prep = prepare_glyph(cp, rings, target_entry.units_per_em, target_entry.hor_advance(tname))
+        if prep.empty:
+            continue
+        curves = entry.outline_curves(name)
+        if curves.shape[0] == 0:
+            continue
+        curves = curves * (24.0 / entry.units_per_em) + np.array([prep.dx, 0.0])
+        bitmap = render_sdf_exact(prep.segments, prep.width, prep.height, prep.x0, prep.y0)
+        items.append(fit_item(cp, curves, prep, bitmap))
+    return assemble_fit_batch(items)

@@ -2,20 +2,23 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled for Hopper into ``build/kernels/<name>-<hash>.so`` at the root
-of the checkout, where the hash covers the source and the flags, so a
-stale library is never loaded. A failed build raises with nvcc's
-output. Nothing here runs at import time.
+of the checkout, where the hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a stale library is never loaded. A
+failed build raises with nvcc's output. `build_all` runs one nvcc per
+kernel, all at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -49,10 +52,14 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Where the build of ``csrc/<name>.cu`` lives for its current
-    source and flags."""
-    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+    source, headers and flags."""
+    h = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(SRC_DIR, "*.cuh")))
+    for path in [os.path.join(SRC_DIR, f"{name}.cu"), *headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
 
 
@@ -76,6 +83,14 @@ def build(name: str) -> str:
     os.replace(tmp, so)
     BUILDS[name] = (so, time.perf_counter() - t0)
     return so
+
+
+def build_all(names) -> list[str]:
+    """`build` every kernel of ``names`` with one nvcc each, all running
+    at once; returns their library paths."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,18 +1,26 @@
-"""Kernel wrappers of the atlas render path (counterpart of
-`versatiles_glyphs_tpu.ops.sdf_pallas`).
+"""Kernel wrappers (counterparts of `versatiles_glyphs_tpu.ops.sdf_pallas`
+and of the Pallas backward of `ops.sdf_grad`).
 
-`render_bitmaps_cuda_pts` and `render_bitmaps_cuda_delta` take the
-packed wire as tensors. On CUDA tensors they launch the hand-written
-kernel ``csrc/sdf_tiles_pts.cu`` on the current stream; on CPU tensors
-they run its plain version, `ops.sdf_torch.render_tiles_pts`. There is
-no fallback from one to the other: a CUDA launch that fails raises.
+Three hand-written kernels, each on the current stream:
+
+- ``sdf_tiles_pts`` (render): `render_bitmaps_cuda_pts`,
+  `render_bitmaps_cuda_delta`;
+- ``sdf_min_field_pts`` (fitting forward): `min_field_cuda_pts`;
+- ``sdf_min_field_bwd`` (fitting backward): `min_field_bwd_cuda`.
+
+On CUDA tensors a wrapper launches its kernel (``csrc/<name>.cu``); on
+CPU tensors it runs the kernel's plain version in `ops.sdf_torch`.
+There is no fallback from one to the other: a build or launch that
+fails raises. Each wrapper checks dtypes, shapes and the tile table's
+bounds (one host sync) before it launches; ``launch_*`` is the launch
+alone, for a caller that has checked its inputs.
 
 The i8-delta decode, the dequantize and the tile table (the XLA
 prepass steps of the TPU path) are plain PyTorch ops on the tensor's
 device. The TPU prepass's chunk-row restructuring has no counterpart:
-the kernel reads the flat point chain and the mask bits directly.
+the kernels read the flat point chain and the mask bits directly.
 
-``LAUNCHES`` counts the kernel's launches since `reset_launches`.
+``LAUNCHES[name]`` counts each kernel's launches since `reset_launches`.
 """
 
 from __future__ import annotations
@@ -24,25 +32,44 @@ import torch
 from versatiles_glyphs_tpu.constants import CUTOFF, SDF_RADIUS
 
 from . import _build
-from .sdf_torch import dequantize, derive_tmeta, reconstruct_delta, render_tiles_pts
+from .sdf_torch import (
+    dequantize,
+    derive_tmeta,
+    min_field_bwd_pts,
+    min_field_pts,
+    reconstruct_delta,
+    render_tiles_pts,
+)
 
-KERNEL = "sdf_tiles_pts"
-LAUNCHES = 0
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel name -> (C symbol, ctypes argument types)
+_SIGNATURES = {
+    "sdf_tiles_pts": ("vg_sdf_tiles_pts", [_P, _I, _P, _P, _I, _I, _F, _F, _P, _P]),
+    "sdf_min_field_pts": ("vg_sdf_min_field_pts", [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P]),
+    "sdf_min_field_bwd": ("vg_sdf_min_field_bwd", [_P, _I, _P, _P, _P, _I, _I, _P, _P]),
+}
+KERNELS = tuple(_SIGNATURES)
+LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    for name in KERNELS:
+        LAUNCHES[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(KERNEL)
-    fn = lib.vg_sdf_tiles_pts
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s C entry point with ``args`` and the current
+    stream of ``device``; raise if it reports a CUDA error."""
+    symbol, argtypes = _SIGNATURES[name]
+    fn = getattr(_build.load(name), symbol)
     if fn.argtypes is None:
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, I, P, P, I, I, F, F, P, P]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
 
 
 def _check(pts, mask_words, tmeta, TP: int) -> None:
@@ -54,35 +81,40 @@ def _check(pts, mask_words, tmeta, TP: int) -> None:
             f"mask_words must be [{N // 32}] int32 for N={N} (a multiple of 32), "
             f"got {tuple(mask_words.shape)} {mask_words.dtype}"
         )
-    if tmeta.dtype != torch.int32 or tmeta.dim() != 2 or tmeta.shape[0] != 8:
-        raise ValueError(f"tmeta must be [8, T] int32, got {tuple(tmeta.shape)} {tmeta.dtype}")
-    if TP % 32 or not 32 <= TP <= 1024:
-        raise ValueError(f"TP={TP} must be a multiple of 32 in [32, 1024]")
+    _check_tmeta(tmeta, TP)
     if not (pts.device == mask_words.device == tmeta.device):
         raise ValueError("pts, mask_words and tmeta must be on one device")
 
 
-def _launch(pts, mask_words, tmeta, TP: int) -> torch.Tensor:
-    global LAUNCHES
-    if not (pts.is_contiguous() and mask_words.is_contiguous() and tmeta.is_contiguous()):
+def _check_tmeta(tmeta, TP: int) -> None:
+    if tmeta.dtype != torch.int32 or tmeta.dim() != 2 or tmeta.shape[0] != 8:
+        raise ValueError(f"tmeta must be [8, T] int32, got {tuple(tmeta.shape)} {tmeta.dtype}")
+    if TP % 32 or not 32 <= TP <= 1024:
+        raise ValueError(f"TP={TP} must be a multiple of 32 in [32, 1024]")
+
+
+def _cuda_inputs(*tensors) -> None:
+    """Raise unless every tensor is contiguous on one CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if any(t.device != dev for t in tensors):
+        raise ValueError("kernel inputs must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("kernel inputs must be contiguous")
+
+
+def _lanes_out_of_bounds(tmeta, N: int) -> torch.Tensor:
+    """Rows whose lane run [off, off + npts) leaves [0, N)."""
+    return (tmeta[5] < 0) | (tmeta[4] < 0) | (tmeta[5] + tmeta[4] > N)
+
+
+def _check_cuda_lanes(pts, mask_words, tmeta) -> None:
+    """The forward kernels' launch checks (one host sync)."""
+    _cuda_inputs(pts, mask_words, tmeta)
     N = pts.shape[1]
-    T = tmeta.shape[1]
-    if T and bool(((tmeta[5] < 0) | (tmeta[4] < 0) | (tmeta[5] + tmeta[4] > N)).any()):
+    if tmeta.shape[1] and bool(_lanes_out_of_bounds(tmeta, N).any()):
         raise ValueError(f"tile table addresses lanes outside [0, {N})")
-    out = torch.empty((T, TP), dtype=torch.uint8, device=pts.device)
-    if T == 0:
-        return out
-    with torch.cuda.device(pts.device):
-        stream = torch.cuda.current_stream(pts.device).cuda_stream
-        rc = _lib().vg_sdf_tiles_pts(
-            pts.data_ptr(), N, mask_words.data_ptr(), tmeta.data_ptr(), T, TP,
-            256.0 / SDF_RADIUS, CUTOFF, out.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    return out
 
 
 def render_bitmaps_cuda_pts(
@@ -99,9 +131,21 @@ def render_bitmaps_cuda_pts(
     _check(pts, mask_words, tmeta, TP)
     if pts.device.type == "cpu":
         return render_tiles_pts(pts, mask_words, tmeta, TP)
-    if pts.device.type != "cuda":
-        raise ValueError(f"unsupported device {pts.device}")
-    return _launch(pts, mask_words, tmeta, TP)
+    _check_cuda_lanes(pts, mask_words, tmeta)
+    return launch_tiles_pts(pts, mask_words, tmeta, TP)
+
+
+def launch_tiles_pts(pts, mask_words, tmeta, TP: int) -> torch.Tensor:
+    """The render tile kernel on inputs the caller has checked (see
+    `render_bitmaps_cuda_pts`): allocate the output and launch."""
+    N, T = pts.shape[1], tmeta.shape[1]
+    out = torch.empty((T, TP), dtype=torch.uint8, device=pts.device)
+    if T:
+        _launch(
+            "sdf_tiles_pts", pts.device, pts.data_ptr(), N, mask_words.data_ptr(),
+            tmeta.data_ptr(), T, TP, 256.0 / SDF_RADIUS, CUTOFF, out.data_ptr(),
+        )
+    return out
 
 
 def render_bitmaps_cuda_delta(
@@ -120,3 +164,100 @@ def render_bitmaps_cuda_delta(
     pts = dequantize(reconstruct_delta(deltas, anchors))
     tmeta = derive_tmeta(meta, TP, T_pad)
     return render_bitmaps_cuda_pts(pts, mask_words, tmeta, TP)
+
+
+def min_field_cuda_pts(
+    pts: torch.Tensor, mask_words: torch.Tensor, tmeta: torch.Tensor, TP: int = 256
+):
+    """Min-distance residuals over the point-chain layout (counterpart
+    of `sdf_pallas.min_field_pallas_pts`): (d2 [T, TP] f32, wn [T, TP]
+    i32, am [T, TP] i32 first-argmin lane, 2³¹−1 where no segment is
+    live); skip rows are 0. Inputs as `render_bitmaps_cuda_pts`, pts
+    f32 only (the fitting path's live parameters)."""
+    _check(pts, mask_words, tmeta, TP)
+    if pts.device.type == "cpu":
+        return min_field_pts(pts, mask_words, tmeta, TP)
+    _check_cuda_lanes(pts, mask_words, tmeta)
+    return launch_min_field_pts(pts, mask_words, tmeta, TP)
+
+
+def launch_min_field_pts(pts, mask_words, tmeta, TP: int):
+    """The min-field kernel on inputs the caller has checked (see
+    `min_field_cuda_pts`): allocate the outputs and launch."""
+    N, T = pts.shape[1], tmeta.shape[1]
+    d2 = torch.empty((T, TP), dtype=torch.float32, device=pts.device)
+    wn = torch.empty((T, TP), dtype=torch.int32, device=pts.device)
+    am = torch.empty((T, TP), dtype=torch.int32, device=pts.device)
+    if T:
+        _launch(
+            "sdf_min_field_pts", pts.device, pts.data_ptr(), N, mask_words.data_ptr(),
+            tmeta.data_ptr(), T, TP, d2.data_ptr(), wn.data_ptr(), am.data_ptr(),
+        )
+    return d2, wn, am
+
+
+def _bad_glyph_rows(tmeta, N: int, TP: int) -> torch.Tensor:
+    """Rows the backward kernel cannot take: a live row (pix_base < w·h)
+    with its lanes out of bounds, a negative pix_base, or not in a run
+    of consecutive rows of one glyph with pix_base 0, TP, 2·TP, …"""
+    base = tmeta[6]
+    npix = tmeta[2] * tmeta[3]
+    live = base < npix
+    same = (tmeta[:6, 1:] == tmeta[:6, :-1]).all(0) & (base[1:] == base[:-1] + TP)
+    no = torch.zeros(1, dtype=torch.bool, device=tmeta.device)
+    has_prev = torch.cat([no, same])
+    has_next = torch.cat([same, no])
+    broken = ((base > 0) & ~has_prev) | ((base + TP < npix) & ~has_next)
+    return live & (_lanes_out_of_bounds(tmeta, N) | (base < 0) | broken)
+
+
+def min_field_bwd_cuda(
+    pts: torch.Tensor,
+    am: torch.Tensor,
+    ct_d2: torch.Tensor,
+    tmeta: torch.Tensor,
+    TP: int = 256,
+) -> torch.Tensor:
+    """Backward reduction of the min field (counterpart of
+    `sdf_grad._min_field_bwd_pallas`): dpts [2, N] f32 from the argmin
+    lanes am [T, TP] i32 and the cotangent of d², ct_d2 [T, TP] f32.
+
+    The kernel is deterministic (no atomics). It needs each glyph's
+    tile rows to be consecutive and glyph lane runs to be disjoint, as
+    `models.fitting.build_flat_plan` lays them out; the first is
+    checked."""
+    if pts.dtype != torch.float32 or pts.dim() != 2 or pts.shape[0] != 2:
+        raise ValueError(f"pts must be [2, N] float32, got {tuple(pts.shape)} {pts.dtype}")
+    _check_tmeta(tmeta, TP)
+    T = tmeta.shape[1]
+    if am.dtype != torch.int32 or tuple(am.shape) != (T, TP):
+        raise ValueError(f"am must be [{T}, {TP}] int32, got {tuple(am.shape)} {am.dtype}")
+    if ct_d2.dtype != torch.float32 or tuple(ct_d2.shape) != (T, TP):
+        raise ValueError(
+            f"ct_d2 must be [{T}, {TP}] float32, got {tuple(ct_d2.shape)} {ct_d2.dtype}"
+        )
+    if not (pts.device == am.device == ct_d2.device == tmeta.device):
+        raise ValueError("pts, am, ct_d2 and tmeta must be on one device")
+    if pts.device.type == "cpu":
+        return min_field_bwd_pts(pts, am, ct_d2, tmeta, TP)
+    _cuda_inputs(pts, am, ct_d2, tmeta)
+    N = pts.shape[1]
+    if T and bool(_bad_glyph_rows(tmeta, N, TP).any()):
+        raise ValueError(
+            "tile table rows out of bounds or not consecutive per glyph "
+            f"(N={N}, TP={TP})"
+        )
+    return launch_min_field_bwd(pts, am, ct_d2, tmeta, TP)
+
+
+def launch_min_field_bwd(pts, am, ct_d2, tmeta, TP: int) -> torch.Tensor:
+    """The backward kernel on inputs the caller has checked (see
+    `min_field_bwd_cuda`): zero the output and launch."""
+    N, T = pts.shape[1], tmeta.shape[1]
+    dpts = torch.zeros((2, N), dtype=torch.float32, device=pts.device)
+    if T:
+        _launch(
+            "sdf_min_field_bwd", pts.device, pts.data_ptr(), N, am.data_ptr(),
+            ct_d2.data_ptr(), tmeta.data_ptr(), T, TP, dpts.data_ptr(),
+        )
+    return dpts

@@ -1,12 +1,15 @@
-"""Plain PyTorch versions of the atlas render path's device ops.
+"""Plain PyTorch versions of the port's device ops.
 
 Device-agnostic functions on tensors. They are the counterparts of the
-XLA prepass steps and of the Pallas tile kernel in
-`versatiles_glyphs_tpu.ops.sdf_pallas` / `ops.sdf_jax`, kept in the same
-op order so that every result is bit-identical to the JAX package's on
-the same wire arrays. The CPU tests hold them against the JAX package,
-the ``torch`` renderer runs them on the CPU, and `ops.sdf_cuda` takes
-them for CPU tensors and holds its kernel against them on the card.
+XLA prepass steps and of three Pallas kernels of
+`versatiles_glyphs_tpu.ops.sdf_pallas` / `ops.sdf_grad`: the render
+tile kernel, the fitting min field and its backward reduction. They
+keep the op order of the JAX package's twins (`ops.sdf_jax`), so the
+render bytes and the min field are bit-identical to the JAX package's
+on the same arrays; the backward's sums are taken in another order. The
+CPU tests hold them against the JAX package, the ``torch`` backends run
+them on the CPU, and `ops.sdf_cuda` takes them for CPU tensors and
+holds its kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -18,6 +21,17 @@ from versatiles_glyphs_tpu.render.metrics import Q16_SCALE
 
 # ~f32 max: the distance of a masked segment (`ops.sdf_jax._BIG`).
 _BIG = 3.0e38
+# i32 max: the argmin of a pixel with no live segment
+# (`ops.sdf_pallas._BIGI`).
+_BIGI = 2147483647
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root of an f32 tensor, as XLA's and the
+    kernels' (``__fsqrt_rn``). `torch.sqrt` of f32 on the CPU is not
+    (its vectorized path is off by one ulp on ~0.1 % of inputs); taken
+    in f64 and rounded once to f32, it is."""
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def reconstruct_delta(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
@@ -76,46 +90,38 @@ def _chunk_elems(device: torch.device) -> int:
     return 1 << 26 if device.type == "cuda" else 1 << 21
 
 
-def render_tiles_pts(
-    pts: torch.Tensor,
-    mask_words: torch.Tensor,
-    tmeta: torch.Tensor,
-    TP: int = 256,
-) -> torch.Tensor:
-    """Quantized uint8 bitmaps [T, TP] over the point-chain layout: the
-    plain version of the tile kernel (`sdf_jax._field_tile_pts` +
-    `quantize_sdf`, same op order).
+def _pixel_centers(rows: torch.Tensor, TP: int):
+    """Pixel centers (px, py) and flat pixel indices i, each [C, TP], of
+    tile rows [8, C] (`sdf_jax._min_field_tile_pts` decomposition:
+    integer div/mod, Y flipped)."""
+    x0, y0, w, h, base = (rows[k][:, None] for k in (0, 1, 2, 3, 6))
+    i = base + torch.arange(TP, dtype=torch.int32, device=rows.device)
+    ws = torch.clamp(w, min=1)
+    x = i % ws
+    row = torch.div(i, ws, rounding_mode="floor")
+    y = h - 1 - row
+    return x0.float() + x.float() + 0.5, y0.float() + y.float() + 0.5, i
 
-    pts: [2, N] f32; mask_words: [N//32] i32 lane-validity bits; tmeta:
-    [8, T] i32 rows ``x0, y0, w, h, npts, off, pix_base, _``. Segment i
-    is ``(pts[:, i], pts[:, i+1])``, live iff mask bit i is set and
-    ``off <= i < off + npts - 1``. Rows with pix_base ≥ w·h are zeros.
-    Runs over chunks of tiles so that each [tiles, TP, L] temporary
-    stays bounded."""
+
+def _tile_chunks(pts, mask_words, tmeta, TP: int):
+    """The pair math of the tile kernels over chunks of tile rows, in
+    `sdf_jax._field_tile_pts` op order. Yields ``(t0, rows [8, C],
+    lane [C, 1, L] global lanes, d2 [C, TP, L] (masked segments
+    `_BIG`), wn [C, TP])``; every [C, TP, L] temporary stays bounded."""
     dev = pts.device
     T = tmeta.shape[1]
     N = pts.shape[1]
-    out = torch.zeros((T, TP), dtype=torch.uint8, device=dev)
-    if T == 0:
-        return out
     rows = tmeta.to(torch.int32)
     # Longest segment run of any tile: one host sync for the chunking.
     L = max(int(rows[4].max()) - 1, 1)
     C = max(1, _chunk_elems(dev) // (TP * L))
-    iota_tp = torch.arange(TP, dtype=torch.int32, device=dev)
     iota_l = torch.arange(L, dtype=torch.int32, device=dev)
-    scale = 256.0 / SDF_RADIUS
     for t0 in range(0, T, C):
         m = rows[:, t0 : t0 + C]
-        x0, y0, w, h, npts, off, base = (m[k][:, None] for k in range(7))
-
-        i = base + iota_tp
-        ws = torch.clamp(w, min=1)
-        x = i % ws
-        row = torch.div(i, ws, rounding_mode="floor")
-        y = h - 1 - row
-        px = (x0.float() + x.float() + 0.5)[:, :, None]
-        py = (y0.float() + y.float() + 0.5)[:, :, None]
+        npts, off = m[4][:, None], m[5][:, None]
+        px, py, _ = _pixel_centers(m, TP)
+        px = px[:, :, None]
+        py = py[:, :, None]
 
         lane = off + iota_l
         vi = torch.clamp(lane, max=N - 1).long()
@@ -142,8 +148,6 @@ def render_tiles_pts(
         qy = ey - tc * dy
         d2 = torch.where(seg_ok, qx * qx + qy * qy, _BIG)
         del num, tc, qx, qy
-        dmin = torch.amin(d2, dim=2)
-        del d2
 
         c1 = vy <= py
         cross = c1 ^ (wy <= py)
@@ -151,11 +155,113 @@ def render_tiles_pts(
         hit = cross & (cx <= px) & seg_ok
         del cross, cx, ex, ey
         wn = torch.sum(torch.where(hit, torch.where(c1, 1, -1), 0), dim=2)
+        yield t0, m, lane[:, None, :], d2, wn
 
-        d = torch.sqrt(dmin)
+
+def render_tiles_pts(
+    pts: torch.Tensor,
+    mask_words: torch.Tensor,
+    tmeta: torch.Tensor,
+    TP: int = 256,
+) -> torch.Tensor:
+    """Quantized uint8 bitmaps [T, TP] over the point-chain layout: the
+    plain version of the tile kernel (`sdf_jax._field_tile_pts` +
+    `quantize_sdf`, same op order).
+
+    pts: [2, N] f32; mask_words: [N//32] i32 lane-validity bits; tmeta:
+    [8, T] i32 rows ``x0, y0, w, h, npts, off, pix_base, _``. Segment i
+    is ``(pts[:, i], pts[:, i+1])``, live iff mask bit i is set and
+    ``off <= i < off + npts - 1``. Rows with pix_base ≥ w·h are zeros.
+    Runs over chunks of tiles so that each [tiles, TP, L] temporary
+    stays bounded."""
+    out = torch.zeros((tmeta.shape[1], TP), dtype=torch.uint8, device=pts.device)
+    if tmeta.shape[1] == 0:
+        return out
+    scale = 256.0 / SDF_RADIUS
+    for t0, m, _, d2, wn in _tile_chunks(pts, mask_words, tmeta, TP):
+        dmin = torch.amin(d2, dim=2)
+        del d2
+        d = sqrt_rn(dmin)
         d = torch.where(wn != 0, -d, d)
         v = d * scale + CUTOFF
         byte = torch.floor(torch.clamp(255.0 - v, 0.0, 255.0) + 0.5)
-        byte = torch.where(base < w * h, byte, 0.0)
-        out[t0 : t0 + C] = byte.to(torch.uint8)
+        byte = torch.where(m[6][:, None] < m[2][:, None] * m[3][:, None], byte, 0.0)
+        out[t0 : t0 + m.shape[1]] = byte.to(torch.uint8)
     return out
+
+
+def min_field_pts(
+    pts: torch.Tensor,
+    mask_words: torch.Tensor,
+    tmeta: torch.Tensor,
+    TP: int = 256,
+):
+    """Min-distance residuals over the point-chain layout: the plain
+    version of the min-field kernel (`sdf_jax._min_field_tile_pts`, same
+    op order). Inputs as `render_tiles_pts` (pts f32). Returns (d2
+    [T, TP] f32 min of d², wn [T, TP] i32 winding number, am [T, TP] i32
+    global lane of the first argmin segment, `_BIGI` where no segment is
+    live). Rows with pix_base ≥ w·h are 0 in all three."""
+    dev = pts.device
+    T = tmeta.shape[1]
+    d2_out = torch.zeros((T, TP), dtype=torch.float32, device=dev)
+    wn_out = torch.zeros((T, TP), dtype=torch.int32, device=dev)
+    am_out = torch.zeros((T, TP), dtype=torch.int32, device=dev)
+    if T == 0:
+        return d2_out, wn_out, am_out
+    for t0, m, lane, d2, wn in _tile_chunks(pts, mask_words, tmeta, TP):
+        dmin = torch.amin(d2, dim=2)
+        amin = torch.amin(torch.where(d2 == dmin[:, :, None], lane, _BIGI), dim=2)
+        del d2
+        amin = torch.where(dmin < _BIG, amin, _BIGI)
+        live = m[6][:, None] < m[2][:, None] * m[3][:, None]
+        C = m.shape[1]
+        d2_out[t0 : t0 + C] = torch.where(live, dmin, 0.0)
+        wn_out[t0 : t0 + C] = torch.where(live, wn, 0).to(torch.int32)
+        am_out[t0 : t0 + C] = torch.where(live, amin, 0).to(torch.int32)
+    return d2_out, wn_out, am_out
+
+
+def min_field_bwd_pts(
+    pts: torch.Tensor,
+    am: torch.Tensor,
+    ct_d2: torch.Tensor,
+    tmeta: torch.Tensor,
+    TP: int = 256,
+) -> torch.Tensor:
+    """Gradient of the min field's d² w.r.t. the points: the plain
+    version of the backward kernel (`sdf_grad._bwd_kernel_flat`).
+
+    am [T, TP] i32 argmin lanes of `min_field_pts`, ct_d2 [T, TP] f32
+    cotangent g of d². For each pixel with a live argmin a, tc and q
+    are recomputed on segment (a, a+1) in the forward's op order; the
+    pixel adds 2g·q·(tc−1) at lane a and −2g·q·tc at lane a+1. Pixels
+    with the `_BIGI` sentinel, pixels past w·h and skip rows (which carry
+    am = 0) add nothing. Returns dpts [2, N] f32."""
+    N = pts.shape[1]
+    dpts = torch.zeros((2, N), dtype=torch.float32, device=pts.device)
+    if tmeta.shape[1] == 0:
+        return dpts
+    rows = tmeta.to(torch.int32)
+    px, py, i = _pixel_centers(rows, TP)
+    npix = (rows[2] * rows[3])[:, None]
+    live = (am != _BIGI) & (i < npix) & (rows[6][:, None] < npix)
+    a = torch.where(live, am, 0).clamp(0, N - 2).long()
+    vx, vy = pts[0][a], pts[1][a]
+    dx = pts[0][a + 1] - vx
+    dy = pts[1][a + 1] - vy
+    l2 = dx * dx + dy * dy
+    l2inv = torch.where(l2 > 0.0, torch.reciprocal(l2), 0.0)
+    ex = px - vx
+    ey = py - vy
+    num = ex * dx + ey * dy
+    tc = torch.clamp(num * l2inv, 0.0, 1.0)
+    qx = ex - tc * dx
+    qy = ey - tc * dy
+    g2 = 2.0 * ct_d2
+    a = a.reshape(-1)
+    for k, q in enumerate((qx, qy)):
+        gq = g2 * q
+        dpts[k].index_add_(0, a, torch.where(live, gq * (tc - 1.0), 0.0).reshape(-1))
+        dpts[k].index_add_(0, a + 1, torch.where(live, -(gq * tc), 0.0).reshape(-1))
+    return dpts

@@ -13,10 +13,12 @@ Backends:
                 ``"exact"`` (the JAX package's contract for its
                 accelerator).
 
-Host prep (`prep_glyph`, `prep_block`) and PBF assembly are the JAX
-package's own methods, which are free of JAX; they are imported where
-they are called, because `versatiles_glyphs_tpu.render.driver` imports
-the font parser (fontTools) and this module must load without it.
+Host prep (`prep_glyph`, `prep_block`) is the JAX package's own
+methods, which are free of JAX; they are imported where they are
+called, because `versatiles_glyphs_tpu.render.driver` imports the font
+parser (fontTools) and this module must load without it. PBF assembly
+(`assemble_glyphs`) is a copy, so that fitted glyphs render on a
+machine without fontTools.
 """
 
 from __future__ import annotations
@@ -70,7 +72,23 @@ class Renderer:
 
     @staticmethod
     def assemble_glyphs(preps, bitmap_iter):
-        return _host_renderer().assemble_glyphs(preps, bitmap_iter)
+        """Pair preps with bitmaps (one from ``bitmap_iter`` per non-empty
+        prep, in order) into PbfGlyph messages: the JAX driver's method,
+        copied because its module needs fontTools."""
+        from versatiles_glyphs_tpu.proto.pbf import PbfGlyph
+
+        out = []
+        for p in preps:
+            if p.empty:
+                out.append(PbfGlyph.empty(p.codepoint, p.advance))
+                continue
+            out.append(PbfGlyph(
+                id=p.codepoint,
+                bitmap=np.asarray(next(bitmap_iter), dtype=np.uint8).tobytes(),
+                width=p.pbf_width, height=p.pbf_height,
+                left=p.pbf_left, top=p.pbf_top, advance=p.advance,
+            ))
+        return out
 
     # -- batched rendering -----------------------------------------------
 
@@ -78,6 +96,16 @@ class Renderer:
         """Open a render session. ``parallel`` is accepted for the JAX
         manager's call; this driver renders on one device."""
         return RenderSession(self, progress=progress)
+
+    def render_bitmaps(self, preps, parallel: bool = True, progress=None) -> list:
+        """Quantized uint8 bitmaps (flat, Y-flipped, len w·h) of non-empty
+        preps through one `RenderSession` (counterpart of the JAX
+        `Renderer.render_bitmaps`; ``parallel`` as in `start_session`)."""
+        if not preps:
+            return []
+        with self.start_session(parallel=parallel, progress=progress) as session:
+            session.add(preps)
+            return list(session.results())
 
     def _dispatch_group(self, gitems, wire: str, TP: int):
         """Pack one group, copy it to the device (blocking copies) and

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's atlas render path and its outline-fitting
-path once on one GPU.
+"""Drive the PyTorch/CUDA port's atlas render path, its outline-fitting
+path, the renders over the flat segment layout and the padded-layout
+fitting loss once on one GPU.
 
     python3 chip_smoke.py
 
@@ -20,14 +21,22 @@ never JAX. Phases, each printing JSON lines:
    fit batch and on degenerate segments: d² bit-equal, winding and
    argmin exact. The backward kernel at the full fit batch: within
    1e-4·max|dpts| of the plain version (whose scatter-add on the card
-   sums in no fixed order), and bit-identical across two runs.
+   sums in no fixed order), and bit-identical across two runs. The two
+   segment-layout render kernels at group 0 of the first font (packed
+   by ``pack_flat``) and on degenerate segments: bytes equal, and each
+   glyph's bytes against the point-chain kernel's on the f32 wire. The
+   padded min-field kernel at the full fit batch and on a degenerate
+   padded case: d² bit-equal, winding and argmin exact; its backward
+   within 1e-4·max|dsegs| and bit-identical across two runs.
 4. slice  — two synthesized fonts at real sizes (a text font of 1,700
    glyphs over 7 blocks, a heavy one of 1,150 glyphs of ~1,000 points)
    through the port's renderer, render session, native PBF encode and
    writer, with the launch counts reset just before. Every PBF is held
    against the exact f64 renderer (integer metrics equal, bitmaps
    within 1 on at most 5 % of pixels) and one block against the
-   ``torch`` backend on the CPU byte for byte.
+   ``torch`` backend on the CPU byte for byte. Then both fonts whole
+   through each segment-layout render kernel (one launch each a font),
+   held against the exact renderer to the same bound.
 5. fit    — a self-fit of the text font's 1,700 glyphs at depth 3 from
    a perturbed start (`utils.synth_font.synth_fit_batch`): 20 Adam steps
    of the ``flat`` backend with the counts reset just before (each
@@ -35,12 +44,16 @@ never JAX. Phases, each printing JSON lines:
    through a checkpoint against 10 (Δ = 0); the ``torch`` and ``flat``
    backends' loss and gradients on the first 256-codepoint block; the
    fitted atlas through the ``cuda`` renderer (f32 wire) against the
-   exact one; seconds per step, warm.
+   exact one; seconds per step, warm. Then 20 Adam steps of the
+   padded-layout loss `models.fitting.batch_loss_kernel` from the same
+   start (each padded kernel launches once a step, the loss descends),
+   and its loss and gradients against the ``torch`` backend's on the
+   first 256-codepoint block.
 
 The slice and the fit enter below the font parser, so that they need no
 fontTools: their outlines are synthesized (the same outlines as a TTF
 through the CLIs are held against the JAX package by the CPU tests).
-Then a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
+Then a ``{"kernels": [...]}`` line (the seven kernels), and last ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero.
 """
 
@@ -324,6 +337,173 @@ def phase_fit_kernels(batch) -> dict:
     return out
 
 
+def flat_case(gp, dev):
+    """Glyphs ``gp`` packed by `pack_flat` and uploaded, with kernel 6's
+    tile table: (flat [4, N], meta [G, 8], tmeta [8, T], P_pad, each
+    glyph's first tile row)."""
+    from versatiles_glyphs_tpu_torch.render.batch import (
+        pack_flat, plan_tiles, tile_starts, wire_to_device,
+    )
+
+    G = len(gp)
+    flat, meta, P = pack_flat(gp)
+    starts, T = tile_starts(meta, G, TP)
+    tm = plan_tiles(gp, meta, TP, T_pad=T)[0]
+    return (*wire_to_device((flat, meta[:G], tm.T), dev), P, starts)
+
+
+def glyph_bitmap(kernel, out, starts, i):
+    """Glyph i's bitmap (from its first byte) in the output of kernel 6
+    (tile rows from ``starts[i]``) or kernel 7 (grid row i)."""
+    return out.reshape(-1)[starts[i] * TP:] if kernel == "sdf_tiles_flat" else out[i]
+
+
+def phase_flat_kernels(preps) -> dict:
+    """Kernels 6 and 7 (the segment-layout renders) against their plain
+    versions at group 0 of the first font and on degenerate segments;
+    each glyph's bytes against kernel 1's on the f32 wire. Returns the
+    numbers of the kernels line."""
+    from versatiles_glyphs_tpu_torch.ops import legacy, sdf_cuda, sdf_torch
+    from versatiles_glyphs_tpu_torch.render.batch import pack_points, plan_tiles, wire_to_device
+
+    dev = torch.device("cuda", 0)
+    out = {"sdf_tiles_flat_err": 0, "sdf_grid_flat_err": 0}
+    for key, gp in (("group0", first_group(preps)), ("degenerate", degenerate_preps())):
+        G = len(gp)
+        f_d, m_d, tm_d, P, starts = flat_case(gp, dev)
+        tp7 = min(1024, P)
+        pts, pw, pm = pack_points(gp, dtype=np.float32, arena_tag="flat_" + key)
+        tm1 = plan_tiles(gp, pm, TP, T_pad=tm_d.shape[1])[0]
+        pts_bytes = sdf_cuda.render_bitmaps_cuda_pts(
+            *wire_to_device((pts, pw, tm1.T), dev), TP).reshape(-1).cpu().numpy()
+        # name -> (TP, wrapper call, plain version, launch alone)
+        kernels = {
+            "sdf_tiles_flat": (TP, lambda: legacy.render_bitmaps_cuda_tiles(f_d, tm_d, TP),
+                               lambda: sdf_torch.render_tiles_flat(f_d, tm_d, TP),
+                               lambda: legacy.launch_tiles_flat(f_d, tm_d, TP)),
+            "sdf_grid_flat": (tp7, lambda: legacy.render_bitmaps_cuda_grid(f_d, m_d, P, tp7),
+                              lambda: sdf_torch.render_grid_flat(f_d, m_d, P, tp7),
+                              lambda: legacy.launch_grid_flat(f_d, m_d, P, tp7)),
+        }
+        for name, (tp, kern, plain, launch) in kernels.items():
+            got = kern()
+            want = plain()
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != torch.uint8:
+                raise AssertionError(f"{name} {key}: kernel {tuple(got.shape)} {got.dtype} "
+                                     f"vs plain {tuple(want.shape)} {want.dtype}")
+            err = (got.int() - want.int()).abs()
+            mismatches = int((err > 0).sum())
+            g = got.cpu().numpy()
+            vs_pts = 0
+            for i, p in enumerate(gp):
+                n, s0 = p.width * p.height, starts[i] * TP
+                vs_pts += int((glyph_bitmap(name, g, starts, i)[:n] != pts_bytes[s0 : s0 + n]).sum())
+            rec = {"phase": "kernel", "kernel": name, "case": key, "glyphs": G,
+                   "lanes": int(f_d.shape[1]), "P": P, "TP": tp,
+                   "out_shape": list(got.shape), "mismatches": mismatches,
+                   "max_abs_err": int(err.max()) if err.numel() else 0,
+                   "bytes_differ_from_sdf_tiles_pts": vs_pts,
+                   "nonzero_bytes": int((got > 0).sum())}
+            if key == "group0":
+                rec["ms"] = out[name + "_ms"] = time_ms(launch, 50)
+                rec["call_ms"] = time_ms(kern, 50)
+                rec["plain_ms"] = out[name + "_plain_ms"] = time_ms(plain, 3)
+            out[name + "_err"] = max(out[name + "_err"], rec["max_abs_err"])
+            emit(rec)
+            if mismatches:
+                raise AssertionError(f"{name} {key}: kernel and plain version differ on "
+                                     f"{mismatches} bytes")
+    return out
+
+
+def padded_inputs(batch, dev):
+    """The padded kernels' inputs at the start of the fit: segments
+    [B, S, 4] of the perturbed curves, their mask, meta [B, 4] and P."""
+    from versatiles_glyphs_tpu_torch.models.glyph_model import curves_to_segments
+
+    segs = curves_to_segments(torch.as_tensor(batch.curves0, device=dev), FIT_DEPTH).contiguous()
+    mask = torch.as_tensor(np.repeat(batch.curve_mask, 2 ** FIT_DEPTH, axis=1), device=dev)
+    meta = torch.as_tensor(batch.meta, dtype=torch.int32, device=dev)
+    return segs, mask.float(), meta, batch.target.shape[1]
+
+
+def degenerate_padded_case(dev):
+    """Zero-length and horizontal segments, a square, negative origins, a
+    glyph with no live segment (the argmin sentinel), P = 300."""
+    segs = torch.zeros((3, 8, 4))
+    segs[0, :6] = torch.tensor([[3, 4, 7, 4], [2, 2, 6, 2], [6, 2, 6, 6], [6, 6, 2, 6],
+                                [2, 6, 2, 2], [4.5, 4.5, 4.5, 4.5]])
+    segs[1, :3] = torch.tensor([[1, 1, 1, 1], [1, 1, 7, 1], [7, 1, 4, 5]])
+    segs[2, :2] = torch.tensor([[0, 0, 5, 5], [5, 5, 0, 0]])
+    mask = torch.zeros((3, 8))
+    mask[0, :6] = 1.0
+    mask[1, :3] = 1.0
+    meta = torch.tensor([[0, 0, 10, 9], [-2, -1, 12, 6], [0, 0, 17, 17]], dtype=torch.int32)
+    return segs.to(dev), mask.to(dev), meta.to(dev), 300
+
+
+def phase_padded_kernels(batch) -> dict:
+    """Kernels 4 and 5 (the padded pair) against their plain versions at
+    the full fit batch; kernel 4 also on a degenerate case. Returns the
+    numbers of the kernels line."""
+    from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
+
+    dev = torch.device("cuda", 0)
+    fit = padded_inputs(batch, dev)
+    out = {}
+    for key, (segs, mask, meta, P) in (("fit", fit), ("degenerate", degenerate_padded_case(dev))):
+        got = sdf_cuda.min_field_cuda_padded(segs, mask, meta, P)
+        want = sdf_torch.min_field_padded(segs, mask, meta, P)
+        torch.cuda.synchronize()
+        d2_bits = int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())
+        wn_off = int((got[1] != want[1]).sum())
+        am_off = int((got[2] != want[2]).sum())
+        rec = {"phase": "kernel", "kernel": "sdf_min_field_padded", "case": key,
+               "glyphs": int(segs.shape[0]), "segments": int(segs.shape[1]), "P": P,
+               "d2_bits_differ": d2_bits, "wn_differ": wn_off, "am_differ": am_off,
+               "max_abs_err": float((got[0] - want[0]).abs().max()),
+               "sentinels": int((got[2] == sdf_torch._BIGI).sum())}
+        if key == "fit":
+            rec["ms"] = out["pad_ms"] = time_ms(
+                lambda: sdf_cuda.launch_min_field_padded(segs, mask, meta, P), 50)
+            rec["call_ms"] = time_ms(lambda: sdf_cuda.min_field_cuda_padded(segs, mask, meta, P), 50)
+            rec["plain_ms"] = out["pad_plain_ms"] = time_ms(
+                lambda: sdf_torch.min_field_padded(segs, mask, meta, P), 3)
+            out["pad_err"] = rec["max_abs_err"]
+        emit(rec)
+        if d2_bits or wn_off or am_off:
+            raise AssertionError(f"padded min field {key}: kernel and plain version differ")
+        if key == "degenerate" and not rec["sentinels"]:
+            raise AssertionError("degenerate padded case: no sentinel pixel")
+
+    segs, mask, meta, P = fit
+    _, _, am = sdf_cuda.min_field_cuda_padded(segs, mask, meta, P)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ct = torch.randn(am.shape, generator=gen, device=dev)
+    got = sdf_cuda.min_field_padded_bwd_cuda(segs, meta, am, ct)
+    again = sdf_cuda.min_field_padded_bwd_cuda(segs, meta, am, ct)
+    want = sdf_torch.min_field_padded_bwd(segs, meta, am, ct)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    identical = bool(torch.equal(got, again))
+    rec = {"phase": "kernel", "kernel": "sdf_min_field_padded_bwd", "case": "fit",
+           "glyphs": int(segs.shape[0]), "segments": int(segs.shape[1]), "P": P,
+           "max_abs_err": err, "max_abs_plain": scale, "tolerance": 1e-4 * scale,
+           "bit_identical_rerun": identical,
+           "ms": time_ms(lambda: sdf_cuda.launch_min_field_padded_bwd(segs, meta, am, ct), 50),
+           "call_ms": time_ms(lambda: sdf_cuda.min_field_padded_bwd_cuda(segs, meta, am, ct), 50),
+           "plain_ms": time_ms(lambda: sdf_torch.min_field_padded_bwd(segs, meta, am, ct), 3)}
+    emit(rec)
+    if not scale > 0 or err > 1e-4 * scale:
+        raise AssertionError(f"padded backward kernel off by {err} (plain max {scale})")
+    if not identical:
+        raise AssertionError("padded backward kernel differs between two runs")
+    out.update(pad_bwd_err=err, pad_bwd_ms=rec["ms"], pad_bwd_plain_ms=rec["plain_ms"])
+    return out
+
+
 def render_font(name, preps, renderer, out_dir):
     """The atlas pipeline below the font parser: blocks of 256
     codepoints through one render session, the fused native PBF
@@ -461,14 +641,64 @@ def phase_slice(font_list, work) -> int:
     return launches
 
 
-def grads_agree(gt, gf, loss_t, loss_f) -> dict:
-    """The JAX package's check between its jnp and kernel backends: the
+def phase_flat_renders(font_list) -> dict:
+    """Both fonts whole through kernel 6 (one tile table) and kernel 7
+    (one padded grid at pack_flat's P_pad, TP = min(1024, P_pad)), one
+    launch each a font, with the counts reset just before; every bitmap
+    against the exact f64 renderer. Returns the launches per kernel."""
+    from versatiles_glyphs_tpu.ops.sdf_ref import render_sdf_exact
+    from versatiles_glyphs_tpu.proto import native
+    from versatiles_glyphs_tpu_torch.ops import legacy, sdf_cuda
+
+    dev = torch.device("cuda", 0)
+    launches = {"sdf_tiles_flat": 0, "sdf_grid_flat": 0}
+    for name, preps in font_list:
+        gp = [p for p in preps if not p.empty]
+        exact = native.render_sdf_batch(gp) or [
+            render_sdf_exact(p.segments, p.width, p.height, p.x0, p.y0) for p in gp]
+        f_d, m_d, tm_d, P, starts = flat_case(gp, dev)
+        tp7 = min(1024, P)
+        torch.cuda.synchronize()
+        runs = {
+            "sdf_tiles_flat": (TP, lambda: legacy.render_bitmaps_cuda_tiles(f_d, tm_d, TP)),
+            "sdf_grid_flat": (tp7, lambda: legacy.render_bitmaps_cuda_grid(f_d, m_d, P, tp7)),
+        }
+        for kname, (tp, run) in runs.items():
+            sdf_cuda.reset_launches()
+            t0 = time.perf_counter()
+            out = run().cpu().numpy()
+            secs = time.perf_counter() - t0
+            n_launch = sdf_cuda.LAUNCHES[kname]
+            launches[kname] += n_launch
+            n_pix = n_diff = max_d = 0
+            for i, (p, want) in enumerate(zip(gp, exact)):
+                n = p.width * p.height
+                d = np.abs(glyph_bitmap(kname, out, starts, i)[:n].astype(np.int32)
+                           - want.astype(np.int32))
+                n_pix += n
+                n_diff += int((d > 0).sum())
+                max_d = max(max_d, int(d.max(initial=0)))
+            frac = n_diff / max(n_pix, 1)
+            emit({"phase": "flat_render", "font": name, "kernel": kname, "glyphs": len(gp),
+                  "lanes": int(f_d.shape[1]), "P_pad": P, "TP": tp, "out_shape": list(out.shape),
+                  "launches": n_launch, "seconds": secs, "pixels": n_pix,
+                  "pixels_off_by_1": n_diff, "frac_off": frac, "max_abs_diff": max_d})
+            if n_launch != 1:
+                raise AssertionError(f"{name}: {n_launch} launches of {kname} for one font")
+            if max_d > 1 or frac > 0.05:
+                raise AssertionError(f"{name} via {kname}: max |Δ| {max_d} on {frac:.4%} of pixels")
+    return launches
+
+
+def grads_agree(gt, gf, loss_t, loss_f, name: str = "flat") -> dict:
+    """The JAX package's check between its jnp and kernel backends (the
+    kernel side's loss is reported as ``loss_<name>``): the
     loss within 1e-5 relative; the translate and gain gradients within
     1e-4·max|g|; curve gradients within 1e-3·max|g| on ≥ 85 % of
     elements (the torch backend splits exact distance ties evenly, the
     flat kernels give them to the first argmin) and per-glyph sums
     within 1e-4·max|g|."""
-    res = {"loss_torch": loss_t, "loss_flat": loss_f,
+    res = {"loss_torch": loss_t, f"loss_{name}": loss_f,
            "loss_rel_diff": abs(loss_t - loss_f) / max(abs(loss_t), 1e-12)}
     ok = res["loss_rel_diff"] <= 1e-5
     for k in ("translate", "log_gain"):
@@ -580,6 +810,64 @@ def phase_fit(batch, work) -> dict:
     return launches
 
 
+def phase_padded_fit(batch) -> dict:
+    """20 Adam steps of `batch_loss_kernel` (the padded kernel pair) from
+    the fit phase's start, with the counts reset just before; then its
+    loss and gradients against the torch backend's on the first
+    256-codepoint block. Returns the launches per kernel."""
+    import dataclasses
+
+    from versatiles_glyphs_tpu_torch.models.fitting import PARAM_KEYS, FontFitter, batch_loss_kernel
+    from versatiles_glyphs_tpu_torch.ops import sdf_cuda
+
+    dev = torch.device("cuda", 0)
+    fitter = FontFitter(depth=FIT_DEPTH, backend="flat", device=dev)
+
+    def steps(params, opt, db, k):
+        losses = []
+        for _ in range(k):
+            opt.zero_grad(set_to_none=True)
+            loss = batch_loss_kernel(params, db, FIT_DEPTH)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        return torch.stack(losses).cpu().numpy()
+
+    params, opt, db = fitter.init(batch)
+    torch.cuda.synchronize()
+    sdf_cuda.reset_launches()
+    t0 = time.perf_counter()
+    losses = steps(params, opt, db, FIT_STEPS)
+    secs = time.perf_counter() - t0
+    launches = dict(sdf_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    more = steps(params, opt, db, 10)
+    warm = (time.perf_counter() - t0) / 10
+    emit({"phase": "padded_fit", "step": "descend", "steps": FIT_STEPS, "seconds": secs,
+          "seconds_per_step_warm": warm, "loss_first": float(losses[0]),
+          "loss_min": float(losses.min()), "loss_last": float(losses[-1]),
+          "loss_after_30": float(more[-1]), "launches": launches})
+    if not (np.isfinite(losses).all() and losses.min() < losses[0]):
+        raise AssertionError(f"the padded fit did not descend: {losses.tolist()}")
+    if not (launches["sdf_min_field_padded"] == launches["sdf_min_field_padded_bwd"] == FIT_STEPS):
+        raise AssertionError(f"{launches} kernel launches for {FIT_STEPS} padded steps")
+
+    rows = batch.codepoints < 256
+    block = dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name)[rows] for f in dataclasses.fields(batch)})
+    ft = FontFitter(depth=FIT_DEPTH, backend="torch", device=dev)
+    pt, _, dt = ft.init(block)
+    pk, _, dk = fitter.init(block)
+    lt, gt = ft.value_and_grad(pt, dt)
+    lk = batch_loss_kernel(pk, dk, FIT_DEPTH)
+    gk = dict(zip(PARAM_KEYS, torch.autograd.grad(lk, [pk[k] for k in PARAM_KEYS])))
+    cmp = grads_agree(gt, gk, float(lt), float(lk.detach()), name="padded")
+    emit({"phase": "padded_fit", "step": "backends", "glyphs": int(rows.sum()), **cmp})
+    if not cmp["agree"]:
+        raise AssertionError("torch backend and batch_loss_kernel disagree")
+    return launches
+
+
 def main() -> None:
     # Both checks come before any output: without a card, or outside a
     # checkout of the repo, the script prints no result.
@@ -593,11 +881,15 @@ def main() -> None:
     batch = fit_batch()
     k = phase_kernel(font_list[0][1])
     kf = phase_fit_kernels(batch)
+    kl = phase_flat_kernels(font_list[0][1])
+    kp = phase_padded_kernels(batch)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
         launches = phase_slice(font_list, work)
+        flat_launches = phase_flat_renders(font_list)
         fit_launches = phase_fit(batch, work)
+        pad_launches = phase_padded_fit(batch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     src = "versatiles_glyphs_tpu_torch/csrc/"
@@ -614,6 +906,24 @@ def main() -> None:
          "replaces": "versatiles_glyphs_tpu/ops/sdf_grad.py:492",
          "launches": fit_launches["sdf_min_field_bwd"], "max_abs_err": kf["bwd_err"],
          "ms": kf["bwd_ms"], "plain_ms": kf["bwd_plain_ms"]},
+        {"name": "sdf_min_field_padded", "route": "cuda",
+         "source": src + "sdf_min_field_padded.cu",
+         "replaces": "versatiles_glyphs_tpu/ops/sdf_grad.py:111",
+         "launches": pad_launches["sdf_min_field_padded"], "max_abs_err": kp["pad_err"],
+         "ms": kp["pad_ms"], "plain_ms": kp["pad_plain_ms"]},
+        {"name": "sdf_min_field_padded_bwd", "route": "cuda",
+         "source": src + "sdf_min_field_padded_bwd.cu",
+         "replaces": "versatiles_glyphs_tpu/ops/sdf_grad.py:169",
+         "launches": pad_launches["sdf_min_field_padded_bwd"], "max_abs_err": kp["pad_bwd_err"],
+         "ms": kp["pad_bwd_ms"], "plain_ms": kp["pad_bwd_plain_ms"]},
+        {"name": "sdf_tiles_flat", "route": "cuda", "source": src + "sdf_tiles_flat.cu",
+         "replaces": "versatiles_glyphs_tpu/ops/legacy.py:147",
+         "launches": flat_launches["sdf_tiles_flat"], "max_abs_err": kl["sdf_tiles_flat_err"],
+         "ms": kl["sdf_tiles_flat_ms"], "plain_ms": kl["sdf_tiles_flat_plain_ms"]},
+        {"name": "sdf_grid_flat", "route": "cuda", "source": src + "sdf_grid_flat.cu",
+         "replaces": "versatiles_glyphs_tpu/ops/legacy.py:40",
+         "launches": flat_launches["sdf_grid_flat"], "max_abs_err": kl["sdf_grid_flat_err"],
+         "ms": kl["sdf_grid_flat_ms"], "plain_ms": kl["sdf_grid_flat_plain_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

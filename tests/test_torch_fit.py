@@ -441,18 +441,30 @@ def test_fit_cli_refuses_mesh(tmp_path, synth_font):
 
 def test_fit_path_never_loads_jax(tmp_path):
     """The fit path below the CLI in a fresh interpreter (this process has
-    JAX loaded): a synthesized batch, flat steps on the CPU, the fitted
-    atlas through the torch renderer; no JAX, optax, orbax or fontTools."""
+    JAX loaded): a synthesized batch, flat steps and the padded-layout
+    `batch_loss_kernel` on the CPU, the segment-layout renders of
+    `ops.legacy`, the fitted atlas through the torch renderer; no JAX,
+    optax, orbax or fontTools."""
     code = (
         "import sys\n"
         "import chip_smoke\n"
-        "from versatiles_glyphs_tpu_torch.models.fitting import FontFitter\n"
+        "from versatiles_glyphs_tpu_torch.models.fitting import FontFitter, batch_loss_kernel\n"
         "from versatiles_glyphs_tpu_torch.models.render_fitted import render_fitted_pbfs\n"
+        "from versatiles_glyphs_tpu_torch.ops import legacy\n"
+        "from versatiles_glyphs_tpu_torch.render.batch import pack_flat\n"
         "from versatiles_glyphs_tpu_torch.render.driver import Renderer\n"
-        "from versatiles_glyphs_tpu_torch.utils.synth_font import SynthEntry, synth_fit_batch\n"
+        "from versatiles_glyphs_tpu_torch.utils.synth_font import SynthEntry, curved_preps, synth_fit_batch\n"
+        "import torch\n"
         "b = synth_fit_batch(3, 65, seed=2, depth=2, perturb=0.3)\n"
         "f = FontFitter(depth=2, backend='flat', device='cpu')\n"
         "p, o, d = f.init(b)\n"
+        "lk = batch_loss_kernel(p, d, 2)\n"
+        "lk.backward()\n"
+        "assert torch.isfinite(lk) and p['curves'].grad.abs().max() > 0\n"
+        "flat, meta, P = pack_flat(curved_preps(3, 65, seed=2))\n"
+        "g = legacy.render_bitmaps_cuda_grid(torch.from_numpy(flat), torch.from_numpy(meta), P,\n"
+        "                                    min(1024, P))\n"
+        "assert g.shape == (3, P) and g.any()\n"
         "p, o, losses = f.step_many(p, o, d, 2)\n"
         f"w = render_fitted_pbfs(p, b, SynthEntry(3, 65, seed=2), 2, {str(tmp_path / 'out')!r},\n"
         "                       'synth', renderer=Renderer('torch'))\n"

@@ -31,18 +31,21 @@ Layers, from the entry points down to the device:
 - ``font.manager``          — the JAX package's scheduler, single-process
 - ``models.fitting``        — `FontFitter` (`torch.optim.Adam`, torch
                               checkpoints), the flat plan, the Bernstein
-                              point chain, the batches, and the carry of
-                              JAX parameters and optax state
+                              point chain, the batches, the carry of JAX
+                              parameters and optax state, and the
+                              padded-layout loss `batch_loss_kernel`
 - ``models.glyph_model``    — the differentiable pair-tensor model (the
                               ``torch`` backend)
 - ``models.render_fitted``  — fitted parameters → a glyph atlas
 - ``render.driver``         — `Renderer` backends and the `RenderSession`
                               that packs glyph groups and dispatches them
-- ``render.batch``          — the point-chain and i8-delta packers, and
-                              `wire_to_device`
+- ``render.batch``          — the point-chain, i8-delta and flat
+                              segment packers, and `wire_to_device`
 - ``ops.sdf_grad``          — `signed_field_flat`, the autograd function
                               over the fitting kernels (the ``flat``
-                              backend)
+                              backend), and `signed_field_padded` over
+                              the padded pair
+- ``ops.legacy``            — the renders over the flat segment layout
 - ``ops.sdf_cuda``          — kernel wrappers with the launch counters
 - ``ops.sdf_torch``         — plain PyTorch versions of every device op
 - ``ops._build``            — nvcc build of ``csrc/*.cu``, loaded by ctypes
@@ -51,7 +54,11 @@ Layers, from the entry points down to the device:
                                   forward)
 - ``csrc/sdf_min_field_bwd.cu`` — the deterministic per-lane gradient
                                   reduction (fit backward)
-- ``csrc/sdf_pair.cuh``         — the per-pixel math the three share
+- ``csrc/sdf_min_field_padded{,_bwd}.cu`` — the padded-layout pair
+                                  (min field and its per-segment backward)
+- ``csrc/sdf_{tiles,grid}_flat.cu`` — the render over the flat segment
+                                  layout, by tile table or padded grid
+- ``csrc/sdf_pair.cuh``         — the per-pixel math the kernels share
 - ``device``                — the CUDA device predicate (no CPU fallback)
 - ``utils.synth_font``      — synthesized curved fonts, fit batches and
                               entries, with no font file

@@ -1,11 +1,14 @@
 // Per-pixel SDF math shared by the port's Hopper kernels
-// (sdf_tiles_pts.cu, sdf_min_field_pts.cu, sdf_min_field_bwd.cu).
+// (sdf_tiles_pts.cu, sdf_min_field_pts.cu, sdf_min_field_bwd.cu,
+// sdf_tiles_flat.cu, sdf_grid_flat.cu, sdf_min_field_padded.cu,
+// sdf_min_field_padded_bwd.cu).
 //
-// One definition of the tile-row read, the pixel center and the
-// point-to-segment projection keeps the three kernels on one f32 op
-// order, which is the op order of ops/sdf_torch.py and of the JAX
-// package's ops/sdf_jax.py. The build passes --fmad=false, so no
-// multiply and add here contract into an FMA.
+// One definition of the tile-row read, the pixel center, the
+// point-to-segment projection, the crossing test and the quantization
+// keeps the kernels on one f32 op order, which is the op order of
+// ops/sdf_torch.py and of the JAX package's ops/sdf_jax.py and
+// ops/sdf_grad.py. The build passes --fmad=false, so no multiply and
+// add here contract into an FMA.
 
 #pragma once
 
@@ -84,17 +87,11 @@ struct SegChunk {
     ok = reinterpret_cast<int*>(dyinv + tp);
   }
 
-  // Thread tid stages lane (caller guarantees lane + 1 < n_lanes).
-  __device__ __forceinline__ void stage(const float* __restrict__ pts, int n_lanes,
-                                        const int32_t* __restrict__ mask_words,
-                                        int lane, int tid) const {
-    const float v_x = pts[lane];
-    const float v_y = pts[n_lanes + lane];
-    const float w_x = pts[lane + 1];
-    const float w_y = pts[n_lanes + lane + 1];
+  // Thread tid stages segment (v, w) with its validity.
+  __device__ __forceinline__ void put(int tid, float v_x, float v_y, float w_x,
+                                      float w_y, bool valid) const {
     const float d_x = w_x - v_x;
     const float d_y = w_y - v_y;
-    const uint32_t word = static_cast<uint32_t>(mask_words[lane >> 5]);
     vx[tid] = v_x;
     vy[tid] = v_y;
     wy[tid] = w_y;
@@ -102,11 +99,33 @@ struct SegChunk {
     dy[tid] = d_y;
     l2inv[tid] = l2_inverse(d_x, d_y);
     dyinv[tid] = d_y != 0.0f ? __fdiv_rn(1.0f, d_y) : 0.0f;
-    ok[tid] = (word >> (lane & 31)) & 1u;
+    ok[tid] = valid;
+  }
+
+  // Point-chain layout: thread tid stages lane (caller guarantees
+  // lane + 1 < n_lanes), live iff its mask bit is set.
+  __device__ __forceinline__ void stage(const float* __restrict__ pts, int n_lanes,
+                                        const int32_t* __restrict__ mask_words,
+                                        int lane, int tid) const {
+    const uint32_t word = static_cast<uint32_t>(mask_words[lane >> 5]);
+    put(tid, pts[lane], pts[n_lanes + lane], pts[lane + 1], pts[n_lanes + lane + 1],
+        (word >> (lane & 31)) & 1u);
+  }
+
+  // Segment-soup layout flat [4, n_lanes] (rows vx, vy, wx, wy): thread
+  // tid stages the live segment at lane.
+  __device__ __forceinline__ void stage_soup(const float* __restrict__ flat,
+                                             int n_lanes, int lane, int tid) const {
+    put(tid, flat[lane], flat[n_lanes + lane], flat[2 * n_lanes + lane],
+        flat[3 * n_lanes + lane], true);
   }
 
   // d^2 from pixel (pxc, pyc) to staged segment j, and its step of the
   // winding count (+1 upward crossing left of the pixel, -1 downward).
+  // The crossing test is the parity form: the row crosses iff
+  // (vy <= py) != (wy <= py), upward iff vy <= py. That is the half-open
+  // up/down form vy <= py < wy (+1), wy <= py < vy (-1) of the older TPU
+  // kernels (ops/legacy.py) written with two compares fewer.
   __device__ __forceinline__ float d2_and_winding(int j, float pxc, float pyc,
                                                   int& wn) const {
     const float v_x = vx[j];
@@ -126,5 +145,37 @@ struct SegChunk {
 };
 
 constexpr int kSegChunkWords = 8;  // shared words per thread of SegChunk
+
+// Min of d^2 and the winding count of pixel (pxc, pyc) over a glyph's
+// segment soup, lanes [off, off + nseg) of flat [4, n_lanes], staged
+// in chunks of tp = blockDim.x. Every thread of the block calls it with
+// the same off and nseg (it synchronizes the block).
+__device__ __forceinline__ float soup_min_d2(const SegChunk& seg,
+                                             const float* __restrict__ flat,
+                                             int n_lanes, int off, int nseg,
+                                             float pxc, float pyc, int& wn) {
+  const int tp = blockDim.x;
+  const int tid = threadIdx.x;
+  float dmin = kBig;
+  for (int c0 = 0; c0 < nseg; c0 += tp) {
+    if (c0 + tid < nseg) seg.stage_soup(flat, n_lanes, off + c0 + tid, tid);
+    __syncthreads();
+    const int n = min(tp, nseg - c0);
+    for (int j = 0; j < n; ++j) dmin = fminf(dmin, seg.d2_and_winding(j, pxc, pyc, wn));
+    __syncthreads();
+  }
+  return dmin;
+}
+
+// The SDF byte of a pixel: clamp(255 - (+-sqrt(d^2)*scale + cutoff)),
+// negative inside (winding != 0), rounded by floor(x + 0.5).
+__device__ __forceinline__ uint8_t sdf_byte(float dmin, int wn, float scale,
+                                            float cutoff) {
+  float d = __fsqrt_rn(dmin);
+  if (wn != 0) d = -d;
+  const float v = d * scale + cutoff;
+  const float n = fminf(fmaxf(255.0f - v, 0.0f), 255.0f);
+  return static_cast<uint8_t>(floorf(n + 0.5f));
+}
 
 }  // namespace vg

@@ -77,11 +77,7 @@ __global__ void sdf_tiles_pts_kernel(
     __syncthreads();
   }
 
-  float d = __fsqrt_rn(dmin);
-  if (wn != 0) d = -d;
-  const float v = d * scale + cutoff;
-  const float n = fminf(fmaxf(255.0f - v, 0.0f), 255.0f);
-  *dst = static_cast<uint8_t>(floorf(n + 0.5f));
+  *dst = vg::sdf_byte(dmin, wn, scale, cutoff);
 }
 
 }  // namespace

@@ -16,6 +16,12 @@ Two gradient backends:
   forward and backward are the hand-written min-field kernels on a CUDA
   device and their plain versions on the CPU. Hard min only.
 
+`batch_loss_kernel` is the JAX package's loss of the same name: the
+padded per-glyph layout through `ops.sdf_grad.signed_field_padded` (the
+padded min-field kernel pair). As there, no backend of `FontFitter`
+uses it; the ``flat`` backend's device batch carries the ``meta`` it
+needs.
+
 `torch.optim.Adam` takes optax's place and `torch.save` orbax's;
 `params_from_numpy` and `adam_state_from_optax` carry a JAX run's
 parameters and Adam state across. `make_fit_batch` reads a font file
@@ -106,6 +112,24 @@ def batch_loss(params, batch: dict, depth: int, sharpness) -> torch.Tensor:
         params["curves"], batch["curve_mask"], params["translate"],
         batch["px"], batch["py"], depth=depth, sharpness=sharpness,
     )
+    losses = sdf_loss(field * torch.exp(params["log_gain"]), batch["target"], batch["pix_mask"])
+    return torch.mean(losses)
+
+
+def batch_loss_kernel(params, batch: dict, depth: int) -> torch.Tensor:
+    """`batch_loss` with the signed field of the padded kernel pair
+    (`ops.sdf_grad.signed_field_padded`) instead of the pair tensor;
+    hard min only. ``batch`` needs ``curve_mask``, ``meta`` [B, 4] i32,
+    ``target`` and ``pix_mask``."""
+    from ..ops.sdf_grad import signed_field_padded
+    from .glyph_model import curves_to_segments
+
+    curves = params["curves"] + params["translate"][:, None, None, :]
+    segs = curves_to_segments(curves, depth)
+    seg_mask = torch.repeat_interleave(batch["curve_mask"], 2**depth, dim=-1)
+    P = batch["target"].shape[1]
+    field = signed_field_padded(segs, seg_mask, batch["meta"], P)
+    # Per-glyph masked mean, then the batch mean, as in `batch_loss`.
     losses = sdf_loss(field * torch.exp(params["log_gain"]), batch["target"], batch["pix_mask"])
     return torch.mean(losses)
 
@@ -293,6 +317,7 @@ class FontFitter:
         if self.backend == "flat":
             plan = build_flat_plan(batch.curve_mask, batch.meta, self.depth, batch.target.shape[1])
             self._loss = make_flat_kernel_loss(plan, self.depth)
+            dev_batch["meta"] = torch.as_tensor(batch.meta, dtype=torch.int32, device=dev)
             dev_batch["plan_tmeta"] = torch.as_tensor(plan.tmeta.T.copy(), device=dev)
             dev_batch["plan_words"] = torch.as_tensor(plan.mask_words, device=dev)
             dev_batch["row_map"] = torch.as_tensor(plan.row_map, dtype=torch.int64, device=dev)

@@ -1,0 +1,112 @@
+"""Render over the flat segment layout (counterparts of
+`versatiles_glyphs_tpu.ops.legacy`).
+
+The JAX package keeps two older Pallas render kernels over the segment
+soup of `render.batch.pack_flat` (flat [4, N] f32 rows vx, vy, wx, wy,
+one segment a lane; each glyph's run starts at an SC-aligned lane):
+a single launch over a tile table and a padded [G, P] grid. Here each
+is a hand-written kernel with the per-pixel math of the point-chain
+render kernel (``csrc/sdf_pair.cuh``):
+
+- ``sdf_tiles_flat``: `render_bitmaps_cuda_tiles`;
+- ``sdf_grid_flat``: `render_bitmaps_cuda_grid`.
+
+On CUDA tensors a wrapper launches its kernel; on CPU tensors it runs
+the plain version in `ops.sdf_torch`. There is no fallback from one to
+the other. Each wrapper checks dtypes, shapes and that every glyph's
+lanes lie inside the flat array (one host sync) before it launches;
+``launch_*`` is the launch alone. Launches count in
+`ops.sdf_cuda.LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from versatiles_glyphs_tpu.constants import CUTOFF, SDF_RADIUS
+
+from .sdf_cuda import _check_tmeta, _cuda_inputs, _lanes_out_of_bounds, _launch
+from .sdf_torch import render_grid_flat, render_tiles_flat
+
+
+def _check_flat(flat) -> None:
+    if flat.dtype != torch.float32 or flat.dim() != 2 or flat.shape[0] != 4:
+        raise ValueError(f"flat must be [4, N] float32, got {tuple(flat.shape)} {flat.dtype}")
+
+
+def _check_cuda_runs(flat, table, rows) -> None:
+    """The launch checks: flat and the table contiguous on one CUDA
+    device, and every segment run [seg_off, seg_off + nseg) of ``rows``
+    (the table as [8, T]) inside [0, N) (one host sync)."""
+    _cuda_inputs(flat, table)
+    N = flat.shape[1]
+    if rows.numel() and bool(_lanes_out_of_bounds(rows, N).any()):
+        raise ValueError(f"a glyph's segment run leaves the flat array's lanes [0, {N})")
+
+
+def render_bitmaps_cuda_tiles(flat: torch.Tensor, tmeta: torch.Tensor, TP: int = 256) -> torch.Tensor:
+    """Quantized uint8 bitmaps [T, TP] over a flat tile table
+    (counterpart of `legacy.render_bitmaps_pallas_tiles`).
+
+    flat: [4, N] f32 (`render.batch.pack_flat`); tmeta: [8, T] i32
+    (`render.batch.plan_tiles` of the pack_flat meta, transposed), rows
+    ``x0, y0, w, h, nseg, seg_off, pix_base, _``. A glyph's bitmap is
+    the first w·h bytes from its first row. TP: a multiple of 32 in
+    [32, 1024] (the TPU needed 128)."""
+    _check_flat(flat)
+    _check_tmeta(tmeta, TP)
+    if flat.device != tmeta.device:
+        raise ValueError("flat and tmeta must be on one device")
+    if flat.device.type == "cpu":
+        return render_tiles_flat(flat, tmeta, TP)
+    _check_cuda_runs(flat, tmeta, tmeta)
+    return launch_tiles_flat(flat, tmeta, TP)
+
+
+def launch_tiles_flat(flat, tmeta, TP: int) -> torch.Tensor:
+    """The flat tile kernel on inputs the caller has checked (see
+    `render_bitmaps_cuda_tiles`): allocate the output and launch."""
+    N, T = flat.shape[1], tmeta.shape[1]
+    out = torch.empty((T, TP), dtype=torch.uint8, device=flat.device)
+    if T:
+        _launch(
+            "sdf_tiles_flat", flat.device, flat.data_ptr(), N, tmeta.data_ptr(), T, TP,
+            256.0 / SDF_RADIUS, CUTOFF, out.data_ptr(),
+        )
+    return out
+
+
+def render_bitmaps_cuda_grid(
+    flat: torch.Tensor, meta: torch.Tensor, P: int, TP: int = 1024
+) -> torch.Tensor:
+    """Quantized uint8 bitmaps [G, P] on a padded grid (counterpart of
+    `legacy.render_bitmaps_pallas`).
+
+    flat: [4, N] f32 (`render.batch.pack_flat`); meta: [G, 8] i32
+    (x0, y0, w, h, nseg, seg_off, _, _); P: pixels per glyph, a multiple
+    of TP (`pack_flat`'s P_pad with TP = min(1024, P_pad)); TP: a
+    multiple of 32 in [32, 1024]. Tiles at or past w·h are zeros."""
+    _check_flat(flat)
+    if meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[1] != 8:
+        raise ValueError(f"meta must be [G, 8] int32, got {tuple(meta.shape)} {meta.dtype}")
+    if TP % 32 or not 32 <= TP <= 1024 or P < 0 or P % TP:
+        raise ValueError(f"P={P} must be a multiple of TP={TP}, a multiple of 32 in [32, 1024]")
+    if flat.device != meta.device:
+        raise ValueError("flat and meta must be on one device")
+    if flat.device.type == "cpu":
+        return render_grid_flat(flat, meta, P, TP)
+    _check_cuda_runs(flat, meta, meta.T)
+    return launch_grid_flat(flat, meta, P, TP)
+
+
+def launch_grid_flat(flat, meta, P: int, TP: int) -> torch.Tensor:
+    """The flat grid kernel on inputs the caller has checked (see
+    `render_bitmaps_cuda_grid`): allocate the output and launch."""
+    N, G = flat.shape[1], meta.shape[0]
+    out = torch.empty((G, P), dtype=torch.uint8, device=flat.device)
+    if G and P:
+        _launch(
+            "sdf_grid_flat", flat.device, flat.data_ptr(), N, meta.data_ptr(), G, P, TP,
+            256.0 / SDF_RADIUS, CUTOFF, out.data_ptr(),
+        )
+    return out

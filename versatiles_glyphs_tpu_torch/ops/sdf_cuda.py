@@ -1,12 +1,17 @@
 """Kernel wrappers (counterparts of `versatiles_glyphs_tpu.ops.sdf_pallas`
-and of the Pallas backward of `ops.sdf_grad`).
+and of the Pallas kernels of `ops.sdf_grad`).
 
-Three hand-written kernels, each on the current stream:
+The port's seven hand-written kernels, each on the current stream:
 
 - ``sdf_tiles_pts`` (render): `render_bitmaps_cuda_pts`,
   `render_bitmaps_cuda_delta`;
 - ``sdf_min_field_pts`` (fitting forward): `min_field_cuda_pts`;
-- ``sdf_min_field_bwd`` (fitting backward): `min_field_bwd_cuda`.
+- ``sdf_min_field_bwd`` (fitting backward): `min_field_bwd_cuda`;
+- ``sdf_min_field_padded`` (padded-layout fitting forward):
+  `min_field_cuda_padded`;
+- ``sdf_min_field_padded_bwd`` (its backward): `min_field_padded_bwd_cuda`;
+- ``sdf_tiles_flat`` and ``sdf_grid_flat`` (render over the flat
+  segment layout): wrapped in `ops.legacy`.
 
 On CUDA tensors a wrapper launches its kernel (``csrc/<name>.cu``); on
 CPU tensors it runs the kernel's plain version in `ops.sdf_torch`.
@@ -36,6 +41,8 @@ from .sdf_torch import (
     dequantize,
     derive_tmeta,
     min_field_bwd_pts,
+    min_field_padded,
+    min_field_padded_bwd,
     min_field_pts,
     reconstruct_delta,
     render_tiles_pts,
@@ -47,7 +54,20 @@ _SIGNATURES = {
     "sdf_tiles_pts": ("vg_sdf_tiles_pts", [_P, _I, _P, _P, _I, _I, _F, _F, _P, _P]),
     "sdf_min_field_pts": ("vg_sdf_min_field_pts", [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P]),
     "sdf_min_field_bwd": ("vg_sdf_min_field_bwd", [_P, _I, _P, _P, _P, _I, _I, _P, _P]),
+    "sdf_min_field_padded": (
+        "vg_sdf_min_field_padded", [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P]),
+    "sdf_min_field_padded_bwd": (
+        "vg_sdf_min_field_padded_bwd", [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P]),
+    "sdf_tiles_flat": ("vg_sdf_tiles_flat", [_P, _I, _P, _I, _I, _F, _F, _P, _P]),
+    "sdf_grid_flat": ("vg_sdf_grid_flat", [_P, _I, _P, _I, _I, _I, _F, _F, _P, _P]),
 }
+# Block sizes of the padded pair: pixels per block of the forward,
+# segments per block of the backward.
+PADDED_TP = 256
+PADDED_TS = 128
+# Pixel indices below this split into rows by integer div and mod as the
+# TPU's f32 division does (`versatiles_glyphs_tpu.ops.sdf_grad._pixel_coords`).
+MAX_PADDED_PIXELS = 1 << 23
 KERNELS = tuple(_SIGNATURES)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -261,3 +281,97 @@ def launch_min_field_bwd(pts, am, ct_d2, tmeta, TP: int) -> torch.Tensor:
             ct_d2.data_ptr(), tmeta.data_ptr(), T, TP, dpts.data_ptr(),
         )
     return dpts
+
+
+def _padded_inputs(segs, mask, meta, P: int):
+    """Check the padded pair's segments, mask, meta and P; returns mask
+    as f32 and meta as [B, 4] i32, both contiguous."""
+    if segs.dtype != torch.float32 or segs.dim() != 3 or segs.shape[2] != 4:
+        raise ValueError(f"segs must be [B, S, 4] float32, got {tuple(segs.shape)} {segs.dtype}")
+    B, S = segs.shape[:2]
+    if mask is not None and tuple(mask.shape) != (B, S):
+        raise ValueError(f"mask must be [{B}, {S}], got {tuple(mask.shape)}")
+    if meta.dim() != 2 or meta.shape[0] != B or meta.shape[1] < 4:
+        raise ValueError(f"meta must be [{B}, >=4], got {tuple(meta.shape)}")
+    if not 0 <= P <= MAX_PADDED_PIXELS:
+        raise ValueError(
+            f"P={P} must be in [0, {MAX_PADDED_PIXELS}] (the TPU kernel's f32 row split "
+            "equals integer division only below 2^23)"
+        )
+    if any(t.device != segs.device for t in (meta, *(() if mask is None else (mask,)))):
+        raise ValueError("segs, mask and meta must be on one device")
+    mask = None if mask is None else mask.to(torch.float32).contiguous()
+    return mask, meta[:, :4].to(torch.int32).contiguous()
+
+
+def min_field_cuda_padded(segs: torch.Tensor, mask: torch.Tensor, meta: torch.Tensor, P: int):
+    """Min-distance residuals on the padded per-glyph layout (counterpart
+    of `sdf_grad._run_fwd` without the TPU's paddings): (d2 [B, P] f32,
+    wn [B, P] i32, am [B, P] i32 first argmin segment, 2³¹−1 where no
+    segment is live).
+
+    segs [B, S, 4] f32 (vx, vy, wx, wy), mask [B, S] (nonzero = live,
+    any dtype), meta [B, ≥4] of integral values in any real dtype (x0,
+    y0, w, h; cast to i32 as the JAX package casts it), P ≤ 2²³ pixels
+    per glyph in flat PBF order."""
+    mask, meta = _padded_inputs(segs, mask, meta, P)
+    if segs.device.type == "cpu":
+        return min_field_padded(segs, mask, meta, P)
+    _cuda_inputs(segs, mask, meta)
+    return launch_min_field_padded(segs, mask, meta, P)
+
+
+def launch_min_field_padded(segs, mask, meta, P: int):
+    """The padded min-field kernel on inputs the caller has checked (see
+    `min_field_cuda_padded`: mask f32, meta [B, 4] i32): allocate the
+    outputs and launch."""
+    B, S = segs.shape[:2]
+    d2 = torch.empty((B, P), dtype=torch.float32, device=segs.device)
+    wn = torch.empty((B, P), dtype=torch.int32, device=segs.device)
+    am = torch.empty((B, P), dtype=torch.int32, device=segs.device)
+    if B and P:
+        _launch(
+            "sdf_min_field_padded", segs.device, segs.data_ptr(), mask.data_ptr(), B, S,
+            meta.data_ptr(), P, PADDED_TP, d2.data_ptr(), wn.data_ptr(), am.data_ptr(),
+        )
+    return d2, wn, am
+
+
+def min_field_padded_bwd_cuda(
+    segs: torch.Tensor, meta: torch.Tensor, am: torch.Tensor, ct_d2: torch.Tensor
+) -> torch.Tensor:
+    """Backward of the padded min field (counterpart of
+    `sdf_grad._run_bwd` without the TPU's lane padding): dsegs [B, S, 4]
+    f32 (dvx, dvy, dwx, dwy) from the argmin segments am [B, P] i32 and
+    the cotangent of d², ct_d2 [B, P] f32. The kernel is deterministic
+    (no atomics)."""
+    P = am.shape[1] if am.dim() == 2 else -1
+    _, meta = _padded_inputs(segs, None, meta, max(P, 0))
+    B = segs.shape[0]
+    if am.dtype != torch.int32 or tuple(am.shape) != (B, P):
+        raise ValueError(f"am must be [{B}, P] int32, got {tuple(am.shape)} {am.dtype}")
+    if ct_d2.dtype != torch.float32 or tuple(ct_d2.shape) != (B, P):
+        raise ValueError(
+            f"ct_d2 must be [{B}, {P}] float32, got {tuple(ct_d2.shape)} {ct_d2.dtype}"
+        )
+    if not (segs.device == am.device == ct_d2.device):
+        raise ValueError("segs, meta, am and ct_d2 must be on one device")
+    if segs.device.type == "cpu":
+        return min_field_padded_bwd(segs, meta, am, ct_d2)
+    _cuda_inputs(segs, meta, am, ct_d2)
+    return launch_min_field_padded_bwd(segs, meta, am, ct_d2)
+
+
+def launch_min_field_padded_bwd(segs, meta, am, ct_d2) -> torch.Tensor:
+    """The padded backward kernel on inputs the caller has checked (see
+    `min_field_padded_bwd_cuda`: meta [B, 4] i32): allocate the output
+    (the kernel writes all of it) and launch."""
+    B, S = segs.shape[:2]
+    P = am.shape[1]
+    dsegs = torch.empty((B, S, 4), dtype=torch.float32, device=segs.device)
+    if B and S:
+        _launch(
+            "sdf_min_field_padded_bwd", segs.device, segs.data_ptr(), B, S, meta.data_ptr(),
+            am.data_ptr(), ct_d2.data_ptr(), P, PADDED_TS, dsegs.data_ptr(),
+        )
+    return dsegs

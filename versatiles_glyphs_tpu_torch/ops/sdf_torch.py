@@ -1,15 +1,18 @@
 """Plain PyTorch versions of the port's device ops.
 
 Device-agnostic functions on tensors. They are the counterparts of the
-XLA prepass steps and of three Pallas kernels of
-`versatiles_glyphs_tpu.ops.sdf_pallas` / `ops.sdf_grad`: the render
-tile kernel, the fitting min field and its backward reduction. They
-keep the op order of the JAX package's twins (`ops.sdf_jax`), so the
-render bytes and the min field are bit-identical to the JAX package's
-on the same arrays; the backward's sums are taken in another order. The
-CPU tests hold them against the JAX package, the ``torch`` backends run
-them on the CPU, and `ops.sdf_cuda` takes them for CPU tensors and
-holds its kernels against them on the card.
+XLA prepass steps and of the seven Pallas kernels of
+`versatiles_glyphs_tpu.ops.sdf_pallas` / `ops.sdf_grad` / `ops.legacy`:
+the render tile kernel over the point chain, the fitting min field and
+its backward reduction over the point chain, the padded-layout min field
+and its backward, and the two renders over the flat segment layout.
+They keep the op order of the JAX package's kernels and twins
+(`ops.sdf_jax`, `ops.sdf_grad._pair_terms`), so the render bytes and the
+min fields are bit-identical to the JAX package's on the same arrays;
+the backwards' sums are taken in another order. The CPU tests hold them
+against the JAX package, the ``torch`` backends run them on the CPU,
+and `ops.sdf_cuda` / `ops.legacy` take them for CPU tensors and hold
+their kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -103,6 +106,54 @@ def _pixel_centers(rows: torch.Tensor, TP: int):
     return x0.float() + x.float() + 0.5, y0.float() + y.float() + 0.5, i
 
 
+def _pair_d2_wn(px, py, vx, vy, wx, wy, seg_ok):
+    """The pair math of every kernel: d² (masked segments `_BIG`) and
+    the winding number of pixels ``px, py [..., TP, 1]`` against
+    segments ``vx … wy [..., 1, L]`` (live where ``seg_ok``), in
+    `sdf_jax._field_tile_pts` op order. The crossing is the parity form
+    (`csrc/sdf_pair.cuh` says why it equals the older up/down form).
+    Returns (d2 [..., TP, L], wn [..., TP])."""
+    dx = wx - vx
+    dy = wy - vy
+    l2 = dx * dx + dy * dy
+    l2inv = torch.where(l2 > 0.0, torch.reciprocal(l2), 0.0)
+    dyinv = torch.where(dy != 0.0, torch.reciprocal(dy), 0.0)
+
+    ex = px - vx
+    ey = py - vy
+    num = ex * dx + ey * dy
+    tc = torch.clamp(num * l2inv, 0.0, 1.0)
+    qx = ex - tc * dx
+    qy = ey - tc * dy
+    d2 = torch.where(seg_ok, qx * qx + qy * qy, _BIG)
+    del num, tc, qx, qy
+
+    c1 = vy <= py
+    cross = c1 ^ (wy <= py)
+    cx = vx + (ey * dyinv) * dx
+    hit = cross & (cx <= px) & seg_ok
+    del cross, cx, ex, ey
+    wn = torch.sum(torch.where(hit, torch.where(c1, 1, -1), 0), dim=-1)
+    return d2, wn
+
+
+def _first_argmin(d2, lane):
+    """(min of d² over the last axis, the first lane that reaches it, or
+    `_BIGI` where every segment is masked)."""
+    dmin = torch.amin(d2, dim=-1)
+    amin = torch.amin(torch.where(d2 == dmin[..., None], lane, _BIGI), dim=-1)
+    return dmin, torch.where(dmin < _BIG, amin, _BIGI)
+
+
+def _sdf_bytes(dmin, wn):
+    """Quantized SDF bytes (as f32) of the min d² and winding
+    (`sdf_jax.quantize_sdf` of ``±sqrt``)."""
+    d = sqrt_rn(dmin)
+    d = torch.where(wn != 0, -d, d)
+    v = d * (256.0 / SDF_RADIUS) + CUTOFF
+    return torch.floor(torch.clamp(255.0 - v, 0.0, 255.0) + 0.5)
+
+
 def _tile_chunks(pts, mask_words, tmeta, TP: int):
     """The pair math of the tile kernels over chunks of tile rows, in
     `sdf_jax._field_tile_pts` op order. Yields ``(t0, rows [8, C],
@@ -126,35 +177,13 @@ def _tile_chunks(pts, mask_words, tmeta, TP: int):
         lane = off + iota_l
         vi = torch.clamp(lane, max=N - 1).long()
         wi = torch.clamp(lane + 1, max=N - 1).long()
-        vx = pts[0][vi][:, None, :]
-        vy = pts[1][vi][:, None, :]
-        wx = pts[0][wi][:, None, :]
-        wy = pts[1][wi][:, None, :]
         words = mask_words[torch.clamp(lane >> 5, max=mask_words.shape[0] - 1).long()]
         bits = (words >> (lane & 31)) & 1
         seg_ok = ((bits != 0) & (lane < off + npts - 1))[:, None, :]
-
-        dx = wx - vx
-        dy = wy - vy
-        l2 = dx * dx + dy * dy
-        l2inv = torch.where(l2 > 0.0, torch.reciprocal(l2), 0.0)
-        dyinv = torch.where(dy != 0.0, torch.reciprocal(dy), 0.0)
-
-        ex = px - vx
-        ey = py - vy
-        num = ex * dx + ey * dy
-        tc = torch.clamp(num * l2inv, 0.0, 1.0)
-        qx = ex - tc * dx
-        qy = ey - tc * dy
-        d2 = torch.where(seg_ok, qx * qx + qy * qy, _BIG)
-        del num, tc, qx, qy
-
-        c1 = vy <= py
-        cross = c1 ^ (wy <= py)
-        cx = vx + (ey * dyinv) * dx
-        hit = cross & (cx <= px) & seg_ok
-        del cross, cx, ex, ey
-        wn = torch.sum(torch.where(hit, torch.where(c1, 1, -1), 0), dim=2)
+        d2, wn = _pair_d2_wn(
+            px, py, pts[0][vi][:, None, :], pts[1][vi][:, None, :],
+            pts[0][wi][:, None, :], pts[1][wi][:, None, :], seg_ok,
+        )
         yield t0, m, lane[:, None, :], d2, wn
 
 
@@ -177,14 +206,10 @@ def render_tiles_pts(
     out = torch.zeros((tmeta.shape[1], TP), dtype=torch.uint8, device=pts.device)
     if tmeta.shape[1] == 0:
         return out
-    scale = 256.0 / SDF_RADIUS
     for t0, m, _, d2, wn in _tile_chunks(pts, mask_words, tmeta, TP):
         dmin = torch.amin(d2, dim=2)
         del d2
-        d = sqrt_rn(dmin)
-        d = torch.where(wn != 0, -d, d)
-        v = d * scale + CUTOFF
-        byte = torch.floor(torch.clamp(255.0 - v, 0.0, 255.0) + 0.5)
+        byte = _sdf_bytes(dmin, wn)
         byte = torch.where(m[6][:, None] < m[2][:, None] * m[3][:, None], byte, 0.0)
         out[t0 : t0 + m.shape[1]] = byte.to(torch.uint8)
     return out
@@ -210,10 +235,8 @@ def min_field_pts(
     if T == 0:
         return d2_out, wn_out, am_out
     for t0, m, lane, d2, wn in _tile_chunks(pts, mask_words, tmeta, TP):
-        dmin = torch.amin(d2, dim=2)
-        amin = torch.amin(torch.where(d2 == dmin[:, :, None], lane, _BIGI), dim=2)
+        dmin, amin = _first_argmin(d2, lane)
         del d2
-        amin = torch.where(dmin < _BIG, amin, _BIGI)
         live = m[6][:, None] < m[2][:, None] * m[3][:, None]
         C = m.shape[1]
         d2_out[t0 : t0 + C] = torch.where(live, dmin, 0.0)
@@ -265,3 +288,157 @@ def min_field_bwd_pts(
         dpts[k].index_add_(0, a, torch.where(live, gq * (tc - 1.0), 0.0).reshape(-1))
         dpts[k].index_add_(0, a + 1, torch.where(live, -(gq * tc), 0.0).reshape(-1))
     return dpts
+
+
+# -- the flat segment layout (TPU kernels 6 and 7, `ops.legacy`) --------
+
+
+def render_tiles_flat(flat: torch.Tensor, tmeta: torch.Tensor, TP: int = 256) -> torch.Tensor:
+    """Quantized uint8 bitmaps [T, TP] over the flat segment layout: the
+    plain version of the legacy tile kernel (`legacy._sdf_kernel_tiles`;
+    `sdf_jax._field_tile_flat` + `quantize_sdf`, same op order).
+
+    flat: [4, N] f32 rows vx, vy, wx, wy, one segment a lane
+    (`render.batch.pack_flat`); tmeta: [8, T] i32 rows ``x0, y0, w, h,
+    nseg, seg_off, pix_base, _``. A row's segments are lanes
+    ``[seg_off, seg_off + nseg)``, all live. Rows with pix_base ≥ w·h
+    are zeros. Runs over chunks of rows so that each [rows, TP, L]
+    temporary stays bounded."""
+    dev = flat.device
+    T = tmeta.shape[1]
+    out = torch.zeros((T, TP), dtype=torch.uint8, device=dev)
+    if T == 0:
+        return out
+    N = flat.shape[1]
+    rows = tmeta.to(torch.int32)
+    # Longest segment run of any row: one host sync for the chunking.
+    L = max(int(rows[4].max()), 1)
+    C = max(1, _chunk_elems(dev) // (TP * L))
+    iota_l = torch.arange(L, dtype=torch.int32, device=dev)
+    for t0 in range(0, T, C):
+        m = rows[:, t0 : t0 + C]
+        px, py, _ = _pixel_centers(m, TP)
+        lane = torch.clamp(m[5][:, None] + iota_l, 0, N - 1).long()
+        seg = flat[:, lane][:, :, None, :]  # [4, C, 1, L]
+        seg_ok = (iota_l < m[4][:, None])[:, None, :]
+        d2, wn = _pair_d2_wn(px[:, :, None], py[:, :, None], *seg, seg_ok)
+        dmin = torch.amin(d2, dim=2)
+        del d2
+        byte = _sdf_bytes(dmin, wn)
+        byte = torch.where(m[6][:, None] < m[2][:, None] * m[3][:, None], byte, 0.0)
+        out[t0 : t0 + m.shape[1]] = byte.to(torch.uint8)
+    return out
+
+
+def grid_tmeta(meta: torch.Tensor, P: int, TP: int) -> torch.Tensor:
+    """The tile table [8, G·P/TP] i32 of a padded [G, P] grid: glyph g's
+    row of meta [G, 8] (x0, y0, w, h, nseg, seg_off, …) once per pixel
+    tile, with pix_base 0, TP, 2·TP, … (TP divides P)."""
+    nt = P // TP
+    rows = meta.to(torch.int32).repeat_interleave(nt, dim=0).T.contiguous()
+    rows[6] = torch.arange(rows.shape[1], dtype=torch.int32, device=meta.device) % nt * TP
+    return rows
+
+
+def render_grid_flat(
+    flat: torch.Tensor, meta: torch.Tensor, P: int, TP: int = 1024
+) -> torch.Tensor:
+    """Quantized uint8 bitmaps [G, P] over the flat segment layout on a
+    padded grid: the plain version of the legacy grid kernel
+    (`legacy._sdf_kernel`). meta: [G, 8] i32 (x0, y0, w, h, nseg,
+    seg_off, _, _); TP divides P. A pixel tile whose base is at or past
+    w·h is zeros; the pixels in [w·h, P) of a live tile are computed
+    from their out-of-range coordinates, as the TPU kernel does. (The
+    jnp twin `sdf_jax.render_bitmaps_flat_jax` computes every tile, so
+    the two agree on the live tiles.) Each glyph's tiles are rows of
+    `render_tiles_flat`."""
+    G = meta.shape[0]
+    return render_tiles_flat(flat, grid_tmeta(meta, P, TP), TP).reshape(G, P)
+
+
+# -- the padded per-glyph layout (TPU kernels 4 and 5, `ops.sdf_grad`) --
+
+
+def _padded_centers(meta: torch.Tensor, P: int):
+    """Pixel centers (px, py) [B, P] of the first P flat pixels of each
+    glyph, meta [B, ≥4] (x0, y0, w, h): integer div and mod, which give
+    the TPU kernel's f32-division rows for every index below 2²³."""
+    rows = torch.zeros((8, meta.shape[0]), dtype=torch.int32, device=meta.device)
+    rows[:4] = meta[:, :4].T
+    px, py, _ = _pixel_centers(rows, P)
+    return px, py
+
+
+def min_field_padded(segs: torch.Tensor, mask: torch.Tensor, meta: torch.Tensor, P: int):
+    """Min-distance residuals on the padded per-glyph layout: the plain
+    version of the padded min-field kernel (`sdf_grad._fwd_kernel`,
+    `_pair_terms` op order).
+
+    segs [B, S, 4] f32 (vx, vy, wx, wy), mask [B, S] (nonzero = live),
+    meta [B, ≥4] i32 (x0, y0, w, h), P pixels per glyph (flat PBF order;
+    pixels past w·h are computed from their out-of-range coordinates).
+    Returns (d2 [B, P] f32 min of d², wn [B, P] i32 winding number, am
+    [B, P] i32 first argmin segment, `_BIGI` where no segment is live).
+    Runs over chunks of glyphs so that each [glyphs, P, S] temporary
+    stays bounded."""
+    dev = segs.device
+    B, S = segs.shape[:2]
+    d2_out = torch.full((B, P), _BIG, dtype=torch.float32, device=dev)
+    wn_out = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    am_out = torch.full((B, P), _BIGI, dtype=torch.int32, device=dev)
+    if B == 0 or P == 0 or S == 0:
+        return d2_out, wn_out, am_out
+    meta = meta.to(torch.int32)
+    C = max(1, _chunk_elems(dev) // (P * S))
+    lane = torch.arange(S, dtype=torch.int32, device=dev)
+    for b0 in range(0, B, C):
+        px, py = _padded_centers(meta[b0 : b0 + C], P)
+        sg = segs[b0 : b0 + C].permute(2, 0, 1)[:, :, None, :]  # [4, C, 1, S]
+        ok = (mask[b0 : b0 + C] != 0)[:, None, :]
+        d2, wn = _pair_d2_wn(px[:, :, None], py[:, :, None], *sg, ok)
+        dmin, amin = _first_argmin(d2, lane)
+        del d2
+        d2_out[b0 : b0 + C] = dmin
+        wn_out[b0 : b0 + C] = wn.to(torch.int32)
+        am_out[b0 : b0 + C] = amin.to(torch.int32)
+    return d2_out, wn_out, am_out
+
+
+def min_field_padded_bwd(
+    segs: torch.Tensor, meta: torch.Tensor, am: torch.Tensor, ct_d2: torch.Tensor
+) -> torch.Tensor:
+    """Gradient of the padded min field's d² w.r.t. the segments: the
+    plain version of the padded backward kernel (`sdf_grad._bwd_kernel`),
+    in the direct per-pixel form.
+
+    am [B, P] i32 argmin segments of `min_field_padded`, ct_d2 [B, P]
+    f32 cotangent g of d². Each pixel with a live argmin s gathers its
+    segment, recomputes tc and q in the forward's op order and adds
+    2g·q·(tc−1) to dv and −2g·q·tc to dw of segment s (`index_add_`).
+    Pixels past w·h count (the caller's cotangent masks them); the
+    `_BIGI` sentinel adds nothing. Returns dsegs [B, S, 4] f32 (dvx,
+    dvy, dwx, dwy)."""
+    B, S = segs.shape[:2]
+    P = am.shape[1]
+    dsegs = torch.zeros((B, S, 4), dtype=torch.float32, device=segs.device)
+    if B == 0 or S == 0 or P == 0:
+        return dsegs
+    px, py = _padded_centers(meta.to(torch.int32), P)
+    live = (am >= 0) & (am < S)
+    a = torch.where(live, am, 0).long()
+    vx, vy, wx, wy = segs.gather(1, a[:, :, None].expand(B, P, 4)).unbind(-1)
+    dx = wx - vx
+    dy = wy - vy
+    l2 = dx * dx + dy * dy
+    l2inv = torch.where(l2 > 0.0, torch.reciprocal(l2), 0.0)
+    ex = px - vx
+    ey = py - vy
+    num = ex * dx + ey * dy
+    tc = torch.clamp(num * l2inv, 0.0, 1.0)
+    gqx = (2.0 * (ex - tc * dx)) * ct_d2
+    gqy = (2.0 * (ey - tc * dy)) * ct_d2
+    terms = torch.stack([gqx * (tc - 1.0), gqy * (tc - 1.0), -(gqx * tc), -(gqy * tc)], dim=-1)
+    terms = torch.where(live[:, :, None], terms, 0.0)
+    rows = torch.arange(B, device=segs.device)[:, None] * S + a
+    dsegs.view(B * S, 4).index_add_(0, rows.reshape(-1), terms.reshape(-1, 4))
+    return dsegs

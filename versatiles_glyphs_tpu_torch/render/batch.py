@@ -23,6 +23,7 @@ SC = 128  # lanes of one chunk row of the TPU kernel's layout
 WINDOW_LANES = 12 * SC
 
 S_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+P_BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 N_BUCKETS = tuple([16384, 32768] + [65536 * k for k in range(1, 65)])
 T_BUCKETS = (256, 1024, 4096, 8192, 12288)
 K_BUCKETS = (1024, 4096, 8192, 16384, 24576, 32768, 49152, 65536, 131072)
@@ -65,6 +66,43 @@ def _mask_words(preps, N: int, N_pad: int, arena_tag: str) -> np.ndarray:
     if preps and N:
         np.concatenate([p.valid8 for p in preps], out=valid[:N])
     return np.packbits(valid, bitorder="little").view("<u4").view(np.int32)
+
+
+def pack_flat(preps, N_pad: int | None = None):
+    """Pack non-empty `GlyphPrep`s into the flat segment layout.
+
+    Returns (flat [4, N_pad] f32 rows vx, vy, wx, wy, meta [G, 8] i32
+    rows x0, y0, w, h, nseg, seg_off, 0, 0, P_pad the pixel bucket of
+    the largest bitmap). Each glyph's run starts at an SC-aligned lane; an
+    S-bucket of slack follows the last run. Lanes outside each glyph's
+    ``[seg_off, seg_off + nseg)`` may hold stale values: every consumer
+    masks by nseg."""
+    G = len(preps)
+    meta = np.zeros((max(G, 1), 8), dtype=np.int32)
+    if G:
+        cols = np.array(
+            [(p.x0, p.y0, p.width, p.height, p.segments.shape[0]) for p in preps],
+            dtype=np.int64,
+        )
+        runs = -(-np.maximum(cols[:, 4], 1) // SC) * SC
+        offs = np.concatenate([[0], np.cumsum(runs)[:-1]])
+        meta[:G, :5] = cols
+        meta[:G, 5] = offs
+        off = int(runs.sum())
+    else:
+        off = 0
+    if N_pad is None:
+        s_slack = bucket(max((int(m) for m in meta[:, 4]), default=1), S_BUCKETS)
+        N_pad = bucket(max(off + s_slack, SC), N_BUCKETS)
+    flat = get_array("torch_pack_flat", (4, N_pad), np.float32)
+    for g, p in enumerate(preps):
+        n = p.segments.shape[0]
+        if n:
+            o = int(meta[g, 5])
+            flat[:, o : o + n] = p.segments.T
+    max_p = max((p.width * p.height for p in preps), default=0)
+    P_pad = bucket(max(max_p, 1), P_BUCKETS)
+    return flat, meta, P_pad
 
 
 def pack_points(preps, N_pad: int | None = None, dtype=np.float32, arena_tag: str = ""):

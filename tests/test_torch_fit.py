@@ -469,7 +469,7 @@ def test_fit_path_never_loads_jax(tmp_path):
         f"w = render_fitted_pbfs(p, b, SynthEntry(3, 65, seed=2), 2, {str(tmp_path / 'out')!r},\n"
         "                       'synth', renderer=Renderer('torch'))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'optax', 'orbax', 'fontTools'))\n"
+        "             ('jax', 'jaxlib', 'optax', 'orbax', 'fontTools', 'versatiles_glyphs_tpu'))\n"
         "assert not bad, bad\n"
         "print('CLEAN', w)\n"
     )

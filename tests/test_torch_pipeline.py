@@ -92,7 +92,8 @@ def test_recurse_tree_matches_jax_cli(tmp_path, fonts):
 
 def test_port_never_loads_jax(tmp_path):
     """The port's CLI and the chip smoke script in a fresh interpreter
-    (this process has JAX loaded by conftest)."""
+    (this process has JAX loaded by conftest) load neither JAX nor the
+    JAX package."""
     font = tmp_path / "curved.ttf"
     font.write_bytes(build_ttf_curved(6, 65, seed=4))
     code = (
@@ -100,7 +101,9 @@ def test_port_never_loads_jax(tmp_path):
         "import chip_smoke\n"
         "from versatiles_glyphs_tpu_torch.cli import main\n"
         f"main(['merge', {str(font)!r}, '-o', {str(tmp_path / 'out')!r}, '--renderer', 'torch'])\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'versatiles_glyphs_tpu'))\n"
+        "assert not bad, bad\n"
         "print('NOJAX')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -132,7 +135,9 @@ def test_cuda_backend_raises_without_gpu(monkeypatch):
     sdf_cuda.reset_launches()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Renderer("cuda")
-    assert Renderer("auto").backend == "exact"
+    # "auto" is the card: the CPU backends are chosen only by name.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Renderer("auto")
     assert not any(sdf_cuda.LAUNCHES.values())
 
 

@@ -7,28 +7,26 @@ package stays the reference every module here is held against. This
 package imports `torch` and never `jax`; the fit path below the CLI
 also imports no optax, orbax or fontTools.
 
-Reused by import from `versatiles_glyphs_tpu` (free of JAX, so byte
-parity of metrics, PBF and tar holds by construction):
-
-- ``font.{entry, wrapper, block, index_files, names}``
-- ``render.metrics``
-- ``proto.{pbf, native}``
-- ``writer``
-- ``ops.{flatten, sdf_ref}``
-- ``models.render_fitted.{fitted_prep, fitted_preps}`` (fitted control
-  points → `GlyphPrep`s; free of JAX and fontTools at import time)
-- ``utils.{arena, progress, output_dir, synth_font}``
-- ``constants``
-
-A module has a counterpart here only where its import chain or call
-path reaches JAX.
+The package stands alone: it imports nothing of `versatiles_glyphs_tpu`.
+The host modules that are free of JAX there (f64 metrics and q16 chains,
+PBF and tar encoders, the native C++ runtime, the font parser, the
+exact renderer) have their own copies here under the same names, so the
+trees mirror each other and the tests hold each copy against its
+original byte for byte.
 
 Layers, from the entry points down to the device:
 
 - ``cli``                   — recurse / merge / debug (``--renderer
                               cuda``) and fit (``--backend {torch,flat}``,
                               ``--device``, ``--resume``, ``--render``)
-- ``font.manager``          — the JAX package's scheduler, single-process
+- ``tools.{roofline,kernel_ab}`` — measurement entry points on the card:
+                              the tile kernel against the measured ALU
+                              and copy roofs, and against its split
+                              variant
+- ``font.manager``          — the render scheduler, single-process
+- ``font.{entry,wrapper,block,names,index_files}`` — the font parser
+                              (fontTools), font stacks, 256-codepoint
+                              blocks, names and the index files
 - ``models.fitting``        — `FontFitter` (`torch.optim.Adam`, torch
                               checkpoints), the flat plan, the Bernstein
                               point chain, the batches, the carry of JAX
@@ -39,6 +37,12 @@ Layers, from the entry points down to the device:
 - ``models.render_fitted``  — fitted parameters → a glyph atlas
 - ``render.driver``         — `Renderer` backends and the `RenderSession`
                               that packs glyph groups and dispatches them
+- ``render.metrics``        — `GlyphPrep`: f64 metrics, q16 chains and the
+                              font-level prep cores
+- ``proto.{pbf,native}``    — the PBF encoder and the native runtime
+                              (``csrc/vg_native.cpp``, built with g++ at
+                              first use into ``build/native/``)
+- ``writer``                — directory, tar and in-memory writers
 - ``render.batch``          — the point-chain, i8-delta and flat
                               segment packers, and `wire_to_device`
 - ``ops.sdf_grad``          — `signed_field_flat`, the autograd function
@@ -48,6 +52,7 @@ Layers, from the entry points down to the device:
 - ``ops.legacy``            — the renders over the flat segment layout
 - ``ops.sdf_cuda``          — kernel wrappers with the launch counters
 - ``ops.sdf_torch``         — plain PyTorch versions of every device op
+- ``ops.{flatten,sdf_ref}`` — curve flattening and the exact f64 renderer
 - ``ops._build``            — nvcc build of ``csrc/*.cu``, loaded by ctypes
 - ``csrc/sdf_tiles_pts.cu``     — the per-pixel SDF tile kernel (render)
 - ``csrc/sdf_min_field_pts.cu`` — min d², winding, first argmin (fit
@@ -58,10 +63,15 @@ Layers, from the entry points down to the device:
                                   (min field and its per-segment backward)
 - ``csrc/sdf_{tiles,grid}_flat.cu`` — the render over the flat segment
                                   layout, by tile table or padded grid
+- ``csrc/sdf_tiles_pts_acc.cu``  — the tile kernel with the segments of a
+                                  pixel split over a sub-warp
+- ``csrc/alu_roof.cu``          — the synthetic ALU roof on the tile
+                                  kernel's launch shape
 - ``csrc/sdf_pair.cuh``         — the per-pixel math the kernels share
 - ``device``                — the CUDA device predicate (no CPU fallback)
 - ``utils.synth_font``      — synthesized curved fonts, fit batches and
                               entries, with no font file
+- ``utils.{arena,progress,output_dir}``, ``constants`` — host helpers
 """
 
 __version__ = "0.1.0"

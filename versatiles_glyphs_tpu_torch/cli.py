@@ -5,9 +5,10 @@ The same commands and flags as `versatiles_glyphs_tpu.cli`, except
 ``--backend {torch,flat}`` (the JAX ``jnp``/``pallas``) and
 ``--device`` (default: the first CUDA device; the CPU only by name).
 ``fit --mesh`` above 1 is refused until the port runs on several
-devices. The directory scan, the codepoint parser and ``debug`` are the
-JAX package's own functions. stdout carries the payload (tar stream,
-debug CSV); status goes to stderr.
+devices. ``--renderer auto`` (the default) is the card and raises
+without one; ``torch``, ``exact`` and ``zeros`` run on the CPU by name.
+stdout carries the payload (tar stream, debug CSV); status goes to
+stderr.
 """
 
 from __future__ import annotations
@@ -17,12 +18,11 @@ import json
 import os
 import sys
 
-from versatiles_glyphs_tpu.cli import _parse_codepoints, cmd_debug, scan
-from versatiles_glyphs_tpu.utils.output_dir import prepare_output_directory
-from versatiles_glyphs_tpu.writer import Writer
-
 from .font.manager import FontManager
+from .proto.pbf import decode_glyphs
 from .render.driver import BACKENDS, TRANSPORTS, Renderer
+from .utils.output_dir import prepare_output_directory
+from .writer import Writer
 
 
 def _add_output_flags(p: argparse.ArgumentParser) -> None:
@@ -37,8 +37,8 @@ def _add_output_flags(p: argparse.ArgumentParser) -> None:
         "--renderer",
         choices=BACKENDS,
         default="auto",
-        help="SDF backend (default: the CUDA kernel when a GPU is present, "
-        "exact f64 elsewhere; torch: the kernel's plain version on the CPU)",
+        help="SDF backend (default: the CUDA kernel, which needs a GPU; on the "
+        "CPU by name: torch, the kernel's plain version, or exact, f64)",
     )
     p.add_argument(
         "--transport",
@@ -67,6 +67,28 @@ def _run_pipeline(args, manager: FontManager, stdout) -> None:
     writer.finish()
 
 
+def scan(path: str, manager: FontManager) -> None:
+    """Recursive scan (`recurse.rs:104-133`): font files are added
+    directly; a dir with fonts.json is configured by it (no recursion
+    past it); other dirs recurse."""
+    if os.path.isfile(path):
+        ext = os.path.splitext(path)[1].lower().lstrip(".")
+        if ext in ("ttf", "otf"):
+            manager.add_path(path)
+    elif os.path.isdir(path):
+        fonts_json = os.path.join(path, "fonts.json")
+        if os.path.exists(fonts_json):
+            with open(fonts_json, "rb") as f:
+                configs = json.load(f)
+            for c in configs:
+                manager.add_font_with_name(
+                    c["name"], [os.path.join(path, src) for src in c["sources"]]
+                )
+        else:
+            for entry in sorted(os.listdir(path)):
+                scan(os.path.join(path, entry), manager)
+
+
 def cmd_recurse(args, stdout) -> None:
     manager = FontManager(parallel=not args.single_thread)
     for d in args.input_directories:
@@ -82,6 +104,65 @@ def cmd_merge(args, stdout) -> None:
     _run_pipeline(args, manager, stdout)
 
 
+def cmd_debug(args, stdout) -> None:
+    d = args.glyph_directory
+    if not os.path.exists(d):
+        raise SystemExit(f"Directory does not exist: {d!r}")
+    sep = "," if args.format == "csv" else "\t"
+    out = stdout
+    out.write(
+        sep.join(
+            ["codepoint", "width", "height", "left", "top", "advance", "bitmap_size"]
+        )
+        + "\n"
+    )
+    # BMP only: blocks 0..256 (`debug.rs:66-69`).
+    for i in range(256):
+        start = i * 256
+        path = os.path.join(d, f"{start}-{start + 255}.pbf")
+        try:
+            with open(path, "rb") as f:
+                buf = f.read()
+        except FileNotFoundError:
+            continue
+        try:
+            glyphs = decode_glyphs(buf)
+        except (ValueError, IndexError) as e:
+            raise SystemExit(f"Failed to decode {path!r}: {e}")
+        glyphs.sort(key=lambda g: g.id)
+        for g in glyphs:
+            out.write(
+                sep.join(
+                    str(v)
+                    for v in [
+                        g.id,
+                        g.width,
+                        g.height,
+                        g.left,
+                        g.top,
+                        g.advance,
+                        len(g.bitmap) if g.bitmap is not None else 0,
+                    ]
+                )
+                + "\n"
+            )
+
+
+def _parse_codepoints(spec: str) -> list[int]:
+    """``"65-90,97,0x100-0x17F"`` → sorted codepoint list."""
+    out: set[int] = set()
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "-" in part[1:]:
+            lo, hi = part.split("-", 1)
+            out.update(range(int(lo, 0), int(hi, 0) + 1))
+        else:
+            out.add(int(part, 0))
+    return sorted(out)
+
+
 def cmd_fit(args, stdout) -> None:
     """Fit a font's outlines to another font's SDF bitmaps by gradient
     descent on control points. Writes ``fitted.npz`` (the JAX CLI's keys
@@ -90,8 +171,7 @@ def cmd_fit(args, stdout) -> None:
     ``glyphs/``."""
     import numpy as np
 
-    from versatiles_glyphs_tpu.font.entry import FontFileEntry
-
+    from .font.entry import FontFileEntry
     from .models.fitting import FontFitter, make_fit_batch
 
     if args.mesh > 1:
@@ -155,8 +235,7 @@ def cmd_fit(args, stdout) -> None:
     print(f"Wrote fitted parameters to {out!r}", file=sys.stderr)
 
     if args.render:
-        from versatiles_glyphs_tpu.font.names import name_to_id
-
+        from .font.names import name_to_id
         from .models.render_fitted import render_fitted_pbfs
 
         glyph_dir = os.path.join(out, "glyphs")

@@ -1,7 +1,7 @@
 // Per-pixel SDF math shared by the port's Hopper kernels
 // (sdf_tiles_pts.cu, sdf_min_field_pts.cu, sdf_min_field_bwd.cu,
 // sdf_tiles_flat.cu, sdf_grid_flat.cu, sdf_min_field_padded.cu,
-// sdf_min_field_padded_bwd.cu).
+// sdf_min_field_padded_bwd.cu, sdf_tiles_pts_acc.cu).
 //
 // One definition of the tile-row read, the pixel center, the
 // point-to-segment projection, the crossing test and the quantization
@@ -68,7 +68,9 @@ __device__ __forceinline__ void project(float ex, float ey, float dx, float dy,
   qy = ey - tc * dy;
 }
 
-// Segment chunk staged in shared memory by a block of tp threads: the
+// Segment chunk staged in shared memory by a block of tp threads (tp is
+// the block size, which is the tile's pixel count except in
+// sdf_tiles_pts_acc.cu): the
 // derived terms of segment (pts[:, lane], pts[:, lane + 1]) at index
 // lane - c0, divides paid once per segment and block.
 struct SegChunk {

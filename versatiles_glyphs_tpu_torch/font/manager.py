@@ -1,21 +1,198 @@
-"""FontManager of the port: the JAX package's scheduler, single-process.
+"""FontManager: the top-level render scheduler.
 
-`versatiles_glyphs_tpu.font.manager.FontManager` reaches JAX only to
-ask for the process count and index of a multi-host run
-(`_host_partition`, `_is_index_host`). This subclass answers for one
-process: every task is this host's, and it writes the index files.
-Multi-process runs on `torch.distributed` come with a later slice.
+Mirrors `reference/src/font/manager.rs` structurally, with the
+parallelism re-shaped for an accelerator: where the reference fans the
+flat block task list over a rayon thread pool with a Mutex-guarded
+writer (`manager.rs:102-121`), this manager batches each block into one
+device call (the device's internal grid is the fine-grained
+parallelism). The writer stays host-side and single-threaded — the same
+single-writer collection pattern, without the lock. One process, one
+device: sharding the block list across processes is not part of this
+port yet.
 """
 
 from __future__ import annotations
 
-from versatiles_glyphs_tpu.font.manager import FontManager as HostFontManager
+import os
+
+from ..utils.progress import progress_bar
+from .entry import FontFileEntry
+from .index_files import build_font_families_json, build_index_json
+from .names import name_to_id
+from .wrapper import FontWrapper
 
 
-class FontManager(HostFontManager):
-    @staticmethod
-    def _host_partition(tasks, renderer=None):
+class FontManager:
+    def __init__(self, parallel: bool = True):
+        """``parallel`` mirrors `FontManager::new(parallel)`
+        (`manager.rs:28`) and is passed on to the render session, which
+        renders on one device either way."""
+        self.fonts: dict[str, FontWrapper] = {}
+        self.parallel = parallel
+
+    # -- ingestion -------------------------------------------------------
+
+    def add_path(self, path: str) -> None:
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            file = FontFileEntry(data)
+        except Exception as e:
+            # Contextual error instead of a raw fontTools traceback (the
+            # reference's anyhow context chain, `wrapper.rs:137-146`).
+            raise ValueError(f"failed to parse font file {path!r}: {e}") from e
+        font_id = name_to_id(file.metadata.generate_name())
+        wrapper = self.fonts.get(font_id)
+        if wrapper is None:
+            wrapper = self.fonts[font_id] = FontWrapper()
+        wrapper.add_file(file)
+
+    def add_paths(self, paths) -> None:
+        for p in paths:
+            self.add_path(os.fspath(p))
+
+    def add_font_with_name(self, name: str, sources) -> None:
+        font_id = name_to_id(name)
+        wrapper = self.fonts.get(font_id)
+        if wrapper is None:
+            wrapper = self.fonts[font_id] = FontWrapper()
+        wrapper.add_paths(sources)
+
+    # -- rendering -------------------------------------------------------
+
+    def collect_tasks(self):
+        """The global work list: (font_id, GlyphBlock) for every block
+        of every font (`manager.rs:87-97`)."""
+        tasks = []
+        for name in self.fonts:
+            for block in self.fonts[name].get_blocks():
+                tasks.append((name, block))
         return tasks
 
+    def render_glyphs(self, writer, renderer) -> None:
+        """Pipelined run batching device work across ALL blocks:
+
+        1. host prep (flatten + metrics) per block runs on a
+           **background thread** feeding a bounded queue — the
+           fontTools/numpy work releases the GIL enough that block
+           N+1's prep overlaps block N's pack + device uploads (the
+           host-side reshaping of the reference's rayon overlap,
+           `manager.rs:117-121`);
+        2. the main thread drains the queue into an incremental render
+           session (which dispatches SMEM-sized device groups as they
+           fill and starts their async fetches — uploads, kernels and
+           result transfers all overlap);
+        3. per-block PBF assembly + write, consuming bitmaps from the
+           session in submit order — encoding block N overlaps the
+           transfers of blocks > N (single host writer — the
+           reference's Mutex-guarded writer without the Mutex,
+           `manager.rs:102-115`).
+        """
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ..proto.pbf import encode_glyphs
+
+        for name in self.fonts:
+            writer.write_directory(f"{name}/")
+        tasks = self.collect_tasks()
+        tasks = self._host_partition(tasks, renderer)
+        total = sum(len(block) for _, block in tasks)
+        with progress_bar(total) as progress:
+            # The bar advances as results land: non-empty glyphs tick
+            # inside the session (per fetched device group), the rest
+            # tick as their block is written — summing to ``total``.
+            session = renderer.start_session(
+                parallel=self.parallel, progress=progress.update
+            )
+
+            # One future per FONT (all of its blocks), so two fonts'
+            # parse/flatten/metrics overlap each other and the main
+            # thread's pack+upload, while blocks of one font never
+            # race its lazily-built prep cores (cached_property
+            # first-touch must stay single-threaded per entry). Runs
+            # group by font NAME, not adjacency, so a reordered task
+            # list can never split one font across two pool threads.
+            # The numpy/native parts release the GIL; order is
+            # preserved by consuming futures in submission order.
+            runs: list[list] = []
+            runs_by_name: dict[str, list] = {}
+            for name, block in tasks:
+                run = runs_by_name.get(name)
+                if run is None:
+                    run = runs_by_name[name] = []
+                    runs.append(run)
+                run.append((name, block))
+
+            def prep_run(run):
+                return [
+                    (name, block, renderer.prep_block(block.glyph_sources()))
+                    for name, block in run
+                ]
+
+            jobs = []
+            # 4 workers, the JAX package's choice: the per-font prep is
+            # mostly native calls that release the GIL. Not measured on
+            # the port's hosts.
+            with ThreadPoolExecutor(
+                max_workers=4, thread_name_prefix="vg-prep"
+            ) as pool:
+                # Bounded submission window: prepped fonts hold their
+                # full transport caches, so on a slow device an
+                # unbounded prep backlog would balloon memory on
+                # thousand-font runs.
+                from collections import deque
+
+                window: deque = deque()
+                ri = 0
+                while window or ri < len(runs):
+                    while ri < len(runs) and len(window) < 8:
+                        window.append(pool.submit(prep_run, runs[ri]))
+                        ri += 1
+                    for name, block, preps in window.popleft().result():
+                        jobs.append((name, block, preps))
+                        session.add([p for p in preps if not p.empty])
+
+            from ..proto import native
+
+            use_native = native.available()
+            bm_iter = session.results()
+            for name, block, preps in jobs:
+                if use_native:
+                    # Fused preps→PBF encode (no per-glyph PbfGlyph
+                    # objects, single bitmap copy) — byte-identical to
+                    # the assemble+encode pair below.
+                    data = native.encode_block_from_preps(
+                        name, block.range(), preps, bm_iter
+                    )
+                else:
+                    glyphs = renderer.assemble_glyphs(preps, bm_iter)
+                    data = encode_glyphs(name, block.range(), glyphs)
+                writer.write_file(f"{name}/{block.filename()}", data)
+                n_nonempty = sum(1 for p in preps if not p.empty)
+                progress.update(len(block) - n_nonempty)
+
+    @staticmethod
+    def _host_partition(tasks, renderer=None):
+        """The block partition of a multi-process run, in which each
+        process renders and writes only its own disjoint task subset.
+        This port runs one process: every task is this host's."""
+        return tasks
+
+    # -- index files -----------------------------------------------------
+
     def _is_index_host(self) -> bool:
+        """Whether this process writes the run-global index files: the
+        one process of a run does."""
         return True
+
+    def write_index_json(self, writer) -> None:
+        if not self._is_index_host():
+            return
+        writer.write_file("index.json", build_index_json(self.fonts.keys()))
+
+    def write_families_json(self, writer) -> None:
+        if not self._is_index_host():
+            return
+        writer.write_file(
+            "font_families.json", build_font_families_json(self.fonts.items())
+        )

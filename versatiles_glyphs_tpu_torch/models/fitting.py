@@ -457,8 +457,8 @@ def make_fit_batch(entry, codepoints, depth: int = 3, target_entry=None) -> FitB
     pipeline's dx; targets from the exact renderer on ``target_entry``
     (default: the same font, a self-fit). Unfittable codepoints are
     skipped; ``codepoints`` of the result lists the fitted ones."""
-    from versatiles_glyphs_tpu.ops.sdf_ref import render_sdf_exact
-    from versatiles_glyphs_tpu.render.metrics import prepare_glyph
+    from ..ops.sdf_ref import render_sdf_exact
+    from ..render.metrics import prepare_glyph
 
     target_entry = target_entry or entry
     items = []

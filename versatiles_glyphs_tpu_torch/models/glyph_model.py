@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from versatiles_glyphs_tpu.constants import CUTOFF, SDF_RADIUS
+from ..constants import CUTOFF, SDF_RADIUS
 
 from ..ops.sdf_torch import sqrt_rn
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from versatiles_glyphs_tpu.constants import CUTOFF, SDF_RADIUS
+from ..constants import CUTOFF, SDF_RADIUS
 
 from .sdf_cuda import _check_tmeta, _cuda_inputs, _lanes_out_of_bounds, _launch
 from .sdf_torch import render_grid_flat, render_tiles_flat

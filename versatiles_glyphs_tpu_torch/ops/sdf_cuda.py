@@ -1,7 +1,8 @@
 """Kernel wrappers (counterparts of `versatiles_glyphs_tpu.ops.sdf_pallas`
-and of the Pallas kernels of `ops.sdf_grad`).
+and of the Pallas kernels of `ops.sdf_grad`, `ops.legacy` and the
+measurement scripts).
 
-The port's seven hand-written kernels, each on the current stream:
+The port's nine hand-written kernels, each on the current stream:
 
 - ``sdf_tiles_pts`` (render): `render_bitmaps_cuda_pts`,
   `render_bitmaps_cuda_delta`;
@@ -11,7 +12,13 @@ The port's seven hand-written kernels, each on the current stream:
   `min_field_cuda_padded`;
 - ``sdf_min_field_padded_bwd`` (its backward): `min_field_padded_bwd_cuda`;
 - ``sdf_tiles_flat`` and ``sdf_grid_flat`` (render over the flat
-  segment layout): wrapped in `ops.legacy`.
+  segment layout): wrapped in `ops.legacy`;
+- ``sdf_tiles_pts_acc`` (the render tile kernel with a pixel's segments
+  split over a sub-warp; the same function and plain version as
+  ``sdf_tiles_pts``): `render_bitmaps_cuda_pts_acc`, for
+  `tools.kernel_ab`;
+- ``alu_roof`` (the synthetic ALU roof on the tile kernel's launch
+  shape): `alu_roof_cuda`, for `tools.roofline`.
 
 On CUDA tensors a wrapper launches its kernel (``csrc/<name>.cu``); on
 CPU tensors it runs the kernel's plain version in `ops.sdf_torch`.
@@ -34,10 +41,12 @@ import ctypes
 
 import torch
 
-from versatiles_glyphs_tpu.constants import CUTOFF, SDF_RADIUS
+from ..constants import CUTOFF, SDF_RADIUS
 
 from . import _build
 from .sdf_torch import (
+    ALU_ROOF_TRIPLES,
+    alu_roof,
     dequantize,
     derive_tmeta,
     min_field_bwd_pts,
@@ -60,6 +69,11 @@ _SIGNATURES = {
         "vg_sdf_min_field_padded_bwd", [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P]),
     "sdf_tiles_flat": ("vg_sdf_tiles_flat", [_P, _I, _P, _I, _I, _F, _F, _P, _P]),
     "sdf_grid_flat": ("vg_sdf_grid_flat", [_P, _I, _P, _I, _I, _I, _F, _F, _P, _P]),
+    "alu_roof": ("vg_alu_roof", [_I, _I, _I, _F, _I, _P, _P]),
+    # The same function as sdf_tiles_pts, so its plain version is
+    # `sdf_torch.render_tiles_pts` too.
+    "sdf_tiles_pts_acc": (
+        "vg_sdf_tiles_pts_acc", [_P, _I, _P, _P, _I, _I, _I, _F, _F, _P, _P]),
 }
 # Block sizes of the padded pair: pixels per block of the forward,
 # segments per block of the backward.
@@ -68,6 +82,12 @@ PADDED_TS = 128
 # Pixel indices below this split into rows by integer div and mod as the
 # TPU's f32 division does (`versatiles_glyphs_tpu.ops.sdf_grad._pixel_coords`).
 MAX_PADDED_PIXELS = 1 << 23
+# Independent accumulators a thread of ``alu_roof`` (kChains of the
+# source): a launch executes T·TP·n_chunk·ALU_ROOF_CHAINS·30 f32 ops.
+ALU_ROOF_CHAINS = 4
+# Threads a pixel of ``sdf_tiles_pts_acc`` by default: TP·4 = 1,024
+# threads a block at TP = 256.
+ACC_SPLIT = 4
 KERNELS = tuple(_SIGNATURES)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -165,6 +185,69 @@ def launch_tiles_pts(pts, mask_words, tmeta, TP: int) -> torch.Tensor:
             "sdf_tiles_pts", pts.device, pts.data_ptr(), N, mask_words.data_ptr(),
             tmeta.data_ptr(), T, TP, 256.0 / SDF_RADIUS, CUTOFF, out.data_ptr(),
         )
+    return out
+
+
+def render_bitmaps_cuda_pts_acc(
+    pts: torch.Tensor, mask_words: torch.Tensor, tmeta: torch.Tensor, TP: int = 256,
+    split: int = ACC_SPLIT,
+) -> torch.Tensor:
+    """`render_bitmaps_cuda_pts` through the split variant of the tile
+    kernel (counterpart of ``render_acc`` in the JAX package's
+    ``scripts/kernel_ab.py``): ``split`` threads a pixel, each over every
+    ``split``-th staged segment, reduced once a tile. The same function,
+    so the same bytes and, on the CPU, the same plain version. pts f32."""
+    _check(pts, mask_words, tmeta, TP)
+    if split not in (1, 2, 4, 8, 16, 32) or TP * split > 1024:
+        raise ValueError(f"split={split} must be a power of two with TP·split ≤ 1024 (TP={TP})")
+    if pts.device.type == "cpu":
+        return render_tiles_pts(pts, mask_words, tmeta, TP)
+    _check_cuda_lanes(pts, mask_words, tmeta)
+    return launch_tiles_pts_acc(pts, mask_words, tmeta, TP, split)
+
+
+def launch_tiles_pts_acc(pts, mask_words, tmeta, TP: int, split: int = ACC_SPLIT) -> torch.Tensor:
+    """The split tile kernel on inputs the caller has checked (see
+    `render_bitmaps_cuda_pts_acc`): allocate the output and launch."""
+    N, T = pts.shape[1], tmeta.shape[1]
+    out = torch.empty((T, TP), dtype=torch.uint8, device=pts.device)
+    if T:
+        _launch(
+            "sdf_tiles_pts_acc", pts.device, pts.data_ptr(), N, mask_words.data_ptr(),
+            tmeta.data_ptr(), T, TP, split, 256.0 / SDF_RADIUS, CUTOFF, out.data_ptr(),
+        )
+    return out
+
+
+def alu_roof_ops(T: int, TP: int, n_chunk: int) -> int:
+    """The f32 operations one `alu_roof_cuda` launch executes (every
+    chain counted; the one add a chunk that advances x is left out)."""
+    return T * TP * n_chunk * ALU_ROOF_CHAINS * 3 * ALU_ROOF_TRIPLES
+
+
+def alu_roof_cuda(T: int, TP: int, n_chunk: int, device, fused: bool = False) -> torch.Tensor:
+    """The synthetic ALU roof on the tile kernel's launch shape
+    (counterpart of the ``roof`` call in the JAX package's
+    ``scripts/roofline.py``): [T, TP] f32, the recurrence of
+    `sdf_torch.alu_roof` after ``n_chunk`` chunks. ``device`` decides:
+    the kernel on a CUDA device, the plain version on the CPU.
+    ``fused`` runs the recurrence with a fused multiply-add (a rate
+    reading only: other bits, no plain version)."""
+    device = torch.device(device)
+    if TP % 32 or not 32 <= TP <= 1024:
+        raise ValueError(f"TP={TP} must be a multiple of 32 in [32, 1024]")
+    if T < 0 or n_chunk < 0:
+        raise ValueError(f"T={T} and n_chunk={n_chunk} must not be negative")
+    if device.type == "cpu":
+        if fused:
+            raise ValueError("the fused ALU roof has no plain version")
+        return alu_roof(T, TP, n_chunk, device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    out = torch.empty((T, TP), dtype=torch.float32, device=device)
+    if T:
+        # spread = 0.25: the extra chains start apart from chain 0.
+        _launch("alu_roof", device, T, TP, n_chunk, 0.25, int(fused), out.data_ptr())
     return out
 
 

@@ -1,11 +1,13 @@
 """Plain PyTorch versions of the port's device ops.
 
 Device-agnostic functions on tensors. They are the counterparts of the
-XLA prepass steps and of the seven Pallas kernels of
-`versatiles_glyphs_tpu.ops.sdf_pallas` / `ops.sdf_grad` / `ops.legacy`:
-the render tile kernel over the point chain, the fitting min field and
-its backward reduction over the point chain, the padded-layout min field
-and its backward, and the two renders over the flat segment layout.
+XLA prepass steps and of the Pallas kernels of
+`versatiles_glyphs_tpu.ops.sdf_pallas` / `ops.sdf_grad` / `ops.legacy`
+and of the measurement scripts: the render tile kernel over the point
+chain (also the plain version of its split variant, the same function),
+the fitting min field and its backward reduction over the point chain,
+the padded-layout min field and its backward, the two renders over the
+flat segment layout, and the synthetic ALU roof.
 They keep the op order of the JAX package's kernels and twins
 (`ops.sdf_jax`, `ops.sdf_grad._pair_terms`), so the render bytes and the
 min fields are bit-identical to the JAX package's on the same arrays;
@@ -19,8 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from versatiles_glyphs_tpu.constants import CUTOFF, SDF_RADIUS
-from versatiles_glyphs_tpu.render.metrics import Q16_SCALE
+from ..constants import CUTOFF, SDF_RADIUS
+from ..render.metrics import Q16_SCALE
 
 # ~f32 max: the distance of a masked segment (`ops.sdf_jax._BIG`).
 _BIG = 3.0e38
@@ -106,13 +108,13 @@ def _pixel_centers(rows: torch.Tensor, TP: int):
     return x0.float() + x.float() + 0.5, y0.float() + y.float() + 0.5, i
 
 
-def _pair_d2_wn(px, py, vx, vy, wx, wy, seg_ok):
+def _pair_d2_steps(px, py, vx, vy, wx, wy, seg_ok):
     """The pair math of every kernel: d² (masked segments `_BIG`) and
-    the winding number of pixels ``px, py [..., TP, 1]`` against
-    segments ``vx … wy [..., 1, L]`` (live where ``seg_ok``), in
+    the winding step (+1, −1 or 0) of pixels ``px, py [..., TP, 1]``
+    against segments ``vx … wy [..., 1, L]`` (live where ``seg_ok``), in
     `sdf_jax._field_tile_pts` op order. The crossing is the parity form
     (`csrc/sdf_pair.cuh` says why it equals the older up/down form).
-    Returns (d2 [..., TP, L], wn [..., TP])."""
+    Returns (d2 [..., TP, L], steps [..., TP, L] i64)."""
     dx = wx - vx
     dy = wy - vy
     l2 = dx * dx + dy * dy
@@ -133,8 +135,14 @@ def _pair_d2_wn(px, py, vx, vy, wx, wy, seg_ok):
     cx = vx + (ey * dyinv) * dx
     hit = cross & (cx <= px) & seg_ok
     del cross, cx, ex, ey
-    wn = torch.sum(torch.where(hit, torch.where(c1, 1, -1), 0), dim=-1)
-    return d2, wn
+    return d2, torch.where(hit, torch.where(c1, 1, -1), 0)
+
+
+def _pair_d2_wn(px, py, vx, vy, wx, wy, seg_ok):
+    """`_pair_d2_steps` with the steps summed over the segments: (d2
+    [..., TP, L], winding number wn [..., TP])."""
+    d2, steps = _pair_d2_steps(px, py, vx, vy, wx, wy, seg_ok)
+    return d2, torch.sum(steps, dim=-1)
 
 
 def _first_argmin(d2, lane):
@@ -154,11 +162,13 @@ def _sdf_bytes(dmin, wn):
     return torch.floor(torch.clamp(255.0 - v, 0.0, 255.0) + 0.5)
 
 
-def _tile_chunks(pts, mask_words, tmeta, TP: int):
+def _tile_chunks(pts, mask_words, tmeta, TP: int, pair=_pair_d2_wn):
     """The pair math of the tile kernels over chunks of tile rows, in
     `sdf_jax._field_tile_pts` op order. Yields ``(t0, rows [8, C],
     lane [C, 1, L] global lanes, d2 [C, TP, L] (masked segments
-    `_BIG`), wn [C, TP])``; every [C, TP, L] temporary stays bounded."""
+    `_BIG`), wn [C, TP])``; every [C, TP, L] temporary stays bounded.
+    With ``pair=_pair_d2_steps`` the last item is the winding steps
+    [C, TP, L] instead of their sum."""
     dev = pts.device
     T = tmeta.shape[1]
     N = pts.shape[1]
@@ -180,7 +190,7 @@ def _tile_chunks(pts, mask_words, tmeta, TP: int):
         words = mask_words[torch.clamp(lane >> 5, max=mask_words.shape[0] - 1).long()]
         bits = (words >> (lane & 31)) & 1
         seg_ok = ((bits != 0) & (lane < off + npts - 1))[:, None, :]
-        d2, wn = _pair_d2_wn(
+        d2, wn = pair(
             px, py, pts[0][vi][:, None, :], pts[1][vi][:, None, :],
             pts[0][wi][:, None, :], pts[1][wi][:, None, :], seg_ok,
         )
@@ -213,6 +223,30 @@ def render_tiles_pts(
         byte = torch.where(m[6][:, None] < m[2][:, None] * m[3][:, None], byte, 0.0)
         out[t0 : t0 + m.shape[1]] = byte.to(torch.uint8)
     return out
+
+
+# Steps of (multiply, add, min) in one chunk of the ALU roof's
+# recurrence: 30 f32 operations.
+ALU_ROOF_TRIPLES = 10
+
+
+def alu_roof(T: int, TP: int, n_chunk: int, device=None) -> torch.Tensor:
+    """The synthetic ALU roof's recurrence on a tensor: the plain version
+    of ``csrc/alu_roof.cu`` (the body of `_roof_kernel` in the JAX
+    package's ``scripts/roofline.py``). An accumulator [T, TP] f32 starts
+    at 1.0; each of ``n_chunk`` chunks applies ``a = a * 1.000001 + x;
+    a = min(a, 3e38)`` ten times, x = 0.5, 1.5, … by chunk. Multiply,
+    add and min are separate ops on f32 tensors, so nothing contracts
+    into an FMA and the kernel's result is bit-equal."""
+    f32 = dict(dtype=torch.float32, device=device)
+    a = torch.full((T, TP), 1.0, **f32)
+    c = torch.tensor(1.000001, **f32)
+    big = torch.tensor(_BIG, **f32)
+    for k in range(n_chunk):
+        x = torch.tensor(0.5 + k, **f32)
+        for _ in range(ALU_ROOF_TRIPLES):
+            a = torch.minimum(a * c + x, big)
+    return a
 
 
 def min_field_pts(

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from versatiles_glyphs_tpu.utils.arena import get_array
+from ..utils.arena import get_array
 
 SC = 128  # lanes of one chunk row of the TPU kernel's layout
 # The TPU kernel's historical window slack (`sdf_pallas.WINDOW_LANES`);

@@ -7,18 +7,15 @@ Backends:
                 first CUDA device; raises when there is none.
 - ``"torch"`` — the same session and wire on the CPU, through the
                 kernel's plain PyTorch version.
-- ``"exact"`` — the float64 native/NumPy renderer of the JAX package.
+- ``"exact"`` — the float64 native/NumPy renderer (`proto.native`,
+                `ops.sdf_ref`), on the CPU.
 - ``"zeros"`` — empty bitmaps of the right size (``--dummy``).
-- ``"auto"``  — ``"cuda"`` when a CUDA device is present, else
-                ``"exact"`` (the JAX package's contract for its
-                accelerator).
+- ``"auto"``  — ``"cuda"``: the default is the card, and without one the
+                constructor raises. The CPU backends are chosen by name.
 
-Host prep (`prep_glyph`, `prep_block`) is the JAX package's own
-methods, which are free of JAX; they are imported where they are
-called, because `versatiles_glyphs_tpu.render.driver` imports the font
-parser (fontTools) and this module must load without it. PBF assembly
-(`assemble_glyphs`) is a copy, so that fitted glyphs render on a
-machine without fontTools.
+This module loads without the font parser (fontTools): `prep_glyph` and
+`prep_block` reach a font entry only through its methods, so fitted and
+synthesized glyphs render on a machine that lacks it.
 """
 
 from __future__ import annotations
@@ -27,15 +24,20 @@ import numpy as np
 import torch
 
 from ..device import cuda_device
+from ..proto.pbf import PbfGlyph
+from .metrics import GlyphPrep, prepare_glyph
 
 BACKENDS = ("auto", "cuda", "torch", "exact", "zeros")
 TRANSPORTS = ("auto", "i8", "i16", "f32")
 
+_SURROGATE_LO, _SURROGATE_HI = 0xD800, 0xDFFF
 
-def _host_renderer():
-    from versatiles_glyphs_tpu.render.driver import Renderer as HostRenderer
 
-    return HostRenderer
+def _valid_cp(cp: int) -> bool:
+    """The reference's `char::from_u32` filter (`renderer.rs:104`):
+    scalar values only. Shared by `prep_glyph` and the hoisted
+    `prep_block` loop so the two paths cannot diverge."""
+    return cp <= 0x10FFFF and not (_SURROGATE_LO <= cp <= _SURROGATE_HI)
 
 
 class Renderer:
@@ -46,7 +48,7 @@ class Renderer:
 
     def __init__(self, backend: str = "auto", transport: str = "auto"):
         if backend == "auto":
-            backend = "cuda" if torch.cuda.is_available() else "exact"
+            backend = "cuda"
         if backend not in BACKENDS:
             raise ValueError(f"unknown renderer backend {backend!r}")
         if transport not in TRANSPORTS:
@@ -62,21 +64,68 @@ class Renderer:
         elif backend == "torch":
             self.device = torch.device("cpu")
 
-    # -- host prep and assembly (the JAX package's methods) ---------------
+    # -- per-glyph host prep --------------------------------------------
 
-    def prep_glyph(self, entry, codepoint: int):
-        return _host_renderer().prep_glyph(self, entry, codepoint)
+    def prep_glyph(self, entry, codepoint: int) -> GlyphPrep | None:
+        """Host metric computation for one codepoint; None when the font
+        has no glyph for it (or it is not a valid char — the reference's
+        `char::from_u32` filter, `renderer.rs:104`)."""
+        if not _valid_cp(codepoint):
+            return None
+        key = entry.glyph_key(codepoint)
+        if key is None:
+            return None
+        cores = entry.prep_cores
+        if cores is not None:
+            core = cores.get(key)
+            if core is not None:
+                # Vectorized font-level prep: metrics + transport caches
+                # were computed once for the whole font; codepoints
+                # sharing a glyph share the core's arrays.
+                return core.make_prep(codepoint)
+        # Rare per-glyph fallback (core build failed for this glyph):
+        # the fontTools pen path, keyed by name.
+        name = entry.glyph_name(codepoint)
+        if name is None:
+            return None
+        rings = entry.outline_rings(name)
+        return prepare_glyph(codepoint, rings, entry.units_per_em, entry.hor_advance(name))
 
-    def prep_block(self, sources):
-        return _host_renderer().prep_block(self, sources)
+    def prep_block(self, sources) -> list[GlyphPrep]:
+        """Host prep for a block's (codepoint, entry) pairs — the
+        manager's hot loop. Equivalent to `prep_glyph` per pair but
+        with the per-call indirection hoisted: consecutive pairs
+        sharing an entry reuse its core table and key map directly.
+        Returns preps for mapped codepoints only."""
+        out: list[GlyphPrep] = []
+        cur_entry = None
+        cores = gmap = None
+        gid_mode = False
+        for cp, entry in sources:
+            if entry is not cur_entry:
+                cur_entry = entry
+                cores, mode = entry._cores_and_mode
+                gid_mode = mode == "gid" and cores is not None
+                gmap = entry._gid_map if gid_mode else None
+            if gid_mode and _valid_cp(cp):
+                gid = gmap.get(cp)
+                if gid is None:
+                    continue
+                core = cores.get(gid)
+                if core is not None:
+                    out.append(core.make_prep(cp))
+                    continue
+            p = self.prep_glyph(entry, cp)
+            if p is not None:
+                out.append(p)
+        return out
+
+    # -- PBF assembly ------------------------------------------------------
 
     @staticmethod
-    def assemble_glyphs(preps, bitmap_iter):
+    def assemble_glyphs(preps, bitmap_iter) -> list[PbfGlyph]:
         """Pair preps with bitmaps (one from ``bitmap_iter`` per non-empty
-        prep, in order) into PbfGlyph messages: the JAX driver's method,
-        copied because its module needs fontTools."""
-        from versatiles_glyphs_tpu.proto.pbf import PbfGlyph
-
+        prep, in order) into PbfGlyph messages."""
         out = []
         for p in preps:
             if p.empty:
@@ -90,10 +139,27 @@ class Renderer:
             ))
         return out
 
+    def render_block_glyphs(self, glyph_sources) -> list[PbfGlyph]:
+        """Render a block: (codepoint, font entry) pairs → PbfGlyphs in
+        codepoint order. Mirrors `GlyphBlock::render`
+        (`src/font/glyph_block.rs:69-80`) with device batching. (The
+        manager normally batches across *all* blocks of a run instead —
+        see `FontManager.render_glyphs` — this entry point renders one
+        block standalone.)"""
+        preps: list[GlyphPrep] = []
+        for cp, entry in glyph_sources:
+            p = self.prep_glyph(entry, cp)
+            if p is not None:
+                preps.append(p)
+
+        nonempty = [p for p in preps if not p.empty]
+        bitmaps = self.render_bitmaps(nonempty)
+        return self.assemble_glyphs(preps, iter(bitmaps))
+
     # -- batched rendering -----------------------------------------------
 
     def start_session(self, parallel: bool = True, progress=None) -> "RenderSession":
-        """Open a render session. ``parallel`` is accepted for the JAX
+        """Open a render session. ``parallel`` is accepted for the
         manager's call; this driver renders on one device."""
         return RenderSession(self, progress=progress)
 
@@ -205,7 +271,7 @@ class RenderSession:
             self._eager.extend(np.zeros(p.width * p.height, dtype=np.uint8) for p in preps)
             self.tick(len(preps))
             return
-        from versatiles_glyphs_tpu.proto import native
+        from ..proto import native
 
         if native.available():
             for i in range(0, len(preps), 512):
@@ -213,7 +279,7 @@ class RenderSession:
                 self._eager.extend(native.render_sdf_batch(chunk))
                 self.tick(len(chunk))
         else:
-            from versatiles_glyphs_tpu.ops.sdf_ref import render_sdf_exact
+            from ..ops.sdf_ref import render_sdf_exact
 
             for p in preps:
                 self._eager.append(render_sdf_exact(p.segments, p.width, p.height, p.x0, p.y0))

@@ -22,8 +22,8 @@ import math
 
 import numpy as np
 
-from versatiles_glyphs_tpu.ops.flatten import RingAccumulator
-from versatiles_glyphs_tpu.render.metrics import prepare_glyph
+from ..ops.flatten import RingAccumulator
+from ..render.metrics import prepare_glyph
 
 UPEM = 1000
 ASCENT = 800
@@ -167,8 +167,8 @@ def synth_fit_batch(
     ``perturb`` > 0 adds seeded normal noise of that scale (pixels) to
     the live control points of the start. ``depth`` is the caller's
     fitting depth: the batch itself does not depend on it."""
-    from versatiles_glyphs_tpu.ops.sdf_ref import render_sdf_exact
-    from versatiles_glyphs_tpu.proto import native
+    from ..ops.sdf_ref import render_sdf_exact
+    from ..proto import native
 
     from ..models.fitting import assemble_fit_batch, fit_item
 
@@ -198,7 +198,7 @@ class _SynthMetadata:
     `font.entry.FontMetadata` parses them from `build_ttf_curved`."""
 
     def __init__(self, codepoints):
-        from versatiles_glyphs_tpu.font.names import parse_font_name
+        from ..font.names import parse_font_name
 
         self.name = "Synth Curved"
         self.family, self.style, self.weight, self.width = parse_font_name(
@@ -207,7 +207,7 @@ class _SynthMetadata:
         self.codepoints = list(codepoints)
 
     def generate_name(self) -> str:
-        from versatiles_glyphs_tpu.font.names import generate_name
+        from ..font.names import generate_name
 
         return generate_name(self.family, self.style, self.weight, self.width)
 

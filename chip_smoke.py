@@ -12,27 +12,35 @@ JSON lines:
 
 1. device — the card's name and power limit (nvidia-smi).
 2. build  — nvcc builds every kernel from ``csrc/``, one process each,
-   all at once; g++ builds the native host library from
-   ``csrc/vg_native.cpp`` (`proto.native.require`).
+   all at once, and ptxas's report (registers, spills, shared memory)
+   of the two redesigned render kernels is printed; g++ builds the
+   native host library from ``csrc/vg_native.cpp``
+   (`proto.native.require`).
 3. kernel — each kernel against its plain PyTorch version on the card,
    at its path's shapes; times both by CUDA events (the kernel by its
    launch alone, and by its wrapper's call with the checks). The render tile
-   kernel at group 0 of the first font (i8 and f32 wires) and on
-   degenerate segments: bytes equal. The min-field kernel at the full
+   kernel at group 0 of both fonts (i8 and f32 wires), on degenerate
+   segments, on a hand-made chain (a lane run that starts off a
+   multiple of 32 with dead lanes inside, a glyph with every lane dead,
+   rows of npts <= 1), on glyphs past its crossing lists' sizes and at
+   64 pixels a tile: bytes equal. The min-field kernel at the full
    fit batch and on degenerate segments: d² bit-equal, winding and
    argmin exact. The backward kernel at the full fit batch: within
    1e-4·max|dpts| of the plain version (whose scatter-add on the card
    sums in no fixed order), and bit-identical across two runs. The two
-   segment-layout render kernels at group 0 of the first font (packed
-   by ``pack_flat``) and on degenerate segments: bytes equal, and each
-   glyph's bytes against the point-chain kernel's on the f32 wire. The
+   segment-layout render kernels at group 0 of both fonts (packed by
+   ``pack_flat``), on degenerate segments, on glyphs past the crossing
+   lists' sizes and, for the grid kernel, at eight pixel tiles a glyph
+   with a bitmap under one tile: bytes equal, and each glyph's bytes
+   against the point-chain kernel's on the f32 wire and the grid
+   kernel's against the flat tile kernel's. The
    padded min-field kernel at the full fit batch and on a degenerate
    padded case: d² bit-equal, winding and argmin exact; its backward
    within 1e-4·max|dsegs| and bit-identical across two runs. The ALU
    roof kernel on group 0's grid: bit-equal to its plain version. The
-   split variant of the tile kernel at group 0 (i8 and f32 wires) and
-   on degenerate segments: bytes equal to its plain version and to the
-   tile kernel's.
+   split variant of the tile kernel at group 0 (i8 and f32 wires), on
+   degenerate segments and on the tile kernel's edge cases: bytes equal
+   to its plain version and to the tile kernel's.
 4. slice  — two synthesized fonts at real sizes (a text font of 1,700
    glyphs over 7 blocks, a heavy one of 1,150 glyphs of ~1,000 points)
    through the port's renderer, render session, native PBF encode and
@@ -81,6 +89,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+T_START = time.perf_counter()  # before torch is imported
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -118,6 +127,10 @@ def phase_build() -> None:
         emit({"phase": "build", "kernel": name, "arch": "sm_90a",
               "so": os.path.relpath(so, ROOT), "nvcc_s": nvcc_s})
     emit({"phase": "build", "all_s": time.perf_counter() - t0})
+    # What ptxas said of the two redesigned render kernels (-Xptxas -v).
+    for name in ("sdf_tiles_pts", "sdf_grid_flat"):
+        so = _build.BUILDS[name][0]
+        emit({"phase": "build", "kernel": name, "ptxas": _build.ptxas_report(so)})
     from versatiles_glyphs_tpu_torch.proto import native
 
     t0 = time.perf_counter()
@@ -144,6 +157,18 @@ def bound_of(ops, nbytes) -> dict:
 
     ms, by = work.bound(ops, nbytes)
     return {"bound_ms": ms, "bound_by": by, "f32_ops": int(ops), "bytes": int(nbytes)}
+
+
+def row_shared_bound_of(wk) -> dict:
+    """`bound_of` a kernel's `tools.work.row_shared_work`, with the
+    counts of the row-shared crossing test it comes from and, for
+    comparison with bounds stated at 22 operations a pair, that bound."""
+    from versatiles_glyphs_tpu_torch.tools import work
+
+    return {**bound_of(wk["f32_ops"], wk["bytes"]),
+            **{key: wk[key] for key in ("pairs", "pixels", "row_tests", "crossings", "crossing_pixels")},
+            "f32_ops_a_pair": wk["f32_ops"] / max(wk["pairs"], 1),
+            "bound_ms_at_22_ops_a_pair": work.bound(wk["f32_ops_per_pair_test"], wk["bytes"])[0]}
 
 
 def degenerate_preps():
@@ -177,7 +202,26 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_kernel(preps) -> dict:
+def tile_kernel_edge_cases(preps, dev) -> dict:
+    """Inputs of the render tile kernel beside the fonts' groups, on the
+    card: key -> (pts, mask words, tile table [8, T], TP). A hand-made
+    chain whose glyph starts off a multiple of 32 with dead lanes
+    inside, with an all-dead glyph and rows of npts <= 1; glyphs past
+    the crossing lists' sizes (too many rows, too many crossings); and
+    a tile size other than 256."""
+    from versatiles_glyphs_tpu_torch.render.batch import pack_points, plan_tiles, tile_starts, wire_to_device
+    from versatiles_glyphs_tpu_torch.utils.synth_font import row_list_edge_preps, unaligned_point_chain
+
+    cases = {"unaligned": (*wire_to_device(unaligned_point_chain(), dev), TP)}
+    for key, gp, tp in (("row_list_edges", row_list_edge_preps(), TP),
+                        ("tp64", preps[:48] + row_list_edge_preps(), 64)):
+        pts, pw, pm = pack_points(gp, dtype=np.float32, arena_tag="edge_" + key)
+        tm = plan_tiles(gp, pm, tp, T_pad=tile_starts(pm, len(gp), tp)[1])[0]
+        cases[key] = (*wire_to_device((pts, pw, tm.T), dev), tp)
+    return cases
+
+
+def phase_kernel(preps, heavy) -> dict:
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
     from versatiles_glyphs_tpu_torch.tools import work
     from versatiles_glyphs_tpu_torch.tools.roofline import first_group
@@ -199,16 +243,25 @@ def phase_kernel(preps) -> dict:
             sdf_torch.dequantize(sdf_torch.reconstruct_delta(d, a)), w,
             sdf_torch.derive_tmeta(m, TP, T), TP),
     )
-    f32_inputs = f32_work = None
-    for key, gp in (("f32", group), ("degenerate", degenerate_preps())):
+    f32_inputs = f32_work = heavy_inputs = None
+    for key, gp in (("f32", group), ("degenerate", degenerate_preps()),
+                    ("f32_heavy", first_group(heavy))):
         pts, pw, pm = pack_points(gp, dtype=np.float32, arena_tag=key)
         tm = plan_tiles(gp, pm, TP, T_pad=tile_starts(pm, len(gp), TP)[1])[0]
         p_d, pw_d, tm_d = wire_to_device((pts, pw, tm.T), dev)
         f32_inputs = f32_inputs or (p_d, pw_d, tm_d)
-        f32_work = f32_work or work.tile_kernel_work(tm.T, pw, TP, pts.shape[1])
+        if key == "f32":
+            f32_work = work.row_shared_work(pts, tm.T, TP, pw)
+        if key == "f32_heavy":
+            heavy_inputs = (p_d, pw_d, tm_d)
         cases[key] = (
             lambda p_d=p_d, pw_d=pw_d, tm_d=tm_d: sdf_cuda.render_bitmaps_cuda_pts(p_d, pw_d, tm_d, TP),
             lambda p_d=p_d, pw_d=pw_d, tm_d=tm_d: sdf_torch.render_tiles_pts(p_d, pw_d, tm_d, TP),
+        )
+    for key, (p_d, pw_d, tm_d, tp) in tile_kernel_edge_cases(group, dev).items():
+        cases[key] = (
+            lambda p_d=p_d, pw_d=pw_d, tm_d=tm_d, tp=tp: sdf_cuda.render_bitmaps_cuda_pts(p_d, pw_d, tm_d, tp),
+            lambda p_d=p_d, pw_d=pw_d, tm_d=tm_d, tp=tp: sdf_torch.render_tiles_pts(p_d, pw_d, tm_d, tp),
         )
 
     max_err = 0
@@ -222,17 +275,20 @@ def phase_kernel(preps) -> dict:
         err = (got.int() - want.int()).abs()
         mismatches = int((err > 0).sum())
         max_err = max(max_err, int(err.max()) if err.numel() else 0)
-        rec = {"phase": "kernel", "case": key, "tiles": int(got.shape[0]),
+        rec = {"phase": "kernel", "case": key, "tiles": int(got.shape[0]), "TP": int(got.shape[1]),
                "mismatches": mismatches, "max_abs_err": int(err.max()) if err.numel() else 0,
                "nonzero_bytes": int((got > 0).sum())}
-        if key != "degenerate":
+        if key in ("i8", "f32"):
             rec["glyphs"] = G
             rec["lanes"] = int(sum(p.npts for p in group))
             rec["kernel_ms"] = time_ms(kern, 20)
             rec["plain_ms"] = time_ms(plain, 3)
         emit(rec)
-        if mismatches:
+        if mismatches or not rec["nonzero_bytes"]:
             raise AssertionError(f"{key}: kernel and plain version differ on {mismatches} bytes")
+    # The all-dead glyph and the rows of npts <= 1 and past w*h are zeros.
+    if bool(cases["unaligned"][0]()[2:].any()):
+        raise AssertionError("unaligned: a row with no live segment is not zeros")
 
     # The tile kernel on the f32 wire: the numbers of the kernels line.
     # "ms" is the launch alone; "call_ms" adds the wrapper's checks.
@@ -240,7 +296,9 @@ def phase_kernel(preps) -> dict:
     rec = {"phase": "kernel", "kernel": "sdf_tiles_pts", "case": "f32",
            "ms": time_ms(lambda: sdf_cuda.launch_tiles_pts(*f32_inputs, TP), 50),
            "call_ms": time_ms(kern, 50), "plain_ms": time_ms(plain, 3)}
-    rec.update(pairs=f32_work["pairs"], **bound_of(f32_work["f32_ops"], f32_work["bytes"]))
+    rec.update(pixels_per_thread=sdf_cuda.pixels_per_thread(TP),
+               ms_synth_heavy=time_ms(lambda: sdf_cuda.launch_tiles_pts(*heavy_inputs, TP), 50),
+               **row_shared_bound_of(f32_work))
     emit(rec)
     return {"max_abs_err": max_err, **rec}
 
@@ -319,11 +377,10 @@ def phase_fit_kernels(batch) -> dict:
             rec["plain_ms"] = out["min_plain_ms"] = time_ms(
                 lambda: sdf_torch.min_field_pts(p, w, tm, TP), 3)
             out["min_err"] = rec["max_abs_err"]
-            wk = work.tile_kernel_work(
-                tm.cpu().numpy(), w.cpu().numpy(), TP, p.shape[1], out_bytes_per_pixel=12,
-                pair_ops=work.MIN_FIELD_PAIR_F32_OPS, pixel_ops=0)
-            out["min_bound"] = bound_of(wk["f32_ops"], wk["bytes"])
-            rec.update(pairs=wk["pairs"], **out["min_bound"])
+            wk = work.row_shared_work(p.cpu().numpy(), tm.cpu().numpy(), TP, w.cpu().numpy(),
+                                      out_bytes_per_pixel=12, pixel_ops=0)
+            out["min_bound"] = row_shared_bound_of(wk)
+            rec.update(out["min_bound"])
         emit(rec)
         if d2_bits or wn_off or am_off:
             raise AssertionError(f"min field {key}: kernel and plain version differ")
@@ -385,22 +442,31 @@ def glyph_bitmap(kernel, out, starts, i):
     return out.reshape(-1)[starts[i] * TP:] if kernel == "sdf_tiles_flat" else out[i]
 
 
-def phase_flat_kernels(preps) -> dict:
+def phase_flat_kernels(preps, heavy) -> dict:
     """Kernels 6 and 7 (the segment-layout renders) against their plain
-    versions at group 0 of the first font and on degenerate segments;
-    each glyph's bytes against kernel 1's on the f32 wire. Returns the
-    numbers of the kernels line."""
+    versions at group 0 of both fonts, on degenerate segments, on glyphs
+    past the crossing lists' sizes, and kernel 7 at eight pixel tiles a
+    glyph with a bitmap under one tile; each glyph's bytes against
+    kernel 1's on the f32 wire, and kernel 7's against kernel 6's.
+    Returns the numbers of the kernels line."""
     from versatiles_glyphs_tpu_torch.ops import legacy, sdf_cuda, sdf_torch
     from versatiles_glyphs_tpu_torch.render.batch import pack_points, plan_tiles, wire_to_device
     from versatiles_glyphs_tpu_torch.tools import work
     from versatiles_glyphs_tpu_torch.tools.roofline import first_group
+    from versatiles_glyphs_tpu_torch.utils.synth_font import row_list_edge_preps
 
     dev = torch.device("cuda", 0)
     out = {"sdf_tiles_flat_err": 0, "sdf_grid_flat_err": 0}
-    for key, gp in (("group0", first_group(preps)), ("degenerate", degenerate_preps())):
+    group = first_group(preps)
+    # key -> (glyphs, pixel tiles a glyph of kernel 7; None: TP = min(1024, P))
+    cases = {"group0": (group, None), "degenerate": (degenerate_preps(), None),
+             "group0_heavy": (first_group(heavy), None),
+             "row_list_edges": (row_list_edge_preps(), None),
+             "eight_tiles": (group[:64] + row_list_edge_preps()[2:], 8)}
+    for key, (gp, tiles7) in cases.items():
         G = len(gp)
         f_d, m_d, tm_d, P, starts = flat_case(gp, dev)
-        tp7 = min(1024, P)
+        tp7 = P // tiles7 if tiles7 else min(1024, P)
         pts, pw, pm = pack_points(gp, dtype=np.float32, arena_tag="flat_" + key)
         tm1 = plan_tiles(gp, pm, TP, T_pad=tm_d.shape[1])[0]
         pts_bytes = sdf_cuda.render_bitmaps_cuda_pts(
@@ -414,6 +480,7 @@ def phase_flat_kernels(preps) -> dict:
                               lambda: sdf_torch.render_grid_flat(f_d, m_d, P, tp7),
                               lambda: legacy.launch_grid_flat(f_d, m_d, P, tp7)),
         }
+        tiles_flat = None
         for name, (tp, kern, plain, launch) in kernels.items():
             got = kern()
             want = plain()
@@ -424,16 +491,26 @@ def phase_flat_kernels(preps) -> dict:
             err = (got.int() - want.int()).abs()
             mismatches = int((err > 0).sum())
             g = got.cpu().numpy()
-            vs_pts = 0
+            vs_pts = vs_flat = 0
             for i, p in enumerate(gp):
                 n, s0 = p.width * p.height, starts[i] * TP
-                vs_pts += int((glyph_bitmap(name, g, starts, i)[:n] != pts_bytes[s0 : s0 + n]).sum())
+                mine = glyph_bitmap(name, g, starts, i)[:n]
+                vs_pts += int((mine != pts_bytes[s0 : s0 + n]).sum())
+                if tiles_flat is not None:
+                    vs_flat += int((mine != tiles_flat[s0 : s0 + n]).sum())
             rec = {"phase": "kernel", "kernel": name, "case": key, "glyphs": G,
                    "lanes": int(f_d.shape[1]), "P": P, "TP": tp,
                    "out_shape": list(got.shape), "mismatches": mismatches,
                    "max_abs_err": int(err.max()) if err.numel() else 0,
                    "bytes_differ_from_sdf_tiles_pts": vs_pts,
                    "nonzero_bytes": int((got > 0).sum())}
+            if name == "sdf_tiles_flat":
+                tiles_flat = g.reshape(-1)
+            else:
+                rec["bytes_differ_from_sdf_tiles_flat"] = vs_flat
+                rec["threads"], rec["grid"] = legacy.grid_launch_shape(G, P)
+            if key == "group0_heavy":
+                rec["ms"] = out[name + "_ms_synth_heavy"] = time_ms(launch, 50)
             if key == "group0":
                 rec["ms"] = out[name + "_ms"] = time_ms(launch, 50)
                 rec["call_ms"] = time_ms(kern, 50)
@@ -441,16 +518,17 @@ def phase_flat_kernels(preps) -> dict:
                 # Kernel 7's rows are its padded grid's tiles; it reads
                 # meta [G, 8] where kernel 6 reads a tile table.
                 table = tm_d if name == "sdf_tiles_flat" else sdf_torch.grid_tmeta(m_d, P, tp)
-                wk = work.tile_kernel_work(table.cpu().numpy(), None, tp, f_d.shape[1], lane_rows=4)
+                wk = work.row_shared_work(f_d.cpu().numpy(), table.cpu().numpy(), tp)
                 if name == "sdf_grid_flat":
                     wk["bytes"] += 32 * (G - wk["tiles"])
-                out[name + "_bound"] = bound_of(wk["f32_ops"], wk["bytes"])
-                rec.update(pairs=wk["pairs"], **out[name + "_bound"])
+                out[name + "_bound"] = row_shared_bound_of(wk)
+                rec.update(out[name + "_bound"])
             out[name + "_err"] = max(out[name + "_err"], rec["max_abs_err"])
             emit(rec)
-            if mismatches:
-                raise AssertionError(f"{name} {key}: kernel and plain version differ on "
-                                     f"{mismatches} bytes")
+            if mismatches or vs_pts or vs_flat:
+                raise AssertionError(
+                    f"{name} {key}: {mismatches} bytes differ from the plain version, {vs_pts} "
+                    f"from the point-chain kernel's glyphs, {vs_flat} from the flat tile kernel's")
     return out
 
 
@@ -509,11 +587,19 @@ def phase_padded_kernels(batch) -> dict:
             rec["plain_ms"] = out["pad_plain_ms"] = time_ms(
                 lambda: sdf_torch.min_field_padded(segs, mask, meta, P), 3)
             out["pad_err"] = rec["max_abs_err"]
+            # Every pixel against its glyph's live segments: the soup of
+            # the live segments, one tile of P pixels a glyph.
             B, S = segs.shape[:2]
-            pairs = P * int((mask != 0).sum())  # every pixel against its glyph's live segments
-            out["pad_bound"] = bound_of(pairs * work.MIN_FIELD_PAIR_F32_OPS,
-                                        16 * B * S + 4 * B * S + 16 * B + 12 * B * P)
-            rec.update(pairs=pairs, **out["pad_bound"])
+            live = (mask != 0).cpu().numpy()
+            n = live.sum(1)
+            table = np.zeros((8, B), np.int64)
+            table[:4], table[4], table[5] = meta.cpu().numpy().T, n, np.cumsum(n) - n
+            wk = work.row_shared_work(segs.cpu().numpy()[live].T, table, P, pixel_ops=0)
+            wk["bytes"] = 16 * B * S + 4 * B * S + 16 * B + 12 * B * P
+            if wk["pairs"] != P * int(n.sum()):
+                raise AssertionError("padded min field: a glyph of the batch has an empty bitmap")
+            out["pad_bound"] = row_shared_bound_of(wk)
+            rec.update(out["pad_bound"])
         emit(rec)
         if d2_bits or wn_off or am_off:
             raise AssertionError(f"padded min field {key}: kernel and plain version differ")
@@ -556,8 +642,9 @@ def phase_tool_kernels(preps) -> dict:
     """Kernel 8 (the ALU roof) against its plain version on group 0's
     grid, bit for bit; kernel 9 (the split tile kernel) against its
     plain version, which is kernel 1's, and against kernel 1 itself at
-    group 0 (i8 and f32 wires) and on degenerate segments, byte for
-    byte. Returns the numbers of the kernels line."""
+    group 0 (i8 and f32 wires), on degenerate segments and on the tile
+    kernel's edge cases (`tile_kernel_edge_cases`), byte for byte.
+    Returns the numbers of the kernels line."""
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
     from versatiles_glyphs_tpu_torch.render.batch import pack_points_delta, tile_starts, wire_to_device
     from versatiles_glyphs_tpu_torch.tools import roofline, work
@@ -593,11 +680,12 @@ def phase_tool_kernels(preps) -> dict:
                    sdf_torch.derive_tmeta(m, TP, tile_starts(meta, len(group), TP)[1]))
     wd = roofline.group_work(degenerate_preps(), arena_tag="_k9d")
     cases["degenerate"] = wire_to_device((wd["pts"], wd["words"], wd["tmeta"]), dev)
+    cases = {key: (*c, TP) for key, c in cases.items()} | tile_kernel_edge_cases(group, dev)
     max_err = 0
-    for key, (p, pw, tm) in cases.items():
-        got = sdf_cuda.render_bitmaps_cuda_pts_acc(p, pw, tm, TP)
-        plain = sdf_torch.render_tiles_pts(p, pw, tm, TP)
-        prod = sdf_cuda.render_bitmaps_cuda_pts(p, pw, tm, TP)
+    for key, (p, pw, tm, tp) in cases.items():
+        got = sdf_cuda.render_bitmaps_cuda_pts_acc(p, pw, tm, tp)
+        plain = sdf_torch.render_tiles_pts(p, pw, tm, tp)
+        prod = sdf_cuda.render_bitmaps_cuda_pts(p, pw, tm, tp)
         torch.cuda.synchronize()
         if got.shape != plain.shape or got.dtype != torch.uint8:
             raise AssertionError(f"sdf_tiles_pts_acc {key}: {tuple(got.shape)} {got.dtype}")
@@ -605,7 +693,7 @@ def phase_tool_kernels(preps) -> dict:
         vs_plain, vs_prod = int((err > 0).sum()), int((got != prod).sum())
         max_err = max(max_err, int(err.max()) if err.numel() else 0)
         emit({"phase": "kernel", "kernel": "sdf_tiles_pts_acc", "case": key,
-              "split": sdf_cuda.ACC_SPLIT, "tiles": int(got.shape[0]),
+              "split": sdf_cuda.ACC_SPLIT, "tiles": int(got.shape[0]), "TP": tp,
               "mismatches": vs_plain, "bytes_differ_from_sdf_tiles_pts": vs_prod,
               "nonzero_bytes": int((got > 0).sum())})
         if vs_plain or vs_prod:
@@ -615,17 +703,17 @@ def phase_tool_kernels(preps) -> dict:
            "ms": time_ms(lambda: sdf_cuda.launch_tiles_pts_acc(pts, words, tmeta, TP), 50),
            "call_ms": time_ms(lambda: sdf_cuda.render_bitmaps_cuda_pts_acc(pts, words, tmeta, TP), 50),
            "plain_ms": time_ms(lambda: sdf_torch.render_tiles_pts(pts, words, tmeta, TP), 3),
-           "max_abs_err": max_err, "pairs": w["pairs"], **bound_of(w["f32_ops"], w["bytes"])}
+           "max_abs_err": max_err, **row_shared_bound_of(w)}
     emit(rec)
     out["sdf_tiles_pts_acc"] = rec
     return out
 
 
 def phase_tools() -> dict:
-    """Both measurement tools through their entry points on the text
+    """The measurement tools through their entry points on the text
     font, with the counts reset just before. Returns the launches per
-    kernel and the measured un-fused ALU roof in f32 operations a
-    second."""
+    kernel of the roofline and the split-variant tools, and the
+    measured un-fused ALU roof in f32 operations a second."""
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda
     from versatiles_glyphs_tpu_torch.tools import kernel_ab, roofline
 
@@ -1016,27 +1104,36 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device")
     import versatiles_glyphs_tpu_torch.ops.sdf_cuda  # noqa: F401
 
-    phase_device()
-    phase_build()
-    font_list = fonts()
-    batch = fit_batch()
-    k = phase_kernel(font_list[0][1])
-    kf = phase_fit_kernels(batch)
-    kl = phase_flat_kernels(font_list[0][1])
-    kp = phase_padded_kernels(batch)
-    kt = phase_tool_kernels(font_list[0][1])
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        got = fn(*args)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return got
+
+    timed("device", phase_device)
+    timed("build", phase_build)
+    font_list = timed("host_prep", fonts)
+    batch = timed("host_prep", fit_batch)
+    k = timed("kernel_render", phase_kernel, font_list[0][1], font_list[1][1])
+    kf = timed("kernel_fit", phase_fit_kernels, batch)
+    kl = timed("kernel_flat", phase_flat_kernels, font_list[0][1], font_list[1][1])
+    kp = timed("kernel_padded", phase_padded_kernels, batch)
+    kt = timed("kernel_tools", phase_tool_kernels, font_list[0][1])
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
-        launches = phase_slice(font_list, work)
-        flat_launches = phase_flat_renders(font_list)
-        fit_launches = phase_fit(batch, work)
-        pad_launches = phase_padded_fit(batch)
+        launches = timed("slice", phase_slice, font_list, work)
+        flat_launches = timed("flat_renders", phase_flat_renders, font_list)
+        fit_launches = timed("fit", phase_fit, batch, work)
+        pad_launches = timed("padded_fit", phase_padded_fit, batch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    tool_launches, roof_ops_per_s = phase_tools()
+    tool_launches, roof_ops_per_s = timed("tools", phase_tools)
+    emit({"phase": "seconds", "since_start": time.perf_counter() - T_START, **seconds})
 
-    def row(name, replaces, n_launch, err, ms, plain_ms, bound):
+    def row(name, replaces, n_launch, err, ms, plain_ms, bound, **more):
         # No single PyTorch call computes any of these functions. Beside
         # the contract's keys: the share of the bound the launch reaches,
         # and its f32 rate over the un-fused ALU roof that the roofline
@@ -1045,20 +1142,24 @@ def main() -> None:
         # counts the operations it executes, decoy chains included (the
         # stored value needs one chain of four), so its shares say how
         # near the launch comes to the peak and are not comparable with
-        # the other rows'.
+        # the other rows'. The render and min-field rows count their
+        # function by its least known operations
+        # (`tools.work.row_shared_work`: the crossing tested once a
+        # bitmap row and segment), whichever kernel computes it.
         return {"name": name, "route": "cuda",
                 "source": f"versatiles_glyphs_tpu_torch/csrc/{name}.cu", "replaces": replaces,
                 "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                 "library_ms": None,
                 "share_of_bound": bound["bound_ms"] / ms,
-                "share_of_alu_roof": bound["f32_ops"] / (ms * 1e-3) / roof_ops_per_s}
+                "share_of_alu_roof": bound["f32_ops"] / (ms * 1e-3) / roof_ops_per_s, **more}
 
     jax_ops = "versatiles_glyphs_tpu/ops/"
     k8, k9 = kt["alu_roof"], kt["sdf_tiles_pts_acc"]
     emit({"kernels": [
         row("sdf_tiles_pts", jax_ops + "sdf_pallas.py:61", launches, k["max_abs_err"],
-            k["ms"], k["plain_ms"], k),
+            k["ms"], k["plain_ms"], k,
+            ms_synth_heavy=k["ms_synth_heavy"]),
         row("sdf_min_field_pts", jax_ops + "sdf_pallas.py:339", fit_launches["sdf_min_field_pts"],
             kf["min_err"], kf["min_ms"], kf["min_plain_ms"], kf["min_bound"]),
         row("sdf_min_field_bwd", jax_ops + "sdf_grad.py:492", fit_launches["sdf_min_field_bwd"],
@@ -1071,10 +1172,11 @@ def main() -> None:
             kp["pad_bwd_plain_ms"], kp["pad_bwd_bound"]),
         row("sdf_tiles_flat", jax_ops + "legacy.py:147", flat_launches["sdf_tiles_flat"],
             kl["sdf_tiles_flat_err"], kl["sdf_tiles_flat_ms"], kl["sdf_tiles_flat_plain_ms"],
-            kl["sdf_tiles_flat_bound"]),
+            kl["sdf_tiles_flat_bound"], ms_synth_heavy=kl["sdf_tiles_flat_ms_synth_heavy"]),
         row("sdf_grid_flat", jax_ops + "legacy.py:40", flat_launches["sdf_grid_flat"],
             kl["sdf_grid_flat_err"], kl["sdf_grid_flat_ms"], kl["sdf_grid_flat_plain_ms"],
-            kl["sdf_grid_flat_bound"]),
+            kl["sdf_grid_flat_bound"],
+            ms_synth_heavy=kl["sdf_grid_flat_ms_synth_heavy"]),
         row("alu_roof", "scripts/roofline.py:190", tool_launches["alu_roof"],
             k8["max_abs_err"], k8["ms"], k8["plain_ms"], k8),
         row("sdf_tiles_pts_acc", "scripts/kernel_ab.py:69", tool_launches["sdf_tiles_pts_acc"],

@@ -253,7 +253,7 @@ def test_carried_jax_state_continues(jax_runs, jax_backend, backend):
     fitter = fitting.FontFitter(depth=DEPTH, backend=backend, device="cpu")
     _, _, dev = fitter.init(_batch())
     params = fitting.params_from_numpy(
-        {k: carry[f"{jax_backend}_p5_{k}"] for k in fitting.PARAM_KEYS}
+        {k: carry[f"{jax_backend}_p5_{k}"] for k in fitting.PARAM_KEYS}, device="cpu"
     )
     opt = torch.optim.Adam([params[k] for k in fitting.PARAM_KEYS], lr=0.01)
 

@@ -67,7 +67,7 @@ CASES = {"synth": _synth_case, "degenerate": _degenerate_case}
 def _inputs(case):
     mask, meta, curves, P = CASES[case]()
     plan = fitting.build_flat_plan(mask, meta, DEPTH, P)
-    params = fitting.init_params(curves)
+    params = fitting.init_params(curves, device="cpu")
     pts = fitting.flat_chain_points(
         params["curves"], params["translate"], DEPTH, torch.as_tensor(plan.chunk_map).long()
     ).detach().numpy()

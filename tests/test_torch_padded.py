@@ -201,7 +201,7 @@ def test_batch_loss_kernel_matches_jax(jax_padded):
     """`batch_loss_kernel` at parameters carried by `params_from_numpy`:
     loss within 1e-6 relative, every gradient within 1e-4·max."""
     a, want = jax_padded["synth"]
-    params = fitting.params_from_numpy(a)
+    params = fitting.params_from_numpy(a, device="cpu")
     batch = {"curve_mask": _t(a["curve_mask"]), "pix_mask": _t(a["pix_mask"]),
              "target": _t(a["target"]), "meta": _t(a["meta"])}
     loss = fitting.batch_loss_kernel(params, batch, DEPTH)

@@ -282,6 +282,37 @@ def test_sass_counts_parses_a_listing(monkeypatch, tmp_path):
     assert got is None and "exited 3" in missing and "not a cubin" in missing
 
 
+def test_sass_loops_finds_the_segment_loops(monkeypatch, tmp_path):
+    """`sass_loops` on a canned listing: a loop is the span from a
+    backward branch's target to the branch; one with a barrier or with
+    few f32 instructions is left out."""
+    body = "".join(f"        /*{0x20 + 16 * i:04x}*/                   FMUL.SAT R0, R0, R1 ;\n"
+                   for i in range(3))
+    listing = (
+        "\tFunction : k\n"
+        "        /*0000*/                   MOV R1, c[0x0][0x28] ;\n"
+        "        /*0010*/                   LDS.128 R4, [R2] ;\n" + body +
+        "        /*0050*/              @!P0 FADD R2, R2, R0 ;\n"
+        "        /*0060*/               @P1 BRA 0x10 ;\n"
+        "        /*0070*/                   BAR.SYNC 0x0 ;\n"
+        "        /*0080*/                   FADD R2, R2, R0 ;\n"
+        "        /*0090*/                   BRA 0x70 ;\n"
+        "        /*00a0*/                   BRA 0xc0 ;\n"
+        "        /*00b0*/                   EXIT ;\n"
+    )
+    exe = tmp_path / "cuobjdump"
+    exe.write_text("#!/bin/sh\ncat <<'EOF'\n" + listing + "EOF\n")
+    exe.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path), prepend=":")
+    got, missing = roofline.sass_loops("any.so", min_f32=4)
+    assert missing is None
+    assert got == {"k": [{"instructions": 6, "mix": {"LDS": 1, "FMUL": 3, "FADD": 1, "BRA": 1}}]}
+    assert roofline.sass_loops("any.so", min_f32=5)[0] == {"k": []}
+    monkeypatch.setenv("PATH", str(tmp_path / "none"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    assert roofline.sass_loops("any.so") == (None, "cuobjdump not found")
+
+
 def test_sass_counts_says_why_there_is_no_listing(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -3,6 +3,13 @@
 // sdf_tiles_flat.cu, sdf_grid_flat.cu, sdf_min_field_padded.cu,
 // sdf_min_field_padded_bwd.cu, sdf_tiles_pts_acc.cu).
 //
+// Two inner routines live here. `SegChunk` (eight scalar arrays, one
+// pixel a thread) serves the fitting kernels, sdf_tiles_flat.cu and
+// sdf_tiles_pts_acc.cu. `SegRecords` (one segment = two float4, live
+// segments only, R pixels a thread) serves sdf_tiles_pts.cu and
+// sdf_grid_flat.cu. Both evaluate the same expressions in the same
+// order, so they give the same bits.
+//
 // One definition of the tile-row read, the pixel center, the
 // point-to-segment projection, the crossing test and the quantization
 // keeps the kernels on one f32 op order, which is the op order of
@@ -168,6 +175,228 @@ __device__ __forceinline__ float soup_min_d2(const SegChunk& seg,
   }
   return dmin;
 }
+
+// ---- Packed records, R pixels a thread, crossings by row ----
+// (sdf_tiles_pts.cu, sdf_grid_flat.cu)
+//
+// The pair math above costs 22 f32 instructions, and with SegChunk about
+// 16 more instruction slots around them (eight 4-byte shared loads, a validity
+// test, the winding's integer select and add, the loop). The card starts
+// one instruction a clock a scheduler whatever its kind, so those slots
+// are lost f32 work. Here
+// - a staged segment is one 32-byte record read by 16-byte broadcast
+//   loads that serve R pixels of the thread;
+// - only live segments are staged (no validity word, no branch) and the
+//   loop is unrolled by four;
+// - the crossing test of a pair depends on the pixel's row and not on
+//   its column except for the last compare, so a block tests each staged
+//   segment once against each row of its pixels (RowLists) and a pixel
+//   then sums the few crossings of its row: the loop over the segments
+//   keeps the 16 distance operations and no compare, select or integer
+//   add. The expressions are those of d2_and_winding on the same values,
+//   so the count is the same integer.
+
+constexpr int kRecChunk = 256;  // segments a staged chunk: 8 KB of shared memory
+constexpr int kRowsMax = 64;    // rows of a block's pixels that get a crossing list
+constexpr int kRowCross = 16;   // crossings a row can list for one staged chunk
+
+// Center y of bitmap row `row` (from the top): pixel_center's pyc.
+__device__ __forceinline__ float row_center_y(const TileRow& r, int row) {
+  return static_cast<float>(r.y0) + static_cast<float>(r.h - 1 - row) + 0.5f;
+}
+
+// Live lanes among [a, b) of the point chain's validity bits (a <= b).
+__device__ __forceinline__ int live_between(const int32_t* __restrict__ mask_words,
+                                            int a, int b) {
+  int n = 0;
+  for (int wi = a >> 5; wi * 32 < b; ++wi) {
+    const int lo = max(a - wi * 32, 0);
+    const int hi = min(b - wi * 32, 32);
+    uint32_t m = hi >= 32 ? 0xffffffffu : (1u << hi) - 1u;
+    m &= ~((1u << lo) - 1u);
+    n += __popc(static_cast<uint32_t>(mask_words[wi]) & m);
+  }
+  return n;
+}
+
+// The R pixels of a thread: centers, running min of d^2, winding count,
+// and each pixel's bitmap row less the first row of the block's pixels.
+template <int R>
+struct Pixels {
+  float pxc[R], pyc[R], dmin[R];
+  int wn[R], lrow[R];
+
+  // Pixels i0 + k * stride, k < R, of row r's bitmap; row0 is the row
+  // of the block's first pixel.
+  __device__ __forceinline__ void init(const TileRow& r, int i0, int stride, int row0) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      pixel_center(r, i0 + k * stride, pxc[k], pyc[k]);
+      dmin[k] = kBig;
+      wn[k] = 0;
+      lrow[k] = (i0 + k * stride) / max(r.w, 1) - row0;
+    }
+  }
+};
+
+// Crossings of the staged chunk with each row of the block's pixels, in
+// shared memory: row q lists cx and the step (+1 up, -1 down) of every
+// staged segment that crosses its center line.
+struct RowLists {
+  float cx[kRowsMax * kRowCross];
+  int step[kRowsMax * kRowCross];
+  int count[kRowsMax];
+  int overflow;  // a row met more than kRowCross crossings
+
+  // The block empties the lists of its nrows rows; it synchronizes
+  // before the next list_crossings.
+  __device__ __forceinline__ void clear(int nrows) {
+    for (int q = threadIdx.x; q < nrows; q += blockDim.x) count[q] = 0;
+    if (threadIdx.x == 0) overflow = 0;
+  }
+};
+
+struct SegRecords {
+  // rec[2 * j] = {vx, vy, dx, dy}, rec[2 * j + 1] = {1/l2, 1/dy, wy, 0}.
+  float4* rec;
+
+  __device__ __forceinline__ explicit SegRecords(float4* smem) : rec(smem) {}
+
+  // Stages segment (v, w) at slot j: the values of SegChunk::put.
+  __device__ __forceinline__ void put(int j, float v_x, float v_y, float w_x,
+                                      float w_y) const {
+    const float d_x = w_x - v_x;
+    const float d_y = w_y - v_y;
+    rec[2 * j] = make_float4(v_x, v_y, d_x, d_y);
+    rec[2 * j + 1] = make_float4(l2_inverse(d_x, d_y),
+                                 d_y != 0.0f ? __fdiv_rn(1.0f, d_y) : 0.0f, w_y, 0.0f);
+  }
+
+  // Point-chain layout: the block stages the live lanes among
+  // [c0, cend) (at most kRecChunk lanes, cend < n_lanes) in lane order
+  // and returns their count. A lane's slot is the live count before its
+  // warp's 32 lanes, from the validity words, plus the live lanes below
+  // it in the warp's ballot: a glyph's run starts at any lane, so a
+  // warp's lanes straddle two words. Dead lanes never reach shared
+  // memory. Every thread of the block calls it.
+  __device__ __forceinline__ int stage_live(const float* __restrict__ pts, int n_lanes,
+                                            const int32_t* __restrict__ mask_words,
+                                            int c0, int cend) const {
+    const int tid = threadIdx.x;
+    const int nt = blockDim.x;
+    for (int i0 = 0; c0 + i0 < cend; i0 += nt) {
+      const int lane = c0 + i0 + tid;
+      bool live = false;
+      if (lane < cend)
+        live = (static_cast<uint32_t>(mask_words[lane >> 5]) >> (lane & 31)) & 1u;
+      const uint32_t ballot = __ballot_sync(0xffffffffu, live);
+      if (live) {
+        const int warp0 = min(c0 + i0 + (tid & ~31), cend);
+        const int slot = live_between(mask_words, c0, warp0) +
+                         __popc(ballot & ((1u << (tid & 31)) - 1u));
+        put(slot, pts[lane], pts[n_lanes + lane], pts[lane + 1], pts[n_lanes + lane + 1]);
+      }
+    }
+    return live_between(mask_words, c0, cend);
+  }
+
+  // Segment-soup layout flat [4, n_lanes]: the block stages lanes
+  // [c0, cend) (at most kRecChunk), all live.
+  __device__ __forceinline__ void stage_soup(const float* __restrict__ flat, int n_lanes,
+                                             int c0, int cend) const {
+    for (int lane = c0 + threadIdx.x; lane < cend; lane += blockDim.x)
+      put(lane - c0, flat[lane], flat[n_lanes + lane], flat[2 * n_lanes + lane],
+          flat[3 * n_lanes + lane]);
+  }
+
+  // One staged segment against the thread's R pixels: the expressions
+  // of SegChunk::d2_and_winding and the caller's running min; without
+  // kWinding the distance alone.
+  template <int R, bool kWinding>
+  __device__ __forceinline__ void pair(int j, Pixels<R>& px) const {
+    const float4 a = rec[2 * j];
+    const float4 b = rec[2 * j + 1];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float ex = px.pxc[k] - a.x;
+      const float ey = px.pyc[k] - a.y;
+      float tc, qx, qy;
+      project(ex, ey, a.z, a.w, b.x, tc, qx, qy);
+      if (kWinding) {
+        const bool c1 = a.y <= px.pyc[k];
+        const bool cross = c1 != (b.z <= px.pyc[k]);
+        const float cx = a.x + (ey * b.y) * a.z;
+        if (cross && cx <= px.pxc[k]) px.wn[k] += c1 ? 1 : -1;
+      }
+      px.dmin[k] = fminf(px.dmin[k], qx * qx + qy * qy);
+    }
+  }
+
+  // The first n staged segments against the thread's R pixels.
+  template <int R, bool kWinding>
+  __device__ __forceinline__ void accumulate(int n, Pixels<R>& px) const {
+    int j = 0;
+    for (; j + 4 <= n; j += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) pair<R, kWinding>(j + u, px);
+    }
+    for (; j < n; ++j) pair<R, kWinding>(j, px);
+  }
+
+  // The block lists, for each of the nrows bitmap rows from row0, the
+  // crossings of the first n staged segments: d2_and_winding's test
+  // with the row's center y. The caller synchronizes the block before
+  // (the records are staged, the lists cleared) and after.
+  __device__ __forceinline__ void list_crossings(int n, RowLists& rows, const TileRow& r,
+                                                 int row0, int nrows) const {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const float4 a = rec[2 * j];
+      const float4 b = rec[2 * j + 1];
+      for (int q = 0; q < nrows; ++q) {
+        const float pyc = row_center_y(r, row0 + q);
+        const bool c1 = a.y <= pyc;
+        if (c1 == (b.z <= pyc)) continue;
+        const float ey = pyc - a.y;
+        const int slot = atomicAdd(&rows.count[q], 1);
+        if (slot < kRowCross) {
+          rows.cx[q * kRowCross + slot] = a.x + (ey * b.y) * a.z;
+          rows.step[q * kRowCross + slot] = c1 ? 1 : -1;
+        } else {
+          rows.overflow = 1;
+        }
+      }
+    }
+  }
+
+  // The staged chunk of n segments against the thread's R pixels; every
+  // thread of the block calls it between the synchronization that
+  // follows staging and the one that precedes the next staging. With
+  // use_rows (the block's pixels span at most kRowsMax rows; the same
+  // for every thread; the lists were cleared while staging) the
+  // crossings go by row lists, unless a row overflows its list: then,
+  // as without use_rows, every pair tests its own crossing.
+  template <int R>
+  __device__ __forceinline__ void reduce(int n, Pixels<R>& px, RowLists& rows, bool use_rows,
+                                         const TileRow& r, int row0, int nrows) const {
+    if (use_rows) {
+      list_crossings(n, rows, r, row0, nrows);
+      __syncthreads();
+      use_rows = rows.overflow == 0;
+    }
+    if (!use_rows) {
+      accumulate<R, true>(n, px);
+      return;
+    }
+    accumulate<R, false>(n, px);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int q = px.lrow[k];
+      const int cnt = rows.count[q];
+      for (int c = 0; c < cnt; ++c)
+        if (rows.cx[q * kRowCross + c] <= px.pxc[k]) px.wn[k] += rows.step[q * kRowCross + c];
+    }
+  }
+};
 
 // The SDF byte of a pixel: clamp(255 - (+-sqrt(d^2)*scale + cutoff)),
 // negative inside (winding != 0), rounded by floor(x + 0.5).

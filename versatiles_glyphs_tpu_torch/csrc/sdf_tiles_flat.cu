@@ -19,9 +19,12 @@
 // come from integer div and mod, as in the TPU kernel. Rows whose
 // pix_base is at or past w*h write zeros.
 //
-// Bound: FP32 ALU, as kernel 1: ~30 flops per (pixel, segment) pair
-// against 16 bytes of global reads per segment per block, all of it
-// from L2 after the first block of a glyph.
+// Bound: f32 instruction slots, as kernel 1: 22 f32 operations per (pixel,
+// segment) pair (tools/work.py) against 16 bytes of global reads per
+// segment per block, all of it from L2 after the first block of a
+// glyph. It keeps the plain loop of SegChunk (one pixel a thread, a
+// crossing test a pair) and is the independent implementation that
+// kernels 1 and 7, which share SegRecords, are held against.
 //
 // Parity with the plain version (ops/sdf_torch.render_tiles_flat) is
 // byte equality, by the shared op order of sdf_pair.cuh under

@@ -8,28 +8,53 @@
 // no lane-shifted w-endpoint arrays, no float validity array, no
 // (TP, SC) accumulators.
 //
-// Work: one thread block per tile-table row, one thread per pixel
-// (blockDim.x == TP). Each block reads its own row of the tile table
-// (tmeta [8, T] i32: x0, y0, w, h, npts, off, pix_base, _) and walks
-// its glyph's lane run [off, off + npts - 1) of the flat point chain
-// (pts [2, N] f32; segment i = (pts[:, i], pts[:, i + 1]), live iff
-// bit i of mask_words is set) in chunks of TP segments. Per chunk each
-// thread stages one segment's derived terms (dx, dy, 1/l2, 1/dy) in
-// shared memory, so those divides are paid once per segment and block;
-// then every thread reads the chunk by broadcast and keeps the running
-// min of d^2 and the winding count in registers. Rows whose pix_base is
-// at or past w*h write zeros.
+// Bound: f32 instruction slots. A (pixel, live segment) pair is 22 separately
+// rounded f32 instructions (tools/work.py counts them from
+// sdf_pair.cuh) against a few bytes of global traffic a segment and
+// block, and an SM starts 128 thread instructions a clock of whatever
+// kind. So every shared load, validity test and loop instruction beside
+// the 22 is lost f32 work, and the design spends as few as it can:
 //
-// Bound: FP32 ALU. About 30 flops per (pixel, segment) pair against a
-// few bytes of global traffic per segment per block, so everything the
-// inner loop touches is on-chip. wgmma, TMA and tuning are later work.
+// - one thread block per tile-table row (tmeta [8, T] i32: x0, y0, w, h,
+//   npts, off, pix_base, _) of TP / R threads, each thread owning the R
+//   pixels tid, tid + TP/R, ... of the tile with their running min of
+//   d^2 and winding count in registers (a warp's stores stay contiguous
+//   bytes). R is 2 where TP / 2 is whole warps, else 1: two independent
+//   chains hide the f32 latency, and four pixels a thread measured no
+//   faster on either synthesized font (blocks of 64 threads fill the
+//   card less evenly);
+// - the glyph's lane run [off, off + npts - 1) of the flat point chain
+//   (pts [2, N] f32; segment i = (pts[:, i], pts[:, i + 1]), live iff
+//   bit i of mask_words is set) is walked in chunks of kRecChunk lanes.
+//   Only a chunk's live lanes are staged in shared memory, compacted in
+//   lane order by warp ballot, so the inner loop loads no validity word
+//   and has no branch; a chunk with no live lane is skipped whole;
+// - a staged segment is one 32-byte record {vx, vy, dx, dy | 1/l2, 1/dy,
+//   wy, 0}, read by two 16-byte broadcast loads that serve the thread's
+//   R pixels: 2/R loads a pair. The divides are paid once a segment and
+//   block;
+// - the inner loop is unrolled by four;
+// - a pair's crossing test depends on the pixel's row, and on its
+//   column only in the last compare. A tile's pixels lie in a few
+//   bitmap rows, so the block tests each staged segment once against
+//   each of those rows and lists the crossings by row (sdf_pair.cuh,
+//   RowLists); a pixel then sums its row's few crossings. The loop over
+//   the segments keeps the 16 distance operations of the 22 and no
+//   compare, select or integer add: 16 f32 operations a pair and 2 a
+//   (row, segment), where the test done pair by pair makes it 22
+//   (tools/work.py counts the bound by this route). A tile of more than kRowsMax
+//   rows (a bitmap under 4 pixels wide at TP = 256) or a row with more
+//   than kRowCross crossings in one chunk takes the loop with all 22.
+// Rows whose pix_base is at or past w*h write zeros.
 //
 // Parity with the plain version (ops/sdf_torch.render_tiles_pts) is
-// byte equality. The build passes --fmad=false so that no multiply and
-// add contract into an FMA, and the divides and the square root are
-// the correctly rounded intrinsics. 1/l2 and 1/dy are reciprocals that
-// multiply, as on the TPU; they are not folded into one divide. The
-// per-pixel math is shared with the fitting kernels (sdf_pair.cuh).
+// byte equality: min and an integer sum do not depend on the order of
+// the segments, and no expression changed shape. The build passes
+// --fmad=false so that no multiply and add contract into an FMA, and
+// the divides and the square root are the correctly rounded intrinsics.
+// 1/l2 and 1/dy are reciprocals that multiply, as on the TPU; they are
+// not folded into one divide. The per-pixel math is shared with the
+// other kernels (sdf_pair.cuh).
 
 #include <cstdint>
 
@@ -39,45 +64,58 @@
 
 namespace {
 
-__global__ void sdf_tiles_pts_kernel(
+template <int R>
+__global__ void __launch_bounds__(1024 / R) sdf_tiles_pts_kernel(
     const float* __restrict__ pts, int n_lanes,
     const int32_t* __restrict__ mask_words,
     const int32_t* __restrict__ tmeta, int n_tiles,
     float scale, float cutoff,
     uint8_t* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int tp = blockDim.x;
-  const vg::SegChunk seg(smem, tp);
+  __shared__ float4 smem[2 * vg::kRecChunk];
+  __shared__ vg::RowLists rows;
+  const vg::SegRecords seg(smem);
 
+  const int nt = blockDim.x;  // TP / R
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const vg::TileRow r = vg::load_tile(tmeta, n_tiles, t);
-  uint8_t* dst = out + static_cast<size_t>(t) * tp + tid;
+  uint8_t* dst = out + static_cast<size_t>(t) * nt * R + tid;
 
   if (r.base >= r.w * r.h) {  // the same for every thread of the block
-    *dst = 0;
+#pragma unroll
+    for (int k = 0; k < R; ++k) dst[k * nt] = 0;
     return;
   }
 
-  float pxc, pyc;
-  vg::pixel_center(r, r.base + tid, pxc, pyc);
+  // Bitmap rows of the tile's pixels [base, base + TP).
+  const int ws = max(r.w, 1);
+  const int row0 = r.base / ws;
+  const int nrows = (r.base + nt * R - 1) / ws - row0 + 1;
+  const bool use_rows = nrows <= vg::kRowsMax;
+  vg::Pixels<R> px;
+  px.init(r, r.base + tid, nt, row0);
 
-  float dmin = vg::kBig;
-  int wn = 0;
   const int last = r.off + r.npts - 1;  // segments are lanes [off, last)
-  for (int c0 = r.off; c0 < last; c0 += tp) {
-    const int lane = c0 + tid;
-    if (lane < last) seg.stage(pts, n_lanes, mask_words, lane, tid);
+  for (int c0 = r.off; c0 < last; c0 += vg::kRecChunk) {
+    const int cend = min(c0 + vg::kRecChunk, last);
+    const int n = seg.stage_live(pts, n_lanes, mask_words, c0, cend);
+    if (n == 0) continue;  // the same for every thread of the block
+    if (use_rows) rows.clear(nrows);
     __syncthreads();
-    const int nseg = min(tp, last - c0);
-    for (int j = 0; j < nseg; ++j) {
-      if (!seg.ok[j]) continue;  // the same segment for every thread
-      dmin = fminf(dmin, seg.d2_and_winding(j, pxc, pyc, wn));
-    }
+    seg.reduce<R>(n, px, rows, use_rows, r, row0, nrows);
     __syncthreads();
   }
 
-  *dst = vg::sdf_byte(dmin, wn, scale, cutoff);
+#pragma unroll
+  for (int k = 0; k < R; ++k) dst[k * nt] = vg::sdf_byte(px.dmin[k], px.wn[k], scale, cutoff);
+}
+
+template <int R>
+void launch_r(const float* pts, int n_lanes, const int32_t* mask_words, const int32_t* tmeta,
+              int n_tiles, int tp, float scale, float cutoff, uint8_t* out,
+              cudaStream_t stream) {
+  sdf_tiles_pts_kernel<R><<<n_tiles, tp / R, 0, stream>>>(
+      pts, n_lanes, mask_words, tmeta, n_tiles, scale, cutoff, out);
 }
 
 }  // namespace
@@ -85,17 +123,17 @@ __global__ void sdf_tiles_pts_kernel(
 // Launches the kernel on `stream` (a cudaStream_t) and returns
 // cudaGetLastError(). Pointers are device pointers: pts [2, n_lanes]
 // f32, mask_words [n_lanes / 32] i32, tmeta [8, n_tiles] i32, out
-// [n_tiles, tp] u8. tp is the block size (a multiple of 32, at most
-// 1024). The caller checks shapes and bounds.
+// [n_tiles, tp] u8. tp is the tile's pixel count and r the pixels a
+// thread (1 or 2; tp / r is the block size, a multiple of 32, at most
+// 1024 / r). The caller checks shapes and bounds.
 extern "C" int vg_sdf_tiles_pts(
     const void* pts, int n_lanes, const void* mask_words, const void* tmeta,
-    int n_tiles, int tp, float scale, float cutoff, void* out, void* stream) {
+    int n_tiles, int tp, int r, float scale, float cutoff, void* out, void* stream) {
   if (n_tiles == 0) return 0;
-  const size_t smem = vg::kSegChunkWords * static_cast<size_t>(tp) * sizeof(float);
-  sdf_tiles_pts_kernel<<<n_tiles, tp, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), n_lanes,
-      static_cast<const int32_t*>(mask_words),
-      static_cast<const int32_t*>(tmeta), n_tiles, scale, cutoff,
-      static_cast<uint8_t*>(out));
+  if ((r != 1 && r != 2) || tp % (32 * r)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = r == 2 ? launch_r<2> : launch_r<1>;
+  launch(static_cast<const float*>(pts), n_lanes, static_cast<const int32_t*>(mask_words),
+         static_cast<const int32_t*>(tmeta), n_tiles, tp, scale, cutoff,
+         static_cast<uint8_t*>(out), static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

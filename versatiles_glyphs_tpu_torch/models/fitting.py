@@ -63,7 +63,10 @@ def params_from_numpy(params, device=None) -> dict:
     """Parameters as f32 leaf tensors that require grad, from numpy
     arrays (the JAX package's ``fitted.npz`` or `np.asarray` of its
     parameter pytree) under the keys ``curves``, ``translate``,
-    ``log_gain``."""
+    ``log_gain``. ``device``: a torch device or its name; None or
+    ``"cuda"`` is the first CUDA device and raises without one, as in
+    `FontFitter`."""
+    device = cuda_device() if device in (None, "cuda") else torch.device(device)
     return {
         k: torch.tensor(np.asarray(params[k], np.float32), device=device).requires_grad_()
         for k in PARAM_KEYS
@@ -71,6 +74,8 @@ def params_from_numpy(params, device=None) -> dict:
 
 
 def init_params(curves0: np.ndarray, device=None) -> dict:
+    """The start of a fit at control points ``curves0``: no translation,
+    unit gain. ``device`` as in `params_from_numpy`."""
     return params_from_numpy(
         {
             "curves": curves0,

@@ -5,7 +5,9 @@ compiled for Hopper into ``build/kernels/<name>-<hash>.so`` at the root
 of the checkout, where the hash covers the source, the shared headers
 (``csrc/*.cuh``) and the flags, so a stale library is never loaded. A
 failed build raises with nvcc's output. `build_all` runs one nvcc per
-kernel, all at once. Nothing here runs at import time.
+kernel, all at once. ptxas reports each kernel's registers, spills and
+shared memory (``-Xptxas -v``); the report is kept beside the library
+(`ptxas_report`). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +31,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 # the byte parity with the plain PyTorch versions needs.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -80,9 +83,27 @@ def build(name: str) -> str:
             f"nvcc failed to build {name} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
         )
+    with open(so + ".ptxas.txt", "w") as f:
+        f.write(proc.stderr)
     os.replace(tmp, so)
     BUILDS[name] = (so, time.perf_counter() - t0)
     return so
+
+
+def ptxas_report(so: str) -> list[dict]:
+    """What ptxas said of each kernel in library ``so`` when it was
+    built: ``{"kernel", "registers", "spill_stores", "spill_loads",
+    "smem"}`` (bytes; mangled kernel names)."""
+    with open(so + ".ptxas.txt") as f:
+        text = f.read()
+    rows = []
+    for m in re.finditer(
+        r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+        r".*?Used (\d+) registers(?:[^\n]*?(\d+) bytes smem)?", text, re.S,
+    ):
+        rows.append({"kernel": m[1], "registers": int(m[4]), "spill_stores": int(m[2]),
+                     "spill_loads": int(m[3]), "smem": int(m[5] or 0)})
+    return rows
 
 
 def build_all(names) -> list[str]:

@@ -9,7 +9,10 @@ is a hand-written kernel with the per-pixel math of the point-chain
 render kernel (``csrc/sdf_pair.cuh``):
 
 - ``sdf_tiles_flat``: `render_bitmaps_cuda_tiles`;
-- ``sdf_grid_flat``: `render_bitmaps_cuda_grid`.
+- ``sdf_grid_flat``: `render_bitmaps_cuda_grid`. A block renders a span
+  of four pixels a thread of one glyph (`grid_launch_shape`), stages the
+  glyph's segments as 32-byte records and tests a segment's crossing
+  once a bitmap row of the span instead of once a pixel.
 
 On CUDA tensors a wrapper launches its kernel; on CPU tensors it runs
 the plain version in `ops.sdf_torch`. There is no fallback from one to
@@ -25,7 +28,15 @@ import torch
 
 from ..constants import CUTOFF, SDF_RADIUS
 
-from .sdf_cuda import _check_tmeta, _cuda_inputs, _lanes_out_of_bounds, _launch
+from .sdf_cuda import (
+    GRID_PIXELS_PER_THREAD,
+    GRID_THREADS,
+    GRID_THREADS_MAX,
+    _check_tmeta,
+    _cuda_inputs,
+    _lanes_out_of_bounds,
+    _launch,
+)
 from .sdf_torch import render_grid_flat, render_tiles_flat
 
 
@@ -99,14 +110,30 @@ def render_bitmaps_cuda_grid(
     return launch_grid_flat(flat, meta, P, TP)
 
 
+def grid_launch_shape(G: int, P: int, threads: int = GRID_THREADS) -> tuple[int, tuple[int, int]]:
+    """(threads a block, grid) of the flat grid kernel for G glyphs of P
+    pixels (a multiple of 32): a block renders a span of
+    ``GRID_PIXELS_PER_THREAD`` pixels a thread of one glyph, so the
+    block is the whole warps that cover P at that rate, ``threads`` at
+    most, and a glyph takes ceil(P / span) blocks. The launcher keeps
+    ``GRID_THREADS``; the kernel takes any multiple of 32 up to
+    ``GRID_THREADS_MAX``, which `tools.kernel_turns` times."""
+    if threads % 32 or not 32 <= threads <= GRID_THREADS_MAX:
+        raise ValueError(f"threads={threads} must be a multiple of 32 in [32, {GRID_THREADS_MAX}]")
+    nt = min(threads, max(32, -(-P // (32 * GRID_PIXELS_PER_THREAD)) * 32))
+    return nt, (G, -(-P // (nt * GRID_PIXELS_PER_THREAD)))
+
+
 def launch_grid_flat(flat, meta, P: int, TP: int) -> torch.Tensor:
     """The flat grid kernel on inputs the caller has checked (see
-    `render_bitmaps_cuda_grid`): allocate the output and launch."""
+    `render_bitmaps_cuda_grid`): allocate the output and launch
+    (`grid_launch_shape`; the grid is the kernel's own to derive)."""
     N, G = flat.shape[1], meta.shape[0]
     out = torch.empty((G, P), dtype=torch.uint8, device=flat.device)
     if G and P:
+        nt, _ = grid_launch_shape(G, P)
         _launch(
-            "sdf_grid_flat", flat.device, flat.data_ptr(), N, meta.data_ptr(), G, P, TP,
+            "sdf_grid_flat", flat.device, flat.data_ptr(), N, meta.data_ptr(), G, P, TP, nt,
             256.0 / SDF_RADIUS, CUTOFF, out.data_ptr(),
         )
     return out

@@ -5,14 +5,18 @@ measurement scripts).
 The port's nine hand-written kernels, each on the current stream:
 
 - ``sdf_tiles_pts`` (render): `render_bitmaps_cuda_pts`,
-  `render_bitmaps_cuda_delta`;
+  `render_bitmaps_cuda_delta`. A block of TP / R threads a tile, R
+  pixels a thread (`pixels_per_thread`); it stages only a chunk's live
+  segments, as 32-byte records, and tests a segment's crossing once a
+  bitmap row of the tile instead of once a pixel;
 - ``sdf_min_field_pts`` (fitting forward): `min_field_cuda_pts`;
 - ``sdf_min_field_bwd`` (fitting backward): `min_field_bwd_cuda`;
 - ``sdf_min_field_padded`` (padded-layout fitting forward):
   `min_field_cuda_padded`;
 - ``sdf_min_field_padded_bwd`` (its backward): `min_field_padded_bwd_cuda`;
 - ``sdf_tiles_flat`` and ``sdf_grid_flat`` (render over the flat
-  segment layout): wrapped in `ops.legacy`;
+  segment layout): wrapped in `ops.legacy`; the grid kernel shares the
+  tile kernel's records and row lists (`legacy.grid_launch_shape`);
 - ``sdf_tiles_pts_acc`` (the render tile kernel with a pixel's segments
   split over a sub-warp; the same function and plain version as
   ``sdf_tiles_pts``): `render_bitmaps_cuda_pts_acc`, for
@@ -60,7 +64,7 @@ from .sdf_torch import (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> (C symbol, ctypes argument types)
 _SIGNATURES = {
-    "sdf_tiles_pts": ("vg_sdf_tiles_pts", [_P, _I, _P, _P, _I, _I, _F, _F, _P, _P]),
+    "sdf_tiles_pts": ("vg_sdf_tiles_pts", [_P, _I, _P, _P, _I, _I, _I, _F, _F, _P, _P]),
     "sdf_min_field_pts": ("vg_sdf_min_field_pts", [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P]),
     "sdf_min_field_bwd": ("vg_sdf_min_field_bwd", [_P, _I, _P, _P, _P, _I, _I, _P, _P]),
     "sdf_min_field_padded": (
@@ -68,7 +72,7 @@ _SIGNATURES = {
     "sdf_min_field_padded_bwd": (
         "vg_sdf_min_field_padded_bwd", [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P]),
     "sdf_tiles_flat": ("vg_sdf_tiles_flat", [_P, _I, _P, _I, _I, _F, _F, _P, _P]),
-    "sdf_grid_flat": ("vg_sdf_grid_flat", [_P, _I, _P, _I, _I, _I, _F, _F, _P, _P]),
+    "sdf_grid_flat": ("vg_sdf_grid_flat", [_P, _I, _P, _I, _I, _I, _I, _F, _F, _P, _P]),
     "alu_roof": ("vg_alu_roof", [_I, _I, _I, _F, _I, _P, _P]),
     # The same function as sdf_tiles_pts, so its plain version is
     # `sdf_torch.render_tiles_pts` too.
@@ -88,6 +92,24 @@ ALU_ROOF_CHAINS = 4
 # Threads a pixel of ``sdf_tiles_pts_acc`` by default: TP·4 = 1,024
 # threads a block at TP = 256.
 ACC_SPLIT = 4
+# Pixels a thread of ``sdf_tiles_pts`` where TP allows it (a block of
+# TP / 2 threads a tile: faster than 1 and than 4 on both synthesized
+# fonts, `tools.kernel_turns`; the kernel is compiled for 1 and 2).
+TILE_PIXELS_PER_THREAD = 2
+# Sizes of ``csrc/sdf_pair.cuh`` that shape the work of ``sdf_tiles_pts``
+# and ``sdf_grid_flat``: segments a staged chunk (kRecChunk), bitmap
+# rows of a block's pixels that get a crossing list (kRowsMax), and
+# crossings a row lists for one chunk (kRowCross); past either the
+# block tests every pair's crossing itself.
+REC_CHUNK = 256
+ROWS_MAX = 64
+ROW_CROSS = 16
+# ``sdf_grid_flat``: threads a block (the fastest of 64, 128 and 256 on
+# both fonts) and the most the kernel is compiled for; pixels a thread
+# of a full span (kMaxR of the source).
+GRID_THREADS = 128
+GRID_THREADS_MAX = 256
+GRID_PIXELS_PER_THREAD = 4
 KERNELS = tuple(_SIGNATURES)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -175,15 +197,24 @@ def render_bitmaps_cuda_pts(
     return launch_tiles_pts(pts, mask_words, tmeta, TP)
 
 
+def pixels_per_thread(TP: int) -> int:
+    """Pixels a thread of the render tile kernel at tile size ``TP``:
+    ``TILE_PIXELS_PER_THREAD`` where that leaves a block of whole warps
+    (TP a multiple of 64), else 1."""
+    return TILE_PIXELS_PER_THREAD if TP % (32 * TILE_PIXELS_PER_THREAD) == 0 else 1
+
+
 def launch_tiles_pts(pts, mask_words, tmeta, TP: int) -> torch.Tensor:
     """The render tile kernel on inputs the caller has checked (see
-    `render_bitmaps_cuda_pts`): allocate the output and launch."""
+    `render_bitmaps_cuda_pts`): allocate the output and launch, a block
+    of TP / `pixels_per_thread` threads a tile."""
     N, T = pts.shape[1], tmeta.shape[1]
     out = torch.empty((T, TP), dtype=torch.uint8, device=pts.device)
     if T:
         _launch(
             "sdf_tiles_pts", pts.device, pts.data_ptr(), N, mask_words.data_ptr(),
-            tmeta.data_ptr(), T, TP, 256.0 / SDF_RADIUS, CUTOFF, out.data_ptr(),
+            tmeta.data_ptr(), T, TP, pixels_per_thread(TP), 256.0 / SDF_RADIUS, CUTOFF,
+            out.data_ptr(),
         )
     return out
 

@@ -3,9 +3,15 @@
 
     python -m versatiles_glyphs_tpu_torch.tools.kernel_ab [--font synth_heavy] [--split 4]
 
-``csrc/sdf_tiles_pts.cu`` gives a pixel to one thread that walks every
-segment; ``csrc/sdf_tiles_pts_acc.cu`` gives it to ``split`` threads
-that each walk every ``split``-th segment and reduce once a tile. On a
+``csrc/sdf_tiles_pts.cu``, the production kernel, gives a thread two
+pixels of a tile, stages only a chunk's live segments as packed
+records and takes the winding from a list of crossings for each bitmap
+row of the tile; ``csrc/sdf_tiles_pts_acc.cu`` keeps the plain loop (a
+validity test and a crossing test a pair) and gives a pixel to
+``split`` threads that each walk every ``split``-th segment and reduce
+once a tile. The variant is the independent implementation the
+production kernel is held against, not a candidate to replace it
+(`tools.kernel_turns` compares its launch shapes). On a
 synthesized font's first render group, on the q16 wire the render
 session uses, the tool prints as JSON lines whether the two outputs are
 byte-equal and both times, taken in turns (production, variant,

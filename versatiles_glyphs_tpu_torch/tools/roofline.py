@@ -7,7 +7,8 @@ With the inputs resident on the device it measures, each printed as a
 JSON line:
 
 1. the work of one launch: live (pixel, segment) pairs and f32
-   operations (`tools.work`), bytes, and the bound at the published
+   operations by the least count known for the function
+   (`tools.work.row_shared_work`), bytes, and the bound at the published
    peaks;
 2. the tile kernel alone (CUDA events over many launches): Mpix/s,
    pairs/s, f32 op/s;
@@ -88,15 +89,17 @@ def first_group(preps):
 def group_work(group, dtype=np.float32, arena_tag: str = "_tool") -> dict:
     """Pack ``group`` on the point-chain wire and count the tile
     kernel's work: the numpy arrays under ``pts``, ``words``, ``tmeta``
-    ([8, T]) and `work.tile_kernel_work`'s counts, with ``glyphs`` and
+    ([8, T]) and `work.row_shared_work`'s counts, with ``glyphs`` and
     ``npix`` (bitmap pixels, the padding of each glyph's last tile left
     out)."""
     from ..render.batch import pack_points, plan_tiles, tile_starts
+    from ..render.metrics import Q16_SCALE
 
     pts, words, meta = pack_points(group, dtype=dtype, arena_tag=arena_tag)
     T = tile_starts(meta, len(group), TP)[1]
     tmeta = np.ascontiguousarray(plan_tiles(group, meta, TP, T_pad=T)[0].T)
-    counts = work.tile_kernel_work(tmeta, words, TP, pts.shape[1])
+    pixels = pts if pts.dtype == np.float32 else pts.astype(np.float32) / Q16_SCALE
+    counts = work.row_shared_work(pixels, tmeta, TP, words)
     return {"pts": pts, "words": words, "tmeta": tmeta, "glyphs": len(group),
             "lanes": int(pts.shape[1]), "npix": int(sum(p.width * p.height for p in group)),
             **counts}
@@ -173,6 +176,48 @@ def sass_counts(so_path: str) -> tuple[dict | None, str | None]:
     return out, None
 
 
+def sass_loops(so_path: str, min_f32: int = 40) -> tuple[dict | None, str | None]:
+    """(loops, None): for each kernel of a built library, its loops
+    without a barrier that hold at least ``min_f32`` f32 instructions
+    (the loops over staged segments), each as ``{"instructions": n,
+    "mix": {opcode: count}}`` with modifiers and predicates stripped; a
+    loop is the span from a backward branch's target to the branch, by
+    ``cuobjdump -sass``. Or (None, reason) as `sass_counts`."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None, "cuobjdump not found"
+    proc = subprocess.run([exe, "-sass", so_path], capture_output=True, text=True)
+    if proc.returncode != 0:
+        return None, f"cuobjdump exited {proc.returncode}: {proc.stderr.strip()[-200:]}"
+    code: dict = {}
+    name = None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            code[name] = []
+            continue
+        m = re.search(r"^\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9]+)[^;]*", line)
+        if m and name:
+            target = re.search(r"\bBRA\b.*?\b0x([0-9a-f]+)", m.group(0))
+            code[name].append((int(m.group(1), 16), m.group(2), int(target.group(1), 16) if target else None))
+    out: dict = {}
+    for name, ins in code.items():
+        out[name] = []
+        for addr, _, target in ins:
+            if target is None or target >= addr:
+                continue
+            mix: dict = {}
+            for a, op, _ in ins:
+                if target <= a <= addr:
+                    mix[op] = mix.get(op, 0) + 1
+            f32 = sum(mix.get(k, 0) for k in ("FMUL", "FADD", "FMNMX", "FFMA"))
+            if "BAR" not in mix and f32 >= min_f32:
+                out[name].append({"instructions": sum(mix.values()), "mix": mix})
+    return out, None
+
+
 def check_roof_sass(sass: dict, chains: int) -> None:
     """Raise unless the un-fused roof kernel of a `sass_counts` listing
     kept all its work: ten FMUL, FADD and FMNMX for each of ``chains``
@@ -206,7 +251,8 @@ def main(argv=None) -> dict:
     w = group_work(group)
     host = (w.pop("pts"), w.pop("words"), w.pop("tmeta"))
     bound_ms, bound_by = work.bound(w["f32_ops"], w["bytes"])
-    w.update(ops_per_pair=work.PAIR_F32_OPS, bound_ms=bound_ms, bound_by=bound_by)
+    w.update(f32_ops_a_pair=w["f32_ops"] / max(w["pairs"], 1), bound_ms=bound_ms, bound_by=bound_by,
+             bound_ms_at_22_ops_a_pair=work.bound(w["f32_ops_per_pair_test"], w["bytes"])[0])
     emit({"tool": "roofline", "step": "work", **w})
     res["work"] = w
 

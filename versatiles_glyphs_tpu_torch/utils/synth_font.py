@@ -232,3 +232,54 @@ class SynthEntry:
 
     def hor_advance(self, name: str) -> int:
         return self._advances[int(name[1:])]
+
+
+def _ring_prep(cp: int, w: int, h: int, ring):
+    from ..render.metrics import GlyphPrep
+
+    return GlyphPrep(codepoint=cp, advance=w, empty=False, width=w, height=h, x0=0, y0=0,
+                     x1=w, y1=h, rings_px=[np.array(ring, dtype=np.float64)])
+
+
+def row_list_edge_preps():
+    """Three glyphs at the edges of the render kernels' crossing lists
+    (``csrc/sdf_pair.cuh``, RowLists): a bitmap 3 pixels wide, so that
+    256 pixels span 86 bitmap rows (more than a block lists); a comb
+    whose rows cross 48 segments (more than a row lists); and a bitmap
+    of 63 pixels, under one pixel tile of 64."""
+    narrow = _ring_prep(70, 3, 90, [(0.5, 1.0), (2.5, 1.0), (2.5, 88.25), (0.5, 88.25), (0.5, 1.0)])
+    teeth = [(2.0 + k, 28.5 if k % 2 else 2.25) for k in range(49)]
+    comb = _ring_prep(71, 52, 30, [(2.0, 1.0), *teeth, (50.0, 1.0), (2.0, 1.0)])
+    tiny = _ring_prep(72, 9, 7, [(1.0, 1.0), (7.5, 1.5), (4.0, 5.5), (1.0, 1.0)])
+    return [narrow, comb, tiny]
+
+
+def unaligned_point_chain():
+    """A hand-made point chain (pts [2, 512] f32, mask words [16] i32,
+    tile table [8, 6] i32 at 256 pixels a tile) for the render tile
+    kernel's staging: a glyph whose lane run starts at lane 37, off a
+    multiple of 32, with two rings (dead lanes 56 and 86 inside the
+    run) over two tiles; a glyph whose lanes are all dead (bytes 0); a
+    row with npts = 1 and one with npts = 0; and a row past w·h."""
+    N = 512
+    pts = np.zeros((2, N), np.float32)
+    bits = np.zeros(N, bool)
+    ang = np.linspace(0.0, 2 * np.pi, 20)[:-1]
+    outer = np.stack([10 + 7.5 * np.cos(ang), 10 + 6.25 * np.sin(ang)], 1)
+    outer = np.concatenate([outer, outer[:1]])  # 20 points, lanes 37..56
+    ang = np.linspace(0.0, -2 * np.pi, 30)[:-1]
+    inner = np.stack([10 + 3.5 * np.cos(ang), 10 + 2.75 * np.sin(ang)], 1)
+    inner = np.concatenate([inner, inner[:1]])  # 30 points, lanes 57..86
+    pts[:, 37:57] = outer.T
+    pts[:, 57:87] = inner.T
+    bits[37:56] = bits[57:86] = True
+    pts[:, 100:110] = np.array([[2.0, 8, 8, 2, 2, 3, 4, 5, 6, 7], [2.0, 2, 8, 8, 2, 3, 4, 5, 6, 7]])
+    pts[:, 120] = 4.0
+    words = np.packbits(bits, bitorder="little").view(np.int32)
+    tmeta = np.array([
+        # x0, y0, w, h, npts, off, pix_base, _
+        [0, 0, 20, 20, 50, 37, 0, 0], [0, 0, 20, 20, 50, 37, 256, 0],
+        [0, 0, 10, 10, 10, 100, 0, 0], [0, 0, 8, 8, 1, 120, 0, 0], [0, 0, 8, 8, 0, 130, 0, 0],
+        [0, 0, 20, 20, 50, 37, 512, 0],
+    ], np.int32).T
+    return pts, words, np.ascontiguousarray(tmeta)

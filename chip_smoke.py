@@ -13,7 +13,7 @@ JSON lines:
 1. device — the card's name and power limit (nvidia-smi).
 2. build  — nvcc builds every kernel from ``csrc/``, one process each,
    all at once, and ptxas's report (registers, spills, shared memory)
-   of the two redesigned render kernels is printed; g++ builds the
+   of the four redesigned kernels is printed; g++ builds the
    native host library from ``csrc/vg_native.cpp``
    (`proto.native.require`).
 3. kernel — each kernel against its plain PyTorch version on the card,
@@ -30,12 +30,18 @@ JSON lines:
    sums in no fixed order), and bit-identical across two runs. The two
    segment-layout render kernels at group 0 of both fonts (packed by
    ``pack_flat``), on degenerate segments, on glyphs past the crossing
-   lists' sizes and, for the grid kernel, at eight pixel tiles a glyph
-   with a bitmap under one tile: bytes equal, and each glyph's bytes
-   against the point-chain kernel's on the f32 wire and the grid
-   kernel's against the flat tile kernel's. The
-   padded min-field kernel at the full fit batch and on a degenerate
-   padded case: d² bit-equal, winding and argmin exact; its backward
+   lists' sizes, at 64 and 32 pixels a tile and, for the grid kernel,
+   at eight pixel tiles a glyph with a bitmap under one tile: bytes
+   equal, and each glyph's bytes against the point-chain kernel's and
+   its split variant's on the f32 wire (the split variant keeps the
+   per-pair loop that the three render kernels no longer run) and the
+   grid kernel's against the flat tile kernel's. The
+   padded min-field kernel at the full fit batch, on a degenerate
+   padded case and at its edges (masks with holes, a pixel count that
+   no block size divides, a bitmap too narrow and a row too crossed for
+   the crossing lists, more segments than a staged chunk with a tie
+   across chunks, an all-masked glyph): d² bit-equal, winding and
+   argmin exact; its backward
    within 1e-4·max|dsegs| and bit-identical across two runs. The ALU
    roof kernel on group 0's grid: bit-equal to its plain version. The
    split variant of the tile kernel at group 0 (i8 and f32 wires), on
@@ -127,8 +133,8 @@ def phase_build() -> None:
         emit({"phase": "build", "kernel": name, "arch": "sm_90a",
               "so": os.path.relpath(so, ROOT), "nvcc_s": nvcc_s})
     emit({"phase": "build", "all_s": time.perf_counter() - t0})
-    # What ptxas said of the two redesigned render kernels (-Xptxas -v).
-    for name in ("sdf_tiles_pts", "sdf_grid_flat"):
+    # What ptxas said of the four redesigned kernels (-Xptxas -v).
+    for name in ("sdf_tiles_pts", "sdf_grid_flat", "sdf_tiles_flat", "sdf_min_field_padded"):
         so = _build.BUILDS[name][0]
         emit({"phase": "build", "kernel": name, "ptxas": _build.ptxas_report(so)})
     from versatiles_glyphs_tpu_torch.proto import native
@@ -421,34 +427,38 @@ def phase_fit_kernels(batch) -> dict:
     return out
 
 
-def flat_case(gp, dev):
+def flat_case(gp, dev, tp: int = TP):
     """Glyphs ``gp`` packed by `pack_flat` and uploaded, with kernel 6's
-    tile table: (flat [4, N], meta [G, 8], tmeta [8, T], P_pad, each
-    glyph's first tile row)."""
+    tile table at ``tp`` pixels a tile: (flat [4, N], meta [G, 8], tmeta
+    [8, T], P_pad, each glyph's first tile row)."""
     from versatiles_glyphs_tpu_torch.render.batch import (
         pack_flat, plan_tiles, tile_starts, wire_to_device,
     )
 
     G = len(gp)
     flat, meta, P = pack_flat(gp)
-    starts, T = tile_starts(meta, G, TP)
-    tm = plan_tiles(gp, meta, TP, T_pad=T)[0]
+    starts, T = tile_starts(meta, G, tp)
+    tm = plan_tiles(gp, meta, tp, T_pad=T)[0]
     return (*wire_to_device((flat, meta[:G], tm.T), dev), P, starts)
 
 
-def glyph_bitmap(kernel, out, starts, i):
+def glyph_bitmap(kernel, out, starts, i, tp: int = TP):
     """Glyph i's bitmap (from its first byte) in the output of kernel 6
-    (tile rows from ``starts[i]``) or kernel 7 (grid row i)."""
-    return out.reshape(-1)[starts[i] * TP:] if kernel == "sdf_tiles_flat" else out[i]
+    (tile rows of ``tp`` pixels from ``starts[i]``) or kernel 7 (grid
+    row i)."""
+    return out.reshape(-1)[starts[i] * tp:] if kernel == "sdf_tiles_flat" else out[i]
 
 
 def phase_flat_kernels(preps, heavy) -> dict:
     """Kernels 6 and 7 (the segment-layout renders) against their plain
     versions at group 0 of both fonts, on degenerate segments, on glyphs
-    past the crossing lists' sizes, and kernel 7 at eight pixel tiles a
+    past the crossing lists' sizes, kernel 6 at 64 and 32 pixels a tile
+    (two pixels a thread and one), and kernel 7 at eight pixel tiles a
     glyph with a bitmap under one tile; each glyph's bytes against
-    kernel 1's on the f32 wire, and kernel 7's against kernel 6's.
-    Returns the numbers of the kernels line."""
+    kernel 1's and kernel 9's on the f32 wire (kernels 1, 6 and 7 share
+    their records and crossing lists; kernel 9 keeps the per-pair loop),
+    and kernel 7's against kernel 6's. Returns the numbers of the
+    kernels line."""
     from versatiles_glyphs_tpu_torch.ops import legacy, sdf_cuda, sdf_torch
     from versatiles_glyphs_tpu_torch.render.batch import pack_points, plan_tiles, wire_to_device
     from versatiles_glyphs_tpu_torch.tools import work
@@ -458,24 +468,28 @@ def phase_flat_kernels(preps, heavy) -> dict:
     dev = torch.device("cuda", 0)
     out = {"sdf_tiles_flat_err": 0, "sdf_grid_flat_err": 0}
     group = first_group(preps)
-    # key -> (glyphs, pixel tiles a glyph of kernel 7; None: TP = min(1024, P))
-    cases = {"group0": (group, None), "degenerate": (degenerate_preps(), None),
-             "group0_heavy": (first_group(heavy), None),
-             "row_list_edges": (row_list_edge_preps(), None),
-             "eight_tiles": (group[:64] + row_list_edge_preps()[2:], 8)}
-    for key, (gp, tiles7) in cases.items():
+    # key -> (glyphs, pixel tiles a glyph of kernel 7 (None: TP =
+    # min(1024, P)), pixels a tile of kernel 6)
+    cases = {"group0": (group, None, TP), "degenerate": (degenerate_preps(), None, TP),
+             "group0_heavy": (first_group(heavy), None, TP),
+             "row_list_edges": (row_list_edge_preps(), None, TP),
+             "eight_tiles": (group[:64] + row_list_edge_preps()[2:], 8, TP),
+             "tp64": (group[:48] + row_list_edge_preps(), None, 64),
+             "tp32": (group[:48] + row_list_edge_preps(), None, 32)}
+    for key, (gp, tiles7, tp6) in cases.items():
         G = len(gp)
-        f_d, m_d, tm_d, P, starts = flat_case(gp, dev)
+        f_d, m_d, tm_d, P, starts = flat_case(gp, dev, tp6)
         tp7 = P // tiles7 if tiles7 else min(1024, P)
         pts, pw, pm = pack_points(gp, dtype=np.float32, arena_tag="flat_" + key)
-        tm1 = plan_tiles(gp, pm, TP, T_pad=tm_d.shape[1])[0]
-        pts_bytes = sdf_cuda.render_bitmaps_cuda_pts(
-            *wire_to_device((pts, pw, tm1.T), dev), TP).reshape(-1).cpu().numpy()
+        tm1 = plan_tiles(gp, pm, tp6, T_pad=tm_d.shape[1])[0]
+        chain = wire_to_device((pts, pw, tm1.T), dev)
+        pts_bytes = sdf_cuda.render_bitmaps_cuda_pts(*chain, tp6).reshape(-1).cpu().numpy()
+        acc_bytes = sdf_cuda.render_bitmaps_cuda_pts_acc(*chain, tp6).reshape(-1).cpu().numpy()
         # name -> (TP, wrapper call, plain version, launch alone)
         kernels = {
-            "sdf_tiles_flat": (TP, lambda: legacy.render_bitmaps_cuda_tiles(f_d, tm_d, TP),
-                               lambda: sdf_torch.render_tiles_flat(f_d, tm_d, TP),
-                               lambda: legacy.launch_tiles_flat(f_d, tm_d, TP)),
+            "sdf_tiles_flat": (tp6, lambda: legacy.render_bitmaps_cuda_tiles(f_d, tm_d, tp6),
+                               lambda: sdf_torch.render_tiles_flat(f_d, tm_d, tp6),
+                               lambda: legacy.launch_tiles_flat(f_d, tm_d, tp6)),
             "sdf_grid_flat": (tp7, lambda: legacy.render_bitmaps_cuda_grid(f_d, m_d, P, tp7),
                               lambda: sdf_torch.render_grid_flat(f_d, m_d, P, tp7),
                               lambda: legacy.launch_grid_flat(f_d, m_d, P, tp7)),
@@ -491,11 +505,12 @@ def phase_flat_kernels(preps, heavy) -> dict:
             err = (got.int() - want.int()).abs()
             mismatches = int((err > 0).sum())
             g = got.cpu().numpy()
-            vs_pts = vs_flat = 0
+            vs_pts = vs_acc = vs_flat = 0
             for i, p in enumerate(gp):
-                n, s0 = p.width * p.height, starts[i] * TP
-                mine = glyph_bitmap(name, g, starts, i)[:n]
+                n, s0 = p.width * p.height, starts[i] * tp6
+                mine = glyph_bitmap(name, g, starts, i, tp6)[:n]
                 vs_pts += int((mine != pts_bytes[s0 : s0 + n]).sum())
+                vs_acc += int((mine != acc_bytes[s0 : s0 + n]).sum())
                 if tiles_flat is not None:
                     vs_flat += int((mine != tiles_flat[s0 : s0 + n]).sum())
             rec = {"phase": "kernel", "kernel": name, "case": key, "glyphs": G,
@@ -503,9 +518,11 @@ def phase_flat_kernels(preps, heavy) -> dict:
                    "out_shape": list(got.shape), "mismatches": mismatches,
                    "max_abs_err": int(err.max()) if err.numel() else 0,
                    "bytes_differ_from_sdf_tiles_pts": vs_pts,
+                   "bytes_differ_from_sdf_tiles_pts_acc": vs_acc,
                    "nonzero_bytes": int((got > 0).sum())}
             if name == "sdf_tiles_flat":
                 tiles_flat = g.reshape(-1)
+                rec["pixels_per_thread"] = sdf_cuda.pixels_per_thread(tp6)
             else:
                 rec["bytes_differ_from_sdf_tiles_flat"] = vs_flat
                 rec["threads"], rec["grid"] = legacy.grid_launch_shape(G, P)
@@ -525,10 +542,11 @@ def phase_flat_kernels(preps, heavy) -> dict:
                 rec.update(out[name + "_bound"])
             out[name + "_err"] = max(out[name + "_err"], rec["max_abs_err"])
             emit(rec)
-            if mismatches or vs_pts or vs_flat:
+            if mismatches or vs_pts or vs_acc or vs_flat or not rec["nonzero_bytes"]:
                 raise AssertionError(
                     f"{name} {key}: {mismatches} bytes differ from the plain version, {vs_pts} "
-                    f"from the point-chain kernel's glyphs, {vs_flat} from the flat tile kernel's")
+                    f"from the point-chain kernel's glyphs, {vs_acc} from its split variant's, "
+                    f"{vs_flat} from the flat tile kernel's")
     return out
 
 
@@ -543,32 +561,27 @@ def padded_inputs(batch, dev):
     return segs, mask.float(), meta, batch.target.shape[1]
 
 
-def degenerate_padded_case(dev):
-    """Zero-length and horizontal segments, a square, negative origins, a
-    glyph with no live segment (the argmin sentinel), P = 300."""
-    segs = torch.zeros((3, 8, 4))
-    segs[0, :6] = torch.tensor([[3, 4, 7, 4], [2, 2, 6, 2], [6, 2, 6, 6], [6, 6, 2, 6],
-                                [2, 6, 2, 2], [4.5, 4.5, 4.5, 4.5]])
-    segs[1, :3] = torch.tensor([[1, 1, 1, 1], [1, 1, 7, 1], [7, 1, 4, 5]])
-    segs[2, :2] = torch.tensor([[0, 0, 5, 5], [5, 5, 0, 0]])
-    mask = torch.zeros((3, 8))
-    mask[0, :6] = 1.0
-    mask[1, :3] = 1.0
-    meta = torch.tensor([[0, 0, 10, 9], [-2, -1, 12, 6], [0, 0, 17, 17]], dtype=torch.int32)
-    return segs.to(dev), mask.to(dev), meta.to(dev), 300
-
-
 def phase_padded_kernels(batch) -> dict:
     """Kernels 4 and 5 (the padded pair) against their plain versions at
-    the full fit batch; kernel 4 also on a degenerate case. Returns the
-    numbers of the kernels line."""
+    the full fit batch; kernel 4 also on the edge inputs of
+    `utils.synth_font.padded_edge_case` (masks with holes, P a multiple
+    of no block size, a bitmap too narrow and a row too crossed for the
+    crossing lists, more segments than a staged chunk with a tie across
+    chunks, and the degenerate case: zero-length and horizontal
+    segments, negative origins, an all-masked glyph at P = 300).
+    Returns the numbers of the kernels line."""
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
     from versatiles_glyphs_tpu_torch.tools import work
+    from versatiles_glyphs_tpu_torch.utils.synth_font import PADDED_EDGE_CASES, padded_edge_case
 
     dev = torch.device("cuda", 0)
     fit = padded_inputs(batch, dev)
     out = {}
-    for key, (segs, mask, meta, P) in (("fit", fit), ("degenerate", degenerate_padded_case(dev))):
+    cases = {"fit": fit}
+    for name in PADDED_EDGE_CASES:
+        segs, mask, meta, P = padded_edge_case(name)
+        cases[name] = (*(torch.as_tensor(a, device=dev) for a in (segs, mask, meta)), P)
+    for key, (segs, mask, meta, P) in cases.items():
         got = sdf_cuda.min_field_cuda_padded(segs, mask, meta, P)
         want = sdf_torch.min_field_padded(segs, mask, meta, P)
         torch.cuda.synchronize()
@@ -579,7 +592,8 @@ def phase_padded_kernels(batch) -> dict:
                "glyphs": int(segs.shape[0]), "segments": int(segs.shape[1]), "P": P,
                "d2_bits_differ": d2_bits, "wn_differ": wn_off, "am_differ": am_off,
                "max_abs_err": float((got[0] - want[0]).abs().max()),
-               "sentinels": int((got[2] == sdf_torch._BIGI).sum())}
+               "sentinels": int((got[2] == sdf_torch._BIGI).sum()),
+               "launch_shape": list(sdf_cuda.padded_launch_shape(P))}
         if key == "fit":
             rec["ms"] = out["pad_ms"] = time_ms(
                 lambda: sdf_cuda.launch_min_field_padded(segs, mask, meta, P), 50)
@@ -605,6 +619,8 @@ def phase_padded_kernels(batch) -> dict:
             raise AssertionError(f"padded min field {key}: kernel and plain version differ")
         if key == "degenerate" and not rec["sentinels"]:
             raise AssertionError("degenerate padded case: no sentinel pixel")
+        if key == "chunks" and (int((got[2][1] == 260).sum()) or not int((got[2][1] == 3).sum())):
+            raise AssertionError("padded case chunks: the tie of segments 3 and 260 is not 3's")
 
     segs, mask, meta, P = fit
     _, _, am = sdf_cuda.min_field_cuda_padded(segs, mask, meta, P)

@@ -1,25 +1,33 @@
-"""The decomposition of the redesigned render kernels, on the CPU.
+"""The decomposition of the redesigned kernels, on the CPU.
 
-``csrc/sdf_tiles_pts.cu`` (TPU kernel 1) and ``csrc/sdf_grid_flat.cu``
-(TPU kernel 7) compute their plain versions' bytes by another route
-than one thread a pixel over every segment: live lanes compacted chunk
-by chunk in ballot order, R pixels a thread, one staging a span of a
-glyph for the grid kernel, and the crossing test done once a (bitmap
-row, segment) with a pixel summing its row's list, falling back to the
+``csrc/sdf_tiles_pts.cu`` (TPU kernel 1), ``csrc/sdf_tiles_flat.cu``
+(TPU kernel 6), ``csrc/sdf_grid_flat.cu`` (TPU kernel 7) and
+``csrc/sdf_min_field_padded.cu`` (TPU kernel 4) compute their plain
+versions' values by another route than one thread a pixel over every
+segment: live segments compacted chunk by chunk in ballot order (each
+with its index carried where the kernel keeps an argmin), R pixels a
+thread, one staging a span of a glyph for the grid kernel and the
+padded min field, and the crossing test done once a (bitmap row,
+segment) with a pixel summing its row's list, falling back to the
 per-pair test where a block has too many rows or a row too many
 crossings. The CUDA kernels run only on the card (`chip_smoke.py`).
 Here the same decomposition, written in plain PyTorch with the
 launchers' own helpers (`sdf_cuda.pixels_per_thread`,
-`legacy.grid_launch_shape`, the chunk and list sizes), must give
+`legacy.grid_launch_shape`, `sdf_cuda.padded_launch_shape`, the chunk
+and list sizes), must give
 
-- the bytes of `sdf_torch.render_tiles_pts` / `render_grid_flat`, and
-  the same winding numbers as the per-pair test, and
+- the bytes of `sdf_torch.render_tiles_pts` / `render_tiles_flat` /
+  `render_grid_flat`, the d² bits, winding and first argmin of
+  `sdf_torch.min_field_padded`, and the same winding numbers as the
+  per-pair test, and
 - the bytes of the JAX package's jnp twins (`render_bitmaps_pts_jax`,
-  `render_bitmaps_flat_jax`), which run in one subprocess with XLA's CPU
-  backend capped below FMA so that every multiply and add is rounded
-  separately, as in the port.
+  `render_bitmaps_tiles_jax`, `render_bitmaps_flat_jax`) and the
+  outputs of its padded forward `_run_fwd` in Pallas interpret mode,
+  which run in one subprocess each with XLA's CPU backend capped below
+  FMA so that every multiply and add is rounded separately, as in the
+  port.
 
-Tolerance: 0 bytes.
+Tolerance: 0 bytes, 0 bits.
 """
 
 import os
@@ -39,7 +47,7 @@ from versatiles_glyphs_tpu_torch.ops import _build, legacy, sdf_cuda, sdf_torch
 from versatiles_glyphs_tpu_torch.render import batch as tbatch
 from versatiles_glyphs_tpu_torch.tools import kernel_turns, work
 from versatiles_glyphs_tpu_torch.utils.synth_font import (
-    curved_preps, row_list_edge_preps, unaligned_point_chain,
+    PADDED_EDGE_CASES, curved_preps, padded_edge_case, row_list_edge_preps, unaligned_point_chain,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -98,6 +106,18 @@ def _span_bytes(bitmap, base: int, npx: int, chunks, stats) -> torch.Tensor:
     """Bytes (as f32) of pixels base .. base + npx − 1 of ``bitmap`` =
     (x0, y0, w, h) against the staged ``chunks`` (each vx, vy, wx, wy of
     live segments only)."""
+    dmin, wn, _ = _span_fields(bitmap, base, npx, chunks, stats)
+    return sdf_torch._sdf_bytes(dmin, wn)
+
+
+def _span_fields(bitmap, base: int, npx: int, chunks, stats):
+    """(min d², winding, first argmin) of pixels base .. base + npx − 1
+    of ``bitmap`` = (x0, y0, w, h) against the staged ``chunks``: each
+    vx, vy, wx, wy of live segments only, in staged order, and where the
+    kernel keeps an argmin a fifth array, the index each carries. The
+    running (dmin, amin) pair updates on a strict ``<`` chunk after
+    chunk, a chunk's candidate being the first of its staged segments
+    that reaches the chunk's min."""
     x0, y0, w, h = bitmap
     row8 = torch.tensor([[x0], [y0], [w], [h], [0], [0], [base], [0]], dtype=torch.int32)
     px, py, i = (a[0] for a in sdf_torch._pixel_centers(row8, npx))
@@ -106,11 +126,15 @@ def _span_bytes(bitmap, base: int, npx: int, chunks, stats) -> torch.Tensor:
     nrows = (base + npx - 1) // ws - row0 + 1
     lrow = torch.div(i, ws, rounding_mode="floor") - row0
     dmin = torch.full((npx,), sdf_torch._BIG)
+    amin = torch.full((npx,), sdf_torch._BIGI, dtype=torch.int64)
     wn = torch.zeros(npx, dtype=torch.int64)
-    for vx, vy, wx, wy in chunks:
+    for vx, vy, wx, wy, *carried in chunks:
         ok = torch.ones((1, len(vx)), dtype=torch.bool)
         d2, steps = sdf_torch._pair_d2_steps(px[:, None], py[:, None], vx[None], vy[None],
                                              wx[None], wy[None], ok)
+        if carried:
+            slot = torch.from_numpy(np.argmin(d2.numpy(), axis=1))  # the first of equals
+            amin = torch.where(d2.amin(dim=1) < dmin, carried[0][slot], amin)
         dmin = torch.minimum(dmin, d2.amin(dim=1))
         per_pair = steps.sum(dim=1)
         lists = _list_crossings(y0, h, row0, nrows, vx, vy, wx, wy) if nrows <= ROWS_MAX else None
@@ -125,7 +149,7 @@ def _span_bytes(bitmap, base: int, npx: int, chunks, stats) -> torch.Tensor:
             by_row[sel] = ((cx[None, :] <= px[sel, None]) * st[None, :]).sum(dim=1)
         assert torch.equal(by_row, per_pair)
         wn += by_row
-    return sdf_torch._sdf_bytes(dmin, wn)
+    return dmin, wn, amin
 
 
 def _emulate_tiles_pts(pts, words, tmeta, TP: int, R: int, stats) -> torch.Tensor:
@@ -154,6 +178,91 @@ def _emulate_tiles_pts(pts, words, tmeta, TP: int, R: int, stats) -> torch.Tenso
         for k in range(R):  # each thread stores its R pixels
             out[t, own[:, k]] = byte[own[:, k]].to(torch.uint8)
     return out
+
+
+def _emulate_tiles_flat(flat, tmeta, TP: int, R: int, stats) -> torch.Tensor:
+    """``csrc/sdf_tiles_flat.cu``: `_emulate_tiles_pts`'s tile body over
+    the soup, lanes [seg_off, seg_off + nseg) staged whole in chunks."""
+    nt = TP // R
+    assert nt % 32 == 0
+    T = tmeta.shape[1]
+    out = torch.full((T, TP), 255, dtype=torch.uint8)  # every byte must be written
+    own = torch.arange(nt)[:, None] + nt * torch.arange(R)[None, :]  # [tid, k] -> pixel
+    for t in range(T):
+        x0, y0, w, h, nseg, off, base, _ = (int(v) for v in tmeta[:, t])
+        if base >= w * h:
+            out[t] = 0
+            continue
+        chunks = []
+        for c0 in range(off, off + nseg, CHUNK):
+            ln = torch.arange(c0, min(c0 + CHUNK, off + nseg))
+            chunks.append(tuple(flat[k, ln] for k in range(4)))
+        stats["chunks"] += len(chunks)
+        byte = _span_bytes((x0, y0, w, h), base, TP, chunks, stats)
+        for k in range(R):  # each thread stores its R pixels
+            out[t, own[:, k]] = byte[own[:, k]].to(torch.uint8)
+    return out
+
+
+def _stage_masked(mask_row, c0: int, cend: int, nt: int) -> list[int]:
+    """The segments of [c0, cend) that a block of nt threads stages, by
+    slot (`SegRecords::stage_masked`): every warp walks the run 32
+    segments at a time and counts the live ones by ballot; the warp
+    whose turn it is stages them, a live segment's slot being the live
+    count before its 32 plus the live ones below it in the ballot."""
+    nwarps = nt // 32
+    slots = {}
+    for wid in range(nwarps):
+        before = 0
+        for turn, s0 in enumerate(range(c0, cend, 32)):
+            ballot = [s0 + k < cend and float(mask_row[s0 + k]) != 0.0 for k in range(32)]
+            if turn % nwarps == wid:
+                for k in range(32):
+                    if ballot[k]:
+                        assert before + sum(ballot[:k]) not in slots  # no slot written twice
+                        slots[before + sum(ballot[:k])] = s0 + k
+            before += sum(ballot)
+    n = int((mask_row[c0:cend] != 0).sum())
+    assert sorted(slots) == list(range(n))  # dense
+    staged = [slots[j] for j in range(n)]
+    assert staged == sorted(staged)  # segment order: strict `<` keeps the first argmin
+    return staged
+
+
+def _emulate_min_field_padded(segs, mask, meta, P: int, threads: int, r: int, stats):
+    """``csrc/sdf_min_field_padded.cu``: a block of nt threads a (glyph,
+    span of R·nt pixels), thread tid owning pixels tid + k·nt; a span
+    with fewer than R slots of nt pixels below P runs them one by one,
+    one pixel a thread; only live segments staged, their indices
+    carried."""
+    B, S = mask.shape
+    nt, R, gy = sdf_cuda.padded_launch_shape(P, threads, r)
+    assert nt % 32 == 0 and gy * nt * R >= P > (gy - 1) * nt * R
+    d2 = torch.full((B, P), -1.0)  # every value must be written
+    wn = torch.full((B, P), -99, dtype=torch.int64)
+    am = torch.full((B, P), -99, dtype=torch.int64)
+    for b in range(B):
+        bitmap = tuple(int(v) for v in meta[b, :4])
+        for y in range(gy):
+            base = y * nt * R
+            slots = min(-(-(P - base) // nt), R)
+            stats[f"slots{slots}"] += 1
+            spans = [(base, R)] if slots == R else [(base + s * nt, 1) for s in range(slots)]
+            for sbase, Rk in spans:
+                chunks = []
+                for c0 in range(0, S, CHUNK):
+                    idx = _stage_masked(mask[b], c0, min(c0 + CHUNK, S), nt)
+                    stats["staged"] += len(idx)
+                    if not idx:
+                        stats["empty_chunks"] += 1
+                        continue
+                    idx = torch.tensor(idx)
+                    chunks.append((*(segs[b, idx, k] for k in range(4)), idx))
+                dmin, w_, amin = _span_fields(bitmap, sbase, Rk * nt, chunks, stats)
+                p = torch.arange(sbase, min(sbase + Rk * nt, P))
+                assert (d2[b, p] == -1.0).all()  # no pixel computed twice
+                d2[b, p], wn[b, p], am[b, p] = dmin[: len(p)], w_[: len(p)], amin[: len(p)]
+    return d2, wn.to(torch.int32), am.to(torch.int32)
 
 
 def _emulate_grid_flat(flat, meta, P: int, TP: int, threads: int, stats) -> torch.Tensor:
@@ -239,12 +348,34 @@ def _grid_case(name):
     return np.array(flat), np.array(meta[: len(preps)]), P, tp or min(1024, P)
 
 
+def _tiles_case(name):
+    """(flat [4, N], tile table [8, T], TP) of the flat tile kernel."""
+    preps, TP = {
+        "curved": (curved_preps(10, 65, seed=5), 256),
+        "heavy": (curved_preps(2, 0x600, seed=1, quads=24), 256),
+        "degenerate": (_degenerate_preps(), 256),
+        "fallbacks": (row_list_edge_preps(), 256),
+        "tp64": (curved_preps(4, 65, seed=7), 64),
+        "tp32": (curved_preps(4, 65, seed=7), 32),
+    }[name]
+    flat, meta, _ = tbatch.pack_flat(preps)
+    T = tbatch.tile_starts(meta, len(preps), TP)[1]
+    tmeta = np.ascontiguousarray(tbatch.plan_tiles(preps, meta, TP, T_pad=T)[0].T)
+    return np.array(flat), tmeta, TP
+
+
 PTS_CASES = ("curved", "heavy", "degenerate", "unaligned", "fallbacks", "tp64")
+TILES_CASES = ("curved", "heavy", "degenerate", "fallbacks", "tp64", "tp32")
 GRID_CASES = ("curved", "curved_tp256", "degenerate", "eight_tiles", "fallbacks")
+PADDED_CASES = PADDED_EDGE_CASES
+# (threads, r) handed to `sdf_cuda.padded_launch_shape`
+PADDED_SHAPES = ((128, 3), (256, 4), (256, 3), (64, 4), (32, 4), (64, 3), (96, 2), (256, 1))
+assert PADDED_SHAPES[0] == (sdf_cuda.PADDED_THREADS, sdf_cuda.PADDED_PIXELS_PER_THREAD)
 
 _JAX_SIDE = r"""
 import sys, numpy as np
-from versatiles_glyphs_tpu.ops.sdf_jax import render_bitmaps_flat_jax, render_bitmaps_pts_jax
+from versatiles_glyphs_tpu.ops.sdf_jax import (
+    render_bitmaps_flat_jax, render_bitmaps_pts_jax, render_bitmaps_tiles_jax)
 a = dict(np.load(sys.argv[1]))
 out = {}
 for key in a:
@@ -252,6 +383,9 @@ for key in a:
     if kind == "pts" and part == "pts":
         words, tmeta, tp, L = (a[f"pts|{name}|{p}"] for p in ("words", "tmeta", "tp", "L"))
         out[f"pts|{name}"] = render_bitmaps_pts_jax(a[key], words, tmeta, int(tp), int(L))
+    if kind == "tiles" and part == "flat":
+        tmeta, tp, S = (a[f"tiles|{name}|{p}"] for p in ("tmeta", "tp", "S"))
+        out[f"tiles|{name}"] = render_bitmaps_tiles_jax(a[key], tmeta, int(tp), int(S))
     if kind == "grid" and part == "flat":
         meta, P, S = (a[f"grid|{name}|{p}"] for p in ("meta", "P", "S"))
         out[f"grid|{name}"] = render_bitmaps_flat_jax(a[key], meta, int(P), int(S))
@@ -276,6 +410,14 @@ def jax_twins(tmp_path_factory):
         arrays |= {f"pts|{name}|pts": pts, f"pts|{name}|words": words,
                    f"pts|{name}|tmeta": np.ascontiguousarray(tmeta.T), f"pts|{name}|tp": TP,
                    f"pts|{name}|L": L}
+    for name in TILES_CASES:
+        flat, tmeta, TP = _tiles_case(name)
+        S = jbatch.bucket(int(tmeta[4].max()), jbatch.S_BUCKETS)
+        pad = int((tmeta[5] + S).max()) - flat.shape[1]
+        if pad > 0:
+            flat = np.pad(flat, ((0, 0), (0, pad)))
+        arrays |= {f"tiles|{name}|flat": flat, f"tiles|{name}|tmeta": np.ascontiguousarray(tmeta.T),
+                   f"tiles|{name}|tp": TP, f"tiles|{name}|S": S}
     for name in GRID_CASES:
         flat, meta, P, _ = _grid_case(name)
         S = jbatch.bucket(int(meta[:, 4].max()), jbatch.S_BUCKETS)
@@ -317,6 +459,116 @@ def test_tile_kernel_decomposition_gives_the_plain_bytes(jax_twins, case, R):
         assert stats["per_pair"] > 0  # too many rows, too many crossings
 
 
+@pytest.mark.parametrize("case,R", [(c, R) for c in TILES_CASES for R in (1, 2)
+                                    if (c, R) != ("tp32", 2)])
+def test_flat_tile_kernel_decomposition_gives_the_plain_bytes(jax_twins, case, R):
+    flat, tmeta, TP = _tiles_case(case)
+    assert R in (1, sdf_cuda.pixels_per_thread(TP))
+    stats = dict.fromkeys(("per_pair", "by_row", "chunks"), 0)
+    got = _emulate_tiles_flat(_t(flat), tmeta, TP, R, stats)
+    want = sdf_torch.render_tiles_flat(_t(flat), _t(tmeta), TP)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.numpy(), jax_twins[f"tiles|{case}"])
+    assert int((want > 0).sum()) > 50 and stats["by_row"] > 0
+    if case == "heavy":  # a glyph of ~1,000 segments: several chunks a tile
+        assert int(tmeta[4].max()) > 2 * CHUNK and stats["chunks"] > 3 * tmeta.shape[1] // 2
+    if case == "fallbacks":
+        assert stats["per_pair"] > 0  # too many rows, too many crossings
+    if case == "tp32":
+        assert sdf_cuda.pixels_per_thread(TP) == 1
+
+
+_JAX_PADDED_SIDE = r"""
+import sys, numpy as np, jax.numpy as jnp
+from versatiles_glyphs_tpu.ops.sdf_grad import _run_fwd
+
+def up(n, m):
+    return max(-(-n // m) * m, m)
+
+a = dict(np.load(sys.argv[1]))
+out = {}
+for name in sorted({key.split("|")[0] for key in a}):
+    segs, mask, meta, P = (a[f"{name}|{p}"] for p in ("segs", "mask", "meta", "P"))
+    B, S, _ = segs.shape
+    P = int(P)
+    Sp, Pp = up(S, 128), up(P, 1024)
+    segp = np.pad(segs, ((0, 0), (0, Sp - S), (0, 0)))
+    maskp = np.pad(mask, ((0, 0), (0, Sp - S)))
+    meta8 = np.zeros((B, 8), np.int32)
+    meta8[:, :4] = meta
+    d2, wn, am = _run_fwd(jnp.transpose(segp, (0, 2, 1)), maskp[:, None, :], meta8, Pp, Sp, True)
+    out |= {f"{name}|d2": np.asarray(d2)[:, :P], f"{name}|wn": np.asarray(wn)[:, :P],
+            f"{name}|am": np.asarray(am)[:, :P]}
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_padded_fwd(tmp_path_factory):
+    """The JAX package's padded forward `_run_fwd` (Pallas interpret
+    mode, with the TPU's paddings of S to 128 and P to 1,024 cut off
+    again) on every padded case, from one subprocess with XLA's FMA
+    contraction off, as `tests/test_torch_padded.py` runs it."""
+    tmp = tmp_path_factory.mktemp("jax_padded_redesign")
+    arrays = {}
+    for name in PADDED_CASES:
+        segs, mask, meta, P = padded_edge_case(name)
+        arrays |= {f"{name}|segs": segs, f"{name}|mask": mask, f"{name}|meta": meta, f"{name}|P": P}
+    src, dst = tmp / "in.npz", tmp / "out.npz"
+    np.savez(src, **arrays)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX",
+               VG_JAX_CACHE_DIR=str(tmp / "jax_cache"))
+    proc = subprocess.run([sys.executable, "-c", _JAX_PADDED_SIDE, str(src), str(dst)], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return dict(np.load(dst))
+
+
+@pytest.mark.parametrize("shape", PADDED_SHAPES, ids=lambda s: f"t{s[0]}r{s[1]}")
+@pytest.mark.parametrize("case", PADDED_CASES)
+def test_padded_min_field_decomposition_gives_the_plain_fields(jax_padded_fwd, case, shape):
+    segs, mask, meta, P = padded_edge_case(case)
+    keys = ("per_pair", "by_row", "staged", "empty_chunks", "slots1", "slots2", "slots3", "slots4")
+    stats = dict.fromkeys(keys, 0)
+    got = _emulate_min_field_padded(_t(segs), _t(mask), meta, P, *shape, stats)
+    want = sdf_torch.min_field_padded(_t(segs), _t(mask), _t(meta), P)
+    for g, w, name in zip(got, want, ("d2", "wn", "am")):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.numpy().view(np.int32), w.numpy().view(np.int32))
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      jax_padded_fwd[f"{case}|{name}"].view(np.int32))
+    d2, wn, am = (t.numpy() for t in got)
+    B, S = mask.shape
+    nt, R, gy = sdf_cuda.padded_launch_shape(P, *shape)
+    assert (wn != 0).any() and (wn == 0).any()
+    live = am != sdf_torch._BIGI
+    assert (mask[np.nonzero(live)[0], am[live]] != 0).all()  # an index into [B, S], and a live one
+    if gy == 1 and R * nt >= P and stats[f"slots{R}"] == B:  # one span a glyph: staged once
+        assert stats["staged"] == int((mask != 0).sum())
+    if case == "holes":  # P = 437: a last span of 1, 2 or 3 live slots, or a full one
+        short = {(128, 3): "slots2", (64, 4): "slots3", (32, 4): "slots2", (64, 3): "slots1",
+                 (96, 2): "slots1"}
+        assert P % nt and stats[f"slots{R}"] == B * (gy - (shape in short))
+        assert shape not in short or stats[short[shape]] == B
+        first_hole = int(np.argmin(mask[0]))
+        assert (am[0] > first_hole).any() and mask[0, first_hole + 1:].any()
+    if case == "narrow":  # a bitmap 5 pixels wide
+        assert gy * R * nt == P
+        if R * nt // 5 > ROWS_MAX:  # the rows fallback, at the launcher's own shape too
+            assert shape in ((128, 3), (256, 4), (256, 3))
+            assert stats["per_pair"] > 0 and not stats["by_row"]
+        else:
+            assert stats["by_row"] > 0
+    if case == "comb":
+        assert stats["per_pair"] > 0 and stats["by_row"] > 0
+    if case == "chunks":  # the tie of segments 3 and 260 goes to 3; both chunks staged
+        assert S > CHUNK and (am[1] == 3).any() and not (am[1] == 260).any()
+        assert (am[0] >= CHUNK).any() and (am[0] < CHUNK).any()
+    if case == "degenerate":  # the all-masked glyph keeps the sentinel and 3e38
+        assert not live[2].any() and (d2[2] == np.float32(sdf_torch._BIG)).all()
+        assert live[:2].all() and stats["empty_chunks"] > 0
+
+
 @pytest.mark.parametrize("threads", [256, 128, 32])
 @pytest.mark.parametrize("case", GRID_CASES)
 def test_grid_kernel_decomposition_gives_the_plain_bytes(jax_twins, case, threads):
@@ -350,16 +602,36 @@ def test_launch_helpers():
     for bad in (0, 48, 512):
         with pytest.raises(ValueError, match="threads"):
             legacy.grid_launch_shape(7, 1024, bad)
+    # The padded min field: (threads a block, pixels a thread, blocks a
+    # glyph); the spans of a glyph are sized evenly and cover P.
+    assert sdf_cuda.padded_launch_shape(768) == (128, 3, 2)
+    assert sdf_cuda.padded_launch_shape(768, 256, 4) == (192, 4, 1)
+    assert sdf_cuda.padded_launch_shape(768, 128, 4) == (96, 4, 2)
+    assert sdf_cuda.padded_launch_shape(768, 256, 1) == (256, 1, 3)
+    assert sdf_cuda.padded_launch_shape(1280, 256, 4) == (160, 4, 2)
+    assert sdf_cuda.padded_launch_shape(129, 256, 4) == (64, 3, 1)
+    assert sdf_cuda.padded_launch_shape(1, 256, 4) == (32, 1, 1)
+    for P in (1, 31, 33, 300, 437, 768, 1025, 5000, sdf_cuda.MAX_PADDED_PIXELS):
+        for threads, r in PADDED_SHAPES:
+            nt, R, gy = sdf_cuda.padded_launch_shape(P, threads, r)
+            assert nt % 32 == 0 and 32 <= nt <= threads and 1 <= R <= r
+            assert gy * nt * R >= P > (gy - 1) * nt * R
+    assert sdf_cuda.padded_launch_shape(sdf_cuda.MAX_PADDED_PIXELS)[2] <= 65535  # a grid's y limit
+    for bad in ((0, 4), (48, 4), (512, 4), (256, 0), (256, 5)):
+        with pytest.raises(ValueError, match="threads|r="):
+            sdf_cuda.padded_launch_shape(768, *bad)
 
 
 def test_sizes_are_the_sources():
-    """The launchers' constants against ``csrc/sdf_pair.cuh`` and
-    ``csrc/sdf_grid_flat.cu``."""
+    """The launchers' constants against ``csrc/sdf_pair.cuh``,
+    ``csrc/sdf_grid_flat.cu`` and ``csrc/sdf_min_field_padded.cu``."""
     csrc = os.path.join(os.path.dirname(pkg.__file__), "csrc")
     with open(os.path.join(csrc, "sdf_pair.cuh")) as f:
         header = f.read()
     with open(os.path.join(csrc, "sdf_grid_flat.cu")) as f:
         grid = f.read()
+    with open(os.path.join(csrc, "sdf_min_field_padded.cu")) as f:
+        padded = f.read()
 
     def const(text, name):
         return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
@@ -369,6 +641,14 @@ def test_sizes_are_the_sources():
     assert const(header, "kRowCross") == sdf_cuda.ROW_CROSS
     assert const(grid, "kMaxR") == sdf_cuda.GRID_PIXELS_PER_THREAD
     assert int(re.search(r"__launch_bounds__\((\d+), 2\) sdf_grid_flat_kernel", grid)[1]) == sdf_cuda.GRID_THREADS_MAX
+    assert const(padded, "kMaxR") == sdf_cuda.PADDED_PIXELS_PER_THREAD_MAX >= sdf_cuda.PADDED_PIXELS_PER_THREAD
+    assert const(padded, "kMaxThreads") == sdf_cuda.PADDED_THREADS_MAX >= sdf_cuda.PADDED_THREADS
+    assert "__launch_bounds__(kMaxThreads) sdf_min_field_padded_kernel" in padded
+    # Both tile kernels are compiled for the launcher's pixels a thread.
+    for name in ("sdf_tiles_pts", "sdf_tiles_flat"):
+        with open(os.path.join(csrc, name + ".cu")) as f:
+            text = f.read()
+        assert f"launch_r<{sdf_cuda.TILE_PIXELS_PER_THREAD}>" in text and "vg::render_tile<R>(" in text
 
 
 def test_row_shared_pair_ops_are_counted_from_the_source():
@@ -387,9 +667,9 @@ def test_row_shared_pair_ops_are_counted_from_the_source():
 
     proj = src[src.index("void project("):]
     proj = proj[proj.index("{"): proj.index("}") + 1]
-    pair = src[src.index("void pair(int j, Pixels<R>& px)"):]
+    pair = src[src.index("void pair(int j, Px& px)"):]
     pair = pair[pair.index("const float ex"): pair.index("// The first n staged segments")]
-    winding = pair[pair.index("if (kWinding) {"): pair.index("px.dmin[k] =")]
+    winding = pair[pair.index("if (kWinding) {"): pair.index("const float d2 =")]
     loop = pair.replace(winding, "").replace("project(ex, ey, a.z, a.w, b.x, tc, qx, qy);", "")
     assert count(proj) == 10
     assert count(loop) + count(proj) == work.ROW_SHARED_PAIR_F32_OPS == 16
@@ -479,14 +759,30 @@ def test_kernel_turns_variants_and_no_card(monkeypatch, capsys):
     assert kernel_turns.parse_variant("shipped") == {"label": "shipped", "r": None, "threads": None}
     assert kernel_turns.parse_variant("r2,r=2")["r"] == 2
     assert kernel_turns.parse_variant("t,threads=128")["threads"] == 128
+    assert kernel_turns.parse_variant("a,threads=256,r=4") == {"label": "a", "r": 4, "threads": 256}
+    assert kernel_turns.KERNELS == {
+        "sdf_tiles_pts": ("r",), "sdf_grid_flat": ("threads",), "sdf_tiles_flat": ("r",),
+        "sdf_min_field_padded": ("threads", "r")}
+    assert set(kernel_turns.KERNELS) <= set(sdf_cuda.KERNELS)
     for bad in ("x,r=two", "x,r", ",r=2", "x,speed=9"):
         with pytest.raises(ValueError):
             kernel_turns.parse_variant(bad)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     sdf_cuda.reset_launches()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        kernel_turns.main(["--kernel", "sdf_grid_flat"])
+    for kernel in kernel_turns.KERNELS:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            kernel_turns.main(["--kernel", kernel])
+    # An option the kernel does not take is refused before anything runs.
+    for kernel, variant in (("sdf_tiles_flat", "t,threads=64"), ("sdf_grid_flat", "r,r=2")):
+        with pytest.raises(ValueError, match="takes no"):
+            kernel_turns.main(["--kernel", kernel, "--variant", variant])
     assert capsys.readouterr().out == "" and not any(sdf_cuda.LAUNCHES.values())
+    # Outputs are held element for element, floats by their bits.
+    a = (torch.tensor([0.0, 1.0]), torch.tensor([1, 2], dtype=torch.int32))
+    b = (torch.tensor([-0.0, 1.0]), torch.tensor([1, 3], dtype=torch.int32))
+    assert kernel_turns.values_differ(a, a) == 0 and kernel_turns.values_differ(a, b) == 2
+    with pytest.raises(AssertionError):
+        kernel_turns.values_differ(a, a[:1])
 
 
 def test_parameters_default_to_the_card():

@@ -15,8 +15,11 @@
 // out-of-range coordinates (rows below the bitmap), as the TPU kernel
 // does.
 //
-// Bound: f32 instruction slots, as kernel 1 (sdf_tiles_pts.cu): 22 f32
-// instructions a (pixel, segment) pair, everything else on-chip. The
+// Bound: f32 instruction slots, as kernel 1 (sdf_tiles_pts.cu): a
+// (pixel, segment) pair tested by itself is 22 f32 instructions,
+// everything else on-chip; the bound counts the function by the
+// row-shared route below (tools/work.row_shared_work: 16 a pair, 2 a
+// bitmap row and segment, 4 a crossing, 1 a pixel of its row). The
 // design spends as few other slots as it can:
 //
 // - grid (G, ceil(P / (4 * NT))), a block of NT threads a glyph and

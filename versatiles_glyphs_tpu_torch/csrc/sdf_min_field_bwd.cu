@@ -26,7 +26,9 @@
 // a register. Lanes outside every glyph are left as the caller's zeros.
 //
 // Bound: shared-memory broadcast reads, one (am, g) pair per pixel per
-// lane of the chunk; the pair math runs once per pixel. Pixels past
+// lane of the chunk; the pair math runs once per pixel (25 f32
+// operations, tools/work.BWD_PIXEL_F32_OPS, so the least time the card
+// could take is that of the bytes). Pixels past
 // w*h, skip rows and the sentinel 2^31 - 1 contribute nothing.
 
 #include <cstdint>

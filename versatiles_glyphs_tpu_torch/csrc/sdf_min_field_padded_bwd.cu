@@ -26,7 +26,9 @@
 // 2^31 - 1 matches no segment.
 //
 // Bound: shared-memory broadcast reads, P * S compares a glyph; the
-// pair math runs once per pixel. Parity with the plain version
+// pair math runs once per pixel (25 f32 operations,
+// tools/work.BWD_PIXEL_F32_OPS, so the least time the card could take
+// is that of the bytes). Parity with the plain version
 // (ops/sdf_torch.min_field_padded_bwd): within 1e-4 of the largest
 // gradient, since that version's index_add_ sums in another order.
 

@@ -18,7 +18,11 @@
 // row are computed like the others (the backward drops them).
 //
 // Bound: FP32 ALU, as the render kernel; the three outputs are 12 bytes
-// a pixel. Parity with the plain version (ops/sdf_torch.min_field_pts):
+// a pixel. It keeps SegChunk's loop (one pixel a thread, a validity
+// branch a staged segment, a crossing test a pair: 22 f32 operations a
+// pair executed), while its bound counts the function by
+// tools/work.row_shared_work; SegRecords' masked staging, MinPixels and
+// row lists (sdf_min_field_padded.cu) fit it as they are. Parity with the plain version (ops/sdf_torch.min_field_pts):
 // d^2 bit for bit, winding and argmin exactly, by the shared op order of
 // sdf_pair.cuh under --fmad=false.
 

@@ -4,11 +4,14 @@
 // sdf_min_field_padded_bwd.cu, sdf_tiles_pts_acc.cu).
 //
 // Two inner routines live here. `SegChunk` (eight scalar arrays, one
-// pixel a thread) serves the fitting kernels, sdf_tiles_flat.cu and
-// sdf_tiles_pts_acc.cu. `SegRecords` (one segment = two float4, live
-// segments only, R pixels a thread) serves sdf_tiles_pts.cu and
-// sdf_grid_flat.cu. Both evaluate the same expressions in the same
-// order, so they give the same bits.
+// pixel a thread, a crossing test a pair) serves sdf_min_field_pts.cu
+// and sdf_tiles_pts_acc.cu; the backward kernels take `project` alone.
+// `SegRecords` (one segment = two float4, live segments only, R pixels
+// a thread, crossings listed by bitmap row) serves the render kernels
+// sdf_tiles_pts.cu and sdf_tiles_flat.cu (one tile body, `render_tile`,
+// that differs in its staging), sdf_grid_flat.cu and, with the first
+// argmin carried in the record, sdf_min_field_padded.cu. Both evaluate
+// the same expressions in the same order, so they give the same bits.
 //
 // One definition of the tile-row read, the pixel center, the
 // point-to-segment projection, the crossing test and the quantization
@@ -121,14 +124,6 @@ struct SegChunk {
         (word >> (lane & 31)) & 1u);
   }
 
-  // Segment-soup layout flat [4, n_lanes] (rows vx, vy, wx, wy): thread
-  // tid stages the live segment at lane.
-  __device__ __forceinline__ void stage_soup(const float* __restrict__ flat,
-                                             int n_lanes, int lane, int tid) const {
-    put(tid, flat[lane], flat[n_lanes + lane], flat[2 * n_lanes + lane],
-        flat[3 * n_lanes + lane], true);
-  }
-
   // d^2 from pixel (pxc, pyc) to staged segment j, and its step of the
   // winding count (+1 upward crossing left of the pixel, -1 downward).
   // The crossing test is the parity form: the row crosses iff
@@ -155,29 +150,9 @@ struct SegChunk {
 
 constexpr int kSegChunkWords = 8;  // shared words per thread of SegChunk
 
-// Min of d^2 and the winding count of pixel (pxc, pyc) over a glyph's
-// segment soup, lanes [off, off + nseg) of flat [4, n_lanes], staged
-// in chunks of tp = blockDim.x. Every thread of the block calls it with
-// the same off and nseg (it synchronizes the block).
-__device__ __forceinline__ float soup_min_d2(const SegChunk& seg,
-                                             const float* __restrict__ flat,
-                                             int n_lanes, int off, int nseg,
-                                             float pxc, float pyc, int& wn) {
-  const int tp = blockDim.x;
-  const int tid = threadIdx.x;
-  float dmin = kBig;
-  for (int c0 = 0; c0 < nseg; c0 += tp) {
-    if (c0 + tid < nseg) seg.stage_soup(flat, n_lanes, off + c0 + tid, tid);
-    __syncthreads();
-    const int n = min(tp, nseg - c0);
-    for (int j = 0; j < n; ++j) dmin = fminf(dmin, seg.d2_and_winding(j, pxc, pyc, wn));
-    __syncthreads();
-  }
-  return dmin;
-}
-
 // ---- Packed records, R pixels a thread, crossings by row ----
-// (sdf_tiles_pts.cu, sdf_grid_flat.cu)
+// (sdf_tiles_pts.cu, sdf_tiles_flat.cu, sdf_grid_flat.cu,
+// sdf_min_field_padded.cu)
 //
 // The pair math above costs 22 f32 instructions, and with SegChunk about
 // 16 more instruction slots around them (eight 4-byte shared loads, a validity
@@ -194,7 +169,10 @@ __device__ __forceinline__ float soup_min_d2(const SegChunk& seg,
 //   then sums the few crossings of its row: the loop over the segments
 //   keeps the 16 distance operations and no compare, select or integer
 //   add. The expressions are those of d2_and_winding on the same values,
-//   so the count is the same integer.
+//   so the count is the same integer;
+// - a kernel that needs the first argmin (MinPixels) finds the original
+//   index of a staged segment in the record's spare word, since the slot
+//   of a compacted segment is not its index.
 
 constexpr int kRecChunk = 256;  // segments a staged chunk: 8 KB of shared memory
 constexpr int kRowsMax = 64;    // rows of a block's pixels that get a crossing list
@@ -223,6 +201,7 @@ __device__ __forceinline__ int live_between(const int32_t* __restrict__ mask_wor
 // and each pixel's bitmap row less the first row of the block's pixels.
 template <int R>
 struct Pixels {
+  static constexpr bool kArgmin = false;
   float pxc[R], pyc[R], dmin[R];
   int wn[R], lrow[R];
 
@@ -238,6 +217,22 @@ struct Pixels {
     }
   }
 };
+
+// Pixels<R> with each pixel's first argmin: the carried index of the
+// staged segment that first reached the running min (kBigI while no
+// segment has).
+template <int R>
+struct MinPixels : Pixels<R> {
+  static constexpr bool kArgmin = true;
+  int amin[R];
+
+  __device__ __forceinline__ void init(const TileRow& r, int i0, int stride, int row0) {
+    Pixels<R>::init(r, i0, stride, row0);
+#pragma unroll
+    for (int k = 0; k < R; ++k) amin[k] = kBigI;
+  }
+};
+
 
 // Crossings of the staged chunk with each row of the block's pixels, in
 // shared memory: row q lists cx and the step (+1 up, -1 down) of every
@@ -257,19 +252,23 @@ struct RowLists {
 };
 
 struct SegRecords {
-  // rec[2 * j] = {vx, vy, dx, dy}, rec[2 * j + 1] = {1/l2, 1/dy, wy, 0}.
+  // rec[2 * j] = {vx, vy, dx, dy}, rec[2 * j + 1] = {1/l2, 1/dy, wy, idx}:
+  // idx is an integer's bits (the segment's index where the kernel keeps
+  // an argmin, else 0), and no arithmetic touches it.
   float4* rec;
 
   __device__ __forceinline__ explicit SegRecords(float4* smem) : rec(smem) {}
 
-  // Stages segment (v, w) at slot j: the values of SegChunk::put.
-  __device__ __forceinline__ void put(int j, float v_x, float v_y, float w_x,
-                                      float w_y) const {
+  // Stages segment (v, w) at slot j with its carried index: the values
+  // of SegChunk::put.
+  __device__ __forceinline__ void put(int j, float v_x, float v_y, float w_x, float w_y,
+                                      int idx = 0) const {
     const float d_x = w_x - v_x;
     const float d_y = w_y - v_y;
     rec[2 * j] = make_float4(v_x, v_y, d_x, d_y);
     rec[2 * j + 1] = make_float4(l2_inverse(d_x, d_y),
-                                 d_y != 0.0f ? __fdiv_rn(1.0f, d_y) : 0.0f, w_y, 0.0f);
+                                 d_y != 0.0f ? __fdiv_rn(1.0f, d_y) : 0.0f, w_y,
+                                 __int_as_float(idx));
   }
 
   // Point-chain layout: the block stages the live lanes among
@@ -309,11 +308,41 @@ struct SegRecords {
           flat[3 * n_lanes + lane]);
   }
 
+  // Padded layout: the block stages the live segments among [c0, cend)
+  // (at most kRecChunk) of one glyph's segs [S, 4] and mask [S]
+  // (nonzero = live) in segment order, each with its index s carried,
+  // and returns their count. The scheme of stage_live with the mask as
+  // the validity: every warp walks the run 32 segments at a time and
+  // counts the live ones by ballot, so it knows the slot of each without
+  // a shared counter, and stages every nwarps-th of those 32s. Every
+  // thread of the block calls it.
+  __device__ __forceinline__ int stage_masked(const float* __restrict__ segs,
+                                              const float* __restrict__ mask, int c0,
+                                              int cend) const {
+    const int lane = threadIdx.x & 31;
+    const int wid = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    int before = 0;  // live segments of [c0, s0)
+    for (int s0 = c0, turn = 0; s0 < cend; s0 += 32, ++turn) {
+      const int s = s0 + lane;
+      const bool live = s < cend && mask[s] != 0.0f;
+      const uint32_t ballot = __ballot_sync(0xffffffffu, live);
+      if (live && turn % nwarps == wid) {
+        const float4 v = reinterpret_cast<const float4*>(segs)[s];
+        put(before + __popc(ballot & ((1u << lane) - 1u)), v.x, v.y, v.z, v.w, s);
+      }
+      before += __popc(ballot);
+    }
+    return before;
+  }
+
   // One staged segment against the thread's R pixels: the expressions
   // of SegChunk::d2_and_winding and the caller's running min; without
-  // kWinding the distance alone.
-  template <int R, bool kWinding>
-  __device__ __forceinline__ void pair(int j, Pixels<R>& px) const {
+  // kWinding the distance alone. MinPixels also keep the first argmin:
+  // the update is on a strict `<`, so while segments are staged and
+  // walked in index order a tie keeps the smallest index.
+  template <int R, bool kWinding, class Px = Pixels<R>>
+  __device__ __forceinline__ void pair(int j, Px& px) const {
     const float4 a = rec[2 * j];
     const float4 b = rec[2 * j + 1];
 #pragma unroll
@@ -328,13 +357,21 @@ struct SegRecords {
         const float cx = a.x + (ey * b.y) * a.z;
         if (cross && cx <= px.pxc[k]) px.wn[k] += c1 ? 1 : -1;
       }
-      px.dmin[k] = fminf(px.dmin[k], qx * qx + qy * qy);
+      const float d2 = qx * qx + qy * qy;
+      if constexpr (Px::kArgmin) {
+        if (d2 < px.dmin[k]) {
+          px.dmin[k] = d2;
+          px.amin[k] = __float_as_int(b.w);
+        }
+      } else {
+        px.dmin[k] = fminf(px.dmin[k], d2);
+      }
     }
   }
 
   // The first n staged segments against the thread's R pixels.
-  template <int R, bool kWinding>
-  __device__ __forceinline__ void accumulate(int n, Pixels<R>& px) const {
+  template <int R, bool kWinding, class Px = Pixels<R>>
+  __device__ __forceinline__ void accumulate(int n, Px& px) const {
     int j = 0;
     for (; j + 4 <= n; j += 4) {
 #pragma unroll
@@ -375,8 +412,8 @@ struct SegRecords {
   // for every thread; the lists were cleared while staging) the
   // crossings go by row lists, unless a row overflows its list: then,
   // as without use_rows, every pair tests its own crossing.
-  template <int R>
-  __device__ __forceinline__ void reduce(int n, Pixels<R>& px, RowLists& rows, bool use_rows,
+  template <int R, class Px = Pixels<R>>
+  __device__ __forceinline__ void reduce(int n, Px& px, RowLists& rows, bool use_rows,
                                          const TileRow& r, int row0, int nrows) const {
     if (use_rows) {
       list_crossings(n, rows, r, row0, nrows);
@@ -407,6 +444,89 @@ __device__ __forceinline__ uint8_t sdf_byte(float dmin, int wn, float scale,
   const float v = d * scale + cutoff;
   const float n = fminf(fmaxf(255.0f - v, 0.0f), 255.0f);
   return static_cast<uint8_t>(floorf(n + 0.5f));
+}
+
+// ---- The render tile body (sdf_tiles_pts.cu, sdf_tiles_flat.cu) ----
+//
+// The two tile kernels differ in how a glyph's segments reach the
+// records and in where the glyph's run of lanes ends; a staging says
+// both. stage() is called by every thread of the block for lanes
+// [c0, cend) of the run, at most kRecChunk, and returns the number of
+// segments it staged in slots 0 .. n - 1, the same for every thread.
+
+// The point chain pts [2, n_lanes] with its validity bits: a row's
+// segments are the live lanes among [off, off + npts - 1).
+struct ChainStaging {
+  const float* pts;
+  int n_lanes;
+  const int32_t* mask_words;
+
+  __device__ __forceinline__ int last(const TileRow& r) const { return r.off + r.npts - 1; }
+  __device__ __forceinline__ int stage(const SegRecords& seg, int c0, int cend) const {
+    return seg.stage_live(pts, n_lanes, mask_words, c0, cend);
+  }
+};
+
+// The segment soup flat [4, n_lanes]: a row's segments are the lanes
+// [seg_off, seg_off + nseg), all live (TileRow's off and npts).
+struct SoupStaging {
+  const float* flat;
+  int n_lanes;
+
+  __device__ __forceinline__ int last(const TileRow& r) const { return r.off + r.npts; }
+  __device__ __forceinline__ int stage(const SegRecords& seg, int c0, int cend) const {
+    seg.stage_soup(flat, n_lanes, c0, cend);
+    return cend - c0;
+  }
+};
+
+// Tile-table row blockIdx.x of tmeta [8, n_tiles] by a block of TP / R
+// threads: thread tid renders pixels tid + k * TP / R, k < R, of the
+// tile against the glyph's staged segments and stores their bytes in
+// out [n_tiles, TP] (a warp's stores are contiguous). A row whose
+// pix_base is at or past w*h is zeros.
+template <int R, class Staging>
+__device__ __forceinline__ void render_tile(const Staging& staging,
+                                            const int32_t* __restrict__ tmeta, int n_tiles,
+                                            float scale, float cutoff,
+                                            uint8_t* __restrict__ out) {
+  __shared__ float4 smem[2 * kRecChunk];
+  __shared__ RowLists rows;
+  const SegRecords seg(smem);
+
+  const int nt = blockDim.x;  // TP / R
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  const TileRow r = load_tile(tmeta, n_tiles, t);
+  uint8_t* dst = out + static_cast<size_t>(t) * nt * R + tid;
+
+  if (r.base >= r.w * r.h) {  // the same for every thread of the block
+#pragma unroll
+    for (int k = 0; k < R; ++k) dst[k * nt] = 0;
+    return;
+  }
+
+  // Bitmap rows of the tile's pixels [base, base + TP).
+  const int ws = max(r.w, 1);
+  const int row0 = r.base / ws;
+  const int nrows = (r.base + nt * R - 1) / ws - row0 + 1;
+  const bool use_rows = nrows <= kRowsMax;
+  Pixels<R> px;
+  px.init(r, r.base + tid, nt, row0);
+
+  const int last = staging.last(r);
+  for (int c0 = r.off; c0 < last; c0 += kRecChunk) {
+    const int cend = min(c0 + kRecChunk, last);
+    const int n = staging.stage(seg, c0, cend);
+    if (n == 0) continue;  // the same for every thread of the block
+    if (use_rows) rows.clear(nrows);
+    __syncthreads();
+    seg.reduce<R>(n, px, rows, use_rows, r, row0, nrows);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int k = 0; k < R; ++k) dst[k * nt] = sdf_byte(px.dmin[k], px.wn[k], scale, cutoff);
 }
 
 }  // namespace vg

@@ -7,29 +7,42 @@
 // vx, vy, wx, wy, one independent segment a lane (the layout of
 // `render.batch.pack_flat`), with no mask bits.
 //
-// Work: one thread block per tile-table row, one thread per pixel
-// (blockDim.x == TP). A row of tmeta [8, T] i32 is x0, y0, w, h, nseg,
-// seg_off, pix_base, _; its glyph's segments are lanes
-// [seg_off, seg_off + nseg), each live (lane < nseg is the validity
-// test of the TPU kernel). The TPU kernel double-buffers 128-lane
-// chunks from HBM into VMEM by DMA; here each chunk of TP segments is
-// staged in shared memory by the block, with its divides done once per
-// segment, and every thread reads it by broadcast while the running min
-// of d^2 and the winding count stay in registers. Pixel row and column
-// come from integer div and mod, as in the TPU kernel. Rows whose
-// pix_base is at or past w*h write zeros.
+// A row of tmeta [8, T] i32 is x0, y0, w, h, nseg, seg_off, pix_base, _;
+// its glyph's segments are lanes [seg_off, seg_off + nseg), each live
+// (lane < nseg is the validity test of the TPU kernel). The TPU kernel
+// double-buffers 128-lane chunks from HBM into VMEM by DMA. Nothing of
+// that is carried over: the tile's body is kernel 1's (`render_tile` of
+// sdf_pair.cuh), with the soup's staging in place of the chain's:
 //
-// Bound: f32 instruction slots, as kernel 1: 22 f32 operations per (pixel,
-// segment) pair (tools/work.py) against 16 bytes of global reads per
-// segment per block, all of it from L2 after the first block of a
-// glyph. It keeps the plain loop of SegChunk (one pixel a thread, a
-// crossing test a pair) and is the independent implementation that
-// kernels 1 and 7, which share SegRecords, are held against.
+// - one thread block per tile-table row of TP / R threads, thread tid
+//   owning pixels tid, tid + TP/R, ... of the tile; R is 2 where TP / 2
+//   is whole warps, else 1, the launcher's choice as for kernel 1;
+// - the glyph's run is walked in chunks of kRecChunk lanes, each staged
+//   as 32-byte records {vx, vy, dx, dy | 1/l2, 1/dy, wy, 0} with the two
+//   divides paid once a segment and block (`SoupStaging`: every lane is
+//   live, so there is no validity to read and no compaction), and read
+//   by two 16-byte broadcast loads that serve the thread's R pixels;
+// - the crossings go by bitmap row (`RowLists`): the block tests each
+//   staged segment once against each row of the tile's pixels and a
+//   pixel sums its row's few crossings, so the loop over the segments,
+//   unrolled by four, keeps the 16 distance operations of a pair's 22.
+//   A tile of more than kRowsMax rows or a row with more than kRowCross
+//   crossings in one chunk takes the loop that tests every pair.
+// Rows whose pix_base is at or past w*h write zeros.
+//
+// Bound: f32 instruction slots, as kernel 1. The function is counted by
+// tools/work.row_shared_work (16 f32 operations a pair, 2 a bitmap row
+// and segment, 4 a crossing and 1 a pixel of its row) against 16 bytes
+// of global reads a segment and block, all of it from L2 after the
+// first block of a glyph.
 //
 // Parity with the plain version (ops/sdf_torch.render_tiles_flat) is
 // byte equality, by the shared op order of sdf_pair.cuh under
 // --fmad=false; on the same glyphs the bytes also equal kernel 1's on
-// the f32 wire (same endpoints, same op order).
+// the f32 wire (same endpoints, same op order). Kernels 1, 6 and 7 now
+// share SegRecords, so the implementations they are held against are
+// the plain versions and sdf_tiles_pts_acc.cu, which keeps SegChunk's
+// one pixel a thread and a crossing test a pair.
 
 #include <cstdint>
 
@@ -39,46 +52,37 @@
 
 namespace {
 
-__global__ void sdf_tiles_flat_kernel(
+template <int R>
+__global__ void __launch_bounds__(1024 / R) sdf_tiles_flat_kernel(
     const float* __restrict__ flat, int n_lanes,
     const int32_t* __restrict__ tmeta, int n_tiles,
     float scale, float cutoff,
     uint8_t* __restrict__ out) {
-  extern __shared__ float smem[];
-  const vg::SegChunk seg(smem, blockDim.x);
+  vg::render_tile<R>(vg::SoupStaging{flat, n_lanes}, tmeta, n_tiles, scale, cutoff, out);
+}
 
-  const int t = blockIdx.x;
-  const vg::TileRow r = vg::load_tile(tmeta, n_tiles, t);
-  uint8_t* dst = out + static_cast<size_t>(t) * blockDim.x + threadIdx.x;
-
-  if (r.base >= r.w * r.h) {  // the same for every thread of the block
-    *dst = 0;
-    return;
-  }
-
-  float pxc, pyc;
-  vg::pixel_center(r, r.base + threadIdx.x, pxc, pyc);
-  int wn = 0;
-  // TileRow's npts and off hold nseg and seg_off in this layout.
-  const float dmin = vg::soup_min_d2(seg, flat, n_lanes, r.off, r.npts, pxc, pyc, wn);
-  *dst = vg::sdf_byte(dmin, wn, scale, cutoff);
+template <int R>
+void launch_r(const float* flat, int n_lanes, const int32_t* tmeta, int n_tiles, int tp,
+              float scale, float cutoff, uint8_t* out, cudaStream_t stream) {
+  sdf_tiles_flat_kernel<R><<<n_tiles, tp / R, 0, stream>>>(
+      flat, n_lanes, tmeta, n_tiles, scale, cutoff, out);
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` (a cudaStream_t) and returns
 // cudaGetLastError(). Pointers are device pointers: flat [4, n_lanes]
-// f32, tmeta [8, n_tiles] i32, out [n_tiles, tp] u8. tp is the block
-// size (a multiple of 32, at most 1024). The caller checks shapes and
-// that every row's lanes lie in [0, n_lanes).
+// f32, tmeta [8, n_tiles] i32, out [n_tiles, tp] u8. tp is the tile's
+// pixel count and r the pixels a thread (1 or 2; tp / r is the block
+// size, a multiple of 32, at most 1024 / r). The caller checks shapes
+// and that every row's lanes lie in [0, n_lanes).
 extern "C" int vg_sdf_tiles_flat(
-    const void* flat, int n_lanes, const void* tmeta, int n_tiles, int tp,
+    const void* flat, int n_lanes, const void* tmeta, int n_tiles, int tp, int r,
     float scale, float cutoff, void* out, void* stream) {
   if (n_tiles == 0) return 0;
-  const size_t smem = vg::kSegChunkWords * static_cast<size_t>(tp) * sizeof(float);
-  sdf_tiles_flat_kernel<<<n_tiles, tp, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(flat), n_lanes,
-      static_cast<const int32_t*>(tmeta), n_tiles, scale, cutoff,
-      static_cast<uint8_t*>(out));
+  if ((r != 1 && r != 2) || tp % (32 * r)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = r == 2 ? launch_r<2> : launch_r<1>;
+  launch(static_cast<const float*>(flat), n_lanes, static_cast<const int32_t*>(tmeta), n_tiles,
+         tp, scale, cutoff, static_cast<uint8_t*>(out), static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

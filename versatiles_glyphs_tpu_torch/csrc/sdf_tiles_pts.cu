@@ -8,9 +8,9 @@
 // no lane-shifted w-endpoint arrays, no float validity array, no
 // (TP, SC) accumulators.
 //
-// Bound: f32 instruction slots. A (pixel, live segment) pair is 22 separately
-// rounded f32 instructions (tools/work.py counts them from
-// sdf_pair.cuh) against a few bytes of global traffic a segment and
+// Bound: f32 instruction slots. A (pixel, live segment) pair tested by
+// itself is 22 separately rounded f32 instructions (tools/work.py counts
+// them from sdf_pair.cuh) against a few bytes of global traffic a segment and
 // block, and an SM starts 128 thread instructions a clock of whatever
 // kind. So every shared load, validity test and loop instruction beside
 // the 22 is lost f32 work, and the design spends as few as it can:
@@ -54,7 +54,9 @@
 // the divides and the square root are the correctly rounded intrinsics.
 // 1/l2 and 1/dy are reciprocals that multiply, as on the TPU; they are
 // not folded into one divide. The per-pixel math is shared with the
-// other kernels (sdf_pair.cuh).
+// other kernels (sdf_pair.cuh), and the tile's body (`render_tile`) with
+// sdf_tiles_flat.cu, which stages a segment soup where this kernel
+// stages the chain's live lanes (`ChainStaging`).
 
 #include <cstdint>
 
@@ -71,43 +73,8 @@ __global__ void __launch_bounds__(1024 / R) sdf_tiles_pts_kernel(
     const int32_t* __restrict__ tmeta, int n_tiles,
     float scale, float cutoff,
     uint8_t* __restrict__ out) {
-  __shared__ float4 smem[2 * vg::kRecChunk];
-  __shared__ vg::RowLists rows;
-  const vg::SegRecords seg(smem);
-
-  const int nt = blockDim.x;  // TP / R
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const vg::TileRow r = vg::load_tile(tmeta, n_tiles, t);
-  uint8_t* dst = out + static_cast<size_t>(t) * nt * R + tid;
-
-  if (r.base >= r.w * r.h) {  // the same for every thread of the block
-#pragma unroll
-    for (int k = 0; k < R; ++k) dst[k * nt] = 0;
-    return;
-  }
-
-  // Bitmap rows of the tile's pixels [base, base + TP).
-  const int ws = max(r.w, 1);
-  const int row0 = r.base / ws;
-  const int nrows = (r.base + nt * R - 1) / ws - row0 + 1;
-  const bool use_rows = nrows <= vg::kRowsMax;
-  vg::Pixels<R> px;
-  px.init(r, r.base + tid, nt, row0);
-
-  const int last = r.off + r.npts - 1;  // segments are lanes [off, last)
-  for (int c0 = r.off; c0 < last; c0 += vg::kRecChunk) {
-    const int cend = min(c0 + vg::kRecChunk, last);
-    const int n = seg.stage_live(pts, n_lanes, mask_words, c0, cend);
-    if (n == 0) continue;  // the same for every thread of the block
-    if (use_rows) rows.clear(nrows);
-    __syncthreads();
-    seg.reduce<R>(n, px, rows, use_rows, r, row0, nrows);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int k = 0; k < R; ++k) dst[k * nt] = vg::sdf_byte(px.dmin[k], px.wn[k], scale, cutoff);
+  vg::render_tile<R>(vg::ChainStaging{pts, n_lanes, mask_words}, tmeta, n_tiles, scale, cutoff,
+                     out);
 }
 
 template <int R>

@@ -23,8 +23,13 @@
 // glyph's run crosses a contour end. Rows whose pix_base is at or past
 // w*h write TP zeros.
 //
-// Bound: FP32 ALU, like sdf_tiles_pts.cu: the same pairs and the same
-// ~22 f32 operations a pair, plus log2(L) shuffle steps a pixel.
+// Bound: FP32 ALU, like sdf_tiles_pts.cu: the same pairs, each with
+// its own crossing test (22 f32 operations a pair executed, where the
+// bound counts the function by tools/work.row_shared_work, about 16.1),
+// plus log2(L) shuffle steps a pixel. Since the three render kernels
+// share SegRecords and its row lists, this kernel's per-pair loop over
+// SegChunk is the implementation on the card that their bytes are held
+// against, beside the plain versions.
 // Whether L partial chains a pixel run faster than one is what
 // tools/kernel_ab.py measures. The plain version is the production
 // kernel's, ops/sdf_torch.render_tiles_pts, because the function is

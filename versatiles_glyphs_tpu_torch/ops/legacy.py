@@ -5,10 +5,13 @@ The JAX package keeps two older Pallas render kernels over the segment
 soup of `render.batch.pack_flat` (flat [4, N] f32 rows vx, vy, wx, wy,
 one segment a lane; each glyph's run starts at an SC-aligned lane):
 a single launch over a tile table and a padded [G, P] grid. Here each
-is a hand-written kernel with the per-pixel math of the point-chain
-render kernel (``csrc/sdf_pair.cuh``):
+is a hand-written kernel on the records and per-row crossing lists of
+the point-chain render kernel (``csrc/sdf_pair.cuh``):
 
-- ``sdf_tiles_flat``: `render_bitmaps_cuda_tiles`;
+- ``sdf_tiles_flat``: `render_bitmaps_cuda_tiles`. The point-chain
+  kernel's tile body (a block of TP / R threads a tile row, R pixels a
+  thread, `sdf_cuda.pixels_per_thread`) over the glyph's staged soup,
+  every lane live;
 - ``sdf_grid_flat``: `render_bitmaps_cuda_grid`. A block renders a span
   of four pixels a thread of one glyph (`grid_launch_shape`), stages the
   glyph's segments as 32-byte records and tests a segment's crossing
@@ -36,6 +39,7 @@ from .sdf_cuda import (
     _cuda_inputs,
     _lanes_out_of_bounds,
     _launch,
+    pixels_per_thread,
 )
 from .sdf_torch import render_grid_flat, render_tiles_flat
 
@@ -76,13 +80,14 @@ def render_bitmaps_cuda_tiles(flat: torch.Tensor, tmeta: torch.Tensor, TP: int =
 
 def launch_tiles_flat(flat, tmeta, TP: int) -> torch.Tensor:
     """The flat tile kernel on inputs the caller has checked (see
-    `render_bitmaps_cuda_tiles`): allocate the output and launch."""
+    `render_bitmaps_cuda_tiles`): allocate the output and launch, a
+    block of TP / `sdf_cuda.pixels_per_thread` threads a tile."""
     N, T = flat.shape[1], tmeta.shape[1]
     out = torch.empty((T, TP), dtype=torch.uint8, device=flat.device)
     if T:
         _launch(
             "sdf_tiles_flat", flat.device, flat.data_ptr(), N, tmeta.data_ptr(), T, TP,
-            256.0 / SDF_RADIUS, CUTOFF, out.data_ptr(),
+            pixels_per_thread(TP), 256.0 / SDF_RADIUS, CUTOFF, out.data_ptr(),
         )
     return out
 

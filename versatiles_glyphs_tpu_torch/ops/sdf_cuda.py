@@ -12,11 +12,15 @@ The port's nine hand-written kernels, each on the current stream:
 - ``sdf_min_field_pts`` (fitting forward): `min_field_cuda_pts`;
 - ``sdf_min_field_bwd`` (fitting backward): `min_field_bwd_cuda`;
 - ``sdf_min_field_padded`` (padded-layout fitting forward):
-  `min_field_cuda_padded`;
+  `min_field_cuda_padded`. A block renders a span of up to four pixels
+  a thread of one glyph (`padded_launch_shape`), stages the glyph's live
+  segments in order with their indices carried for the argmin, and
+  takes the winding from the same per-row crossing lists;
 - ``sdf_min_field_padded_bwd`` (its backward): `min_field_padded_bwd_cuda`;
 - ``sdf_tiles_flat`` and ``sdf_grid_flat`` (render over the flat
-  segment layout): wrapped in `ops.legacy`; the grid kernel shares the
-  tile kernel's records and row lists (`legacy.grid_launch_shape`);
+  segment layout): wrapped in `ops.legacy`; the flat tile kernel is
+  ``sdf_tiles_pts``'s tile body over a staged soup, and the grid kernel
+  shares its records and row lists (`legacy.grid_launch_shape`);
 - ``sdf_tiles_pts_acc`` (the render tile kernel with a pixel's segments
   split over a sub-warp; the same function and plain version as
   ``sdf_tiles_pts``): `render_bitmaps_cuda_pts_acc`, for
@@ -68,10 +72,10 @@ _SIGNATURES = {
     "sdf_min_field_pts": ("vg_sdf_min_field_pts", [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P]),
     "sdf_min_field_bwd": ("vg_sdf_min_field_bwd", [_P, _I, _P, _P, _P, _I, _I, _P, _P]),
     "sdf_min_field_padded": (
-        "vg_sdf_min_field_padded", [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P]),
+        "vg_sdf_min_field_padded", [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
     "sdf_min_field_padded_bwd": (
         "vg_sdf_min_field_padded_bwd", [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P]),
-    "sdf_tiles_flat": ("vg_sdf_tiles_flat", [_P, _I, _P, _I, _I, _F, _F, _P, _P]),
+    "sdf_tiles_flat": ("vg_sdf_tiles_flat", [_P, _I, _P, _I, _I, _I, _F, _F, _P, _P]),
     "sdf_grid_flat": ("vg_sdf_grid_flat", [_P, _I, _P, _I, _I, _I, _I, _F, _F, _P, _P]),
     "alu_roof": ("vg_alu_roof", [_I, _I, _I, _F, _I, _P, _P]),
     # The same function as sdf_tiles_pts, so its plain version is
@@ -79,9 +83,17 @@ _SIGNATURES = {
     "sdf_tiles_pts_acc": (
         "vg_sdf_tiles_pts_acc", [_P, _I, _P, _P, _I, _I, _I, _F, _F, _P, _P]),
 }
-# Block sizes of the padded pair: pixels per block of the forward,
-# segments per block of the backward.
-PADDED_TP = 256
+# ``sdf_min_field_padded``: the most threads a block and pixels a
+# thread of the launcher's shape (`padded_launch_shape`: two blocks of
+# 128 threads a glyph at P = 768, the fastest of the shapes that
+# `tools.kernel_turns` timed on both synthesized fonts' fit batches),
+# and the most the kernel is compiled for (kMaxThreads, kMaxR of the
+# source).
+PADDED_THREADS = 128
+PADDED_PIXELS_PER_THREAD = 3
+PADDED_THREADS_MAX = 256
+PADDED_PIXELS_PER_THREAD_MAX = 4
+# Segments per block of the padded backward.
 PADDED_TS = 128
 # Pixel indices below this split into rows by integer div and mod as the
 # TPU's f32 division does (`versatiles_glyphs_tpu.ops.sdf_grad._pixel_coords`).
@@ -92,12 +104,14 @@ ALU_ROOF_CHAINS = 4
 # Threads a pixel of ``sdf_tiles_pts_acc`` by default: TP·4 = 1,024
 # threads a block at TP = 256.
 ACC_SPLIT = 4
-# Pixels a thread of ``sdf_tiles_pts`` where TP allows it (a block of
-# TP / 2 threads a tile: faster than 1 and than 4 on both synthesized
-# fonts, `tools.kernel_turns`; the kernel is compiled for 1 and 2).
+# Pixels a thread of ``sdf_tiles_pts`` and ``sdf_tiles_flat`` where TP
+# allows it (a block of TP / 2 threads a tile: faster than 1 and than 4
+# on both synthesized fonts, `tools.kernel_turns`; the kernels are
+# compiled for 1 and 2).
 TILE_PIXELS_PER_THREAD = 2
-# Sizes of ``csrc/sdf_pair.cuh`` that shape the work of ``sdf_tiles_pts``
-# and ``sdf_grid_flat``: segments a staged chunk (kRecChunk), bitmap
+# Sizes of ``csrc/sdf_pair.cuh`` that shape the work of ``sdf_tiles_pts``,
+# ``sdf_tiles_flat``, ``sdf_grid_flat`` and ``sdf_min_field_padded``:
+# segments a staged chunk (kRecChunk), bitmap
 # rows of a block's pixels that get a crossing list (kRowsMax), and
 # crossings a row lists for one chunk (kRowCross); past either the
 # block tests every pair's crossing itself.
@@ -198,7 +212,7 @@ def render_bitmaps_cuda_pts(
 
 
 def pixels_per_thread(TP: int) -> int:
-    """Pixels a thread of the render tile kernel at tile size ``TP``:
+    """Pixels a thread of the render tile kernels at tile size ``TP``:
     ``TILE_PIXELS_PER_THREAD`` where that leaves a block of whole warps
     (TP a multiple of 64), else 1."""
     return TILE_PIXELS_PER_THREAD if TP % (32 * TILE_PIXELS_PER_THREAD) == 0 else 1
@@ -435,18 +449,46 @@ def min_field_cuda_padded(segs: torch.Tensor, mask: torch.Tensor, meta: torch.Te
     return launch_min_field_padded(segs, mask, meta, P)
 
 
+def padded_launch_shape(
+    P: int, threads: int = PADDED_THREADS, r: int = PADDED_PIXELS_PER_THREAD
+) -> tuple[int, int, int]:
+    """(threads a block, pixels a thread, blocks a glyph) of the padded
+    min-field kernel for P ≥ 1 pixels a glyph: a block renders a span of
+    ``r`` pixels a thread, ``threads`` threads at most, and the spans of
+    a glyph are sized evenly, so a glyph takes the fewest blocks that
+    can cover P and each is the whole warps that cover its share (two
+    blocks of 128 threads at P = 768). Fewer pixels a thread where P is
+    under ``r`` warps. The launcher keeps the defaults; the kernel takes
+    any multiple of 32 up to ``PADDED_THREADS_MAX`` and 1 to
+    ``PADDED_PIXELS_PER_THREAD_MAX`` pixels, which `tools.kernel_turns`
+    times."""
+    if threads % 32 or not 32 <= threads <= PADDED_THREADS_MAX:
+        raise ValueError(
+            f"threads={threads} must be a multiple of 32 in [32, {PADDED_THREADS_MAX}]")
+    if not 1 <= r <= PADDED_PIXELS_PER_THREAD_MAX:
+        raise ValueError(f"r={r} must be in [1, {PADDED_PIXELS_PER_THREAD_MAX}]")
+    blocks = -(-P // (threads * r))
+    share = -(-P // blocks)
+    r = min(r, -(-share // 32))
+    nt = -(-share // (32 * r)) * 32
+    r = -(-share // nt)  # no slot of nt pixels that every span leaves empty
+    return nt, r, -(-P // (nt * r))
+
+
 def launch_min_field_padded(segs, mask, meta, P: int):
     """The padded min-field kernel on inputs the caller has checked (see
     `min_field_cuda_padded`: mask f32, meta [B, 4] i32): allocate the
-    outputs and launch."""
+    outputs and launch (`padded_launch_shape`; the grid is the kernel's
+    own to derive)."""
     B, S = segs.shape[:2]
     d2 = torch.empty((B, P), dtype=torch.float32, device=segs.device)
     wn = torch.empty((B, P), dtype=torch.int32, device=segs.device)
     am = torch.empty((B, P), dtype=torch.int32, device=segs.device)
     if B and P:
+        nt, r, _ = padded_launch_shape(P)
         _launch(
             "sdf_min_field_padded", segs.device, segs.data_ptr(), mask.data_ptr(), B, S,
-            meta.data_ptr(), P, PADDED_TP, d2.data_ptr(), wn.data_ptr(), am.data_ptr(),
+            meta.data_ptr(), P, nt, r, d2.data_ptr(), wn.data_ptr(), am.data_ptr(),
         )
     return d2, wn, am
 

@@ -283,3 +283,55 @@ def unaligned_point_chain():
         [0, 0, 20, 20, 50, 37, 512, 0],
     ], np.int32).T
     return pts, words, np.ascontiguousarray(tmeta)
+
+
+PADDED_EDGE_CASES = ("holes", "narrow", "comb", "chunks", "degenerate")
+
+
+def padded_edge_case(name: str):
+    """An input at an edge of the padded min-field kernel
+    (``csrc/sdf_min_field_padded.cu``), from a numpy seed: (segs
+    [B, S, 4] f32, mask [B, S] f32, meta [B, 4] i32, P).
+
+    ``holes``: masks with holes in the middle, so a staged segment's
+    slot is not its index, and P = 437, a multiple of no block size.
+    ``narrow``: a bitmap 5 pixels wide at P = 768, so that a span of
+    384 pixels holds 77 bitmap rows, more than a block lists. ``comb``: glyph 0
+    crosses every row 48 times, more than a row lists. ``chunks``: 300
+    segments, more than a staged chunk; glyph 1 has four live ones, of
+    which 3 and 260 are the same segment (the tie goes to 3).
+    ``degenerate``: zero-length and horizontal segments, negative
+    origins, and a glyph with every segment masked (the sentinel)."""
+    if name == "degenerate":
+        segs = np.zeros((3, 8, 4), np.float32)
+        segs[0, :6] = [[3, 4, 7, 4], [2, 2, 6, 2], [6, 2, 6, 6], [6, 6, 2, 6], [2, 6, 2, 2],
+                       [4.5, 4.5, 4.5, 4.5]]
+        segs[1, :3] = [[1, 1, 1, 1], [1, 1, 7, 1], [7, 1, 4, 5]]
+        segs[2, :2] = [[0, 0, 5, 5], [5, 5, 0, 0]]  # masked below
+        mask = np.zeros((3, 8), np.float32)
+        mask[0, :6] = 1.0
+        mask[1, :3] = 1.0
+        return segs, mask, np.array([[0, 0, 10, 9], [-2, -1, 12, 6], [0, 0, 17, 17]], np.int32), 300
+    seed, B, S, box, P = {
+        "holes": (7, 4, 70, (-3, -3, 19, 23), 19 * 23),
+        "narrow": (8, 2, 40, (0, 0, 5, 64), 768),
+        "comb": (9, 2, 48, (0, 0, 16, 10), 160),
+        "chunks": (10, 2, 300, (-3, -3, 19, 23), 19 * 23),
+    }[name]
+    rng = np.random.default_rng(seed)
+    x0, y0, w, h = box
+    lo, hi = np.array([x0 - 1, y0 - 1] * 2), np.array([x0 + w + 1, y0 + h + 1] * 2)
+    segs = rng.uniform(lo, hi, size=(B, S, 4)).astype(np.float32)
+    mask = (rng.uniform(size=(B, S)) > 0.2).astype(np.float32)
+    if name == "comb":
+        x = (1.0 + 0.3 * np.arange(S)).astype(np.float32)
+        up = np.arange(S) % 2 == 0
+        segs[0] = np.stack([x, np.where(up, 0.2, 9.8), x, np.where(up, 9.8, 0.2)], 1)
+        mask[0] = 1.0
+        mask[1, 12:] = 0.0  # glyph 1 stays inside the lists
+    if name == "chunks":
+        mask[1] = 0.0
+        mask[1, [3, 100, 260, 299]] = 1.0
+        segs[1, 3] = segs[1, 260] = [2.0, 2.0, 12.0, 15.0]
+        segs[1, 100], segs[1, 299] = [-2.0, 19.0, 0.0, 19.5], [15.0, -2.0, 15.5, 0.0]
+    return segs, mask, np.tile(np.array([box], np.int32), (B, 1)), P

@@ -13,7 +13,7 @@ JSON lines:
 1. device — the card's name and power limit (nvidia-smi).
 2. build  — nvcc builds every kernel from ``csrc/``, one process each,
    all at once, and ptxas's report (registers, spills, shared memory)
-   of the four redesigned kernels is printed; g++ builds the
+   of the six redesigned kernels is printed; g++ builds the
    native host library from ``csrc/vg_native.cpp``
    (`proto.native.require`).
 3. kernel — each kernel against its plain PyTorch version on the card,
@@ -24,10 +24,15 @@ JSON lines:
    multiple of 32 with dead lanes inside, a glyph with every lane dead,
    rows of npts <= 1), on glyphs past its crossing lists' sizes and at
    64 pixels a tile: bytes equal. The min-field kernel at the full
-   fit batch and on degenerate segments: d² bit-equal, winding and
+   fit batch, on degenerate segments, on the tile kernel's edge inputs
+   (the hand-made chain, the glyphs past the crossing lists' sizes, 64
+   pixels a tile) and on a glyph whose lanes 8 and 308 are one segment
+   (the tie goes to 8, across staged chunks): d² bit-equal, winding and
    argmin exact. The backward kernel at the full fit batch: within
    1e-4·max|dpts| of the plain version (whose scatter-add on the card
-   sums in no fixed order), and bit-identical across two runs. The two
+   sums in no fixed order), and bit-identical across two runs; the flat
+   field's forward and backward on the host clock with the wrappers'
+   checks at every call and with the plan checked once, in turns. The two
    segment-layout render kernels at group 0 of both fonts (packed by
    ``pack_flat``), on degenerate segments, on glyphs past the crossing
    lists' sizes, at 64 and 32 pixels a tile and, for the grid kernel,
@@ -41,8 +46,15 @@ JSON lines:
    no block size divides, a bitmap too narrow and a row too crossed for
    the crossing lists, more segments than a staged chunk with a tie
    across chunks, an all-masked glyph): d² bit-equal, winding and
-   argmin exact; its backward
-   within 1e-4·max|dsegs| and bit-identical across two runs. The ALU
+   argmin exact; its backward at the full fit batch, at the heavy
+   font's (352 segments a glyph), on the same edge inputs with the
+   forward kernel's argmin and a cotangent not masked past w·h, on a
+   glyph whose every pixel has one argmin segment, on 4,096 pixels a
+   glyph (two warps a glyph), on argmins that name no segment, and
+   with the segments walked in chunks and four warps a glyph:
+   within 1e-4·max|dsegs|, bit-identical across two runs and, with one
+   warp a glyph, bit-identical to the sum in pixel order
+   (`sdf_torch.min_field_padded_bwd_ordered`). The ALU
    roof kernel on group 0's grid: bit-equal to its plain version. The
    split variant of the tile kernel at group 0 (i8 and f32 wires), on
    degenerate segments and on the tile kernel's edge cases: bytes equal
@@ -133,8 +145,9 @@ def phase_build() -> None:
         emit({"phase": "build", "kernel": name, "arch": "sm_90a",
               "so": os.path.relpath(so, ROOT), "nvcc_s": nvcc_s})
     emit({"phase": "build", "all_s": time.perf_counter() - t0})
-    # What ptxas said of the four redesigned kernels (-Xptxas -v).
-    for name in ("sdf_tiles_pts", "sdf_grid_flat", "sdf_tiles_flat", "sdf_min_field_padded"):
+    # What ptxas said of the six redesigned kernels (-Xptxas -v).
+    for name in ("sdf_tiles_pts", "sdf_grid_flat", "sdf_tiles_flat", "sdf_min_field_padded",
+                 "sdf_min_field_pts", "sdf_min_field_padded_bwd"):
         so = _build.BUILDS[name][0]
         emit({"phase": "build", "kernel": name, "ptxas": _build.ptxas_report(so)})
     from versatiles_glyphs_tpu_torch.proto import native
@@ -317,6 +330,14 @@ def fit_batch():
     return synth_fit_batch(1700, 32, seed=0, quads=8, depth=FIT_DEPTH, perturb=0.35)
 
 
+def heavy_fit_batch():
+    """The heavy font's fit batch (1,150 glyphs, 352 segments a glyph at
+    depth 3), for the padded backward kernel at that size."""
+    from versatiles_glyphs_tpu_torch.utils.synth_font import synth_fit_batch
+
+    return synth_fit_batch(1150, 0x600, seed=1, quads=24, depth=FIT_DEPTH, perturb=0.35)
+
+
 def degenerate_fit_case():
     """A flat-plan point chain with zero-length curves, a horizontal line,
     a square, and a glyph with no live segment (the argmin sentinel)."""
@@ -351,28 +372,38 @@ def fit_inputs(batch, dev):
     return pts, db["plan_words"], db["plan_tmeta"]
 
 
-def phase_fit_kernels(batch) -> dict:
-    """Kernels 2 and 3 against their plain versions at the fit's shapes.
-    Returns the numbers of the kernels line."""
+def phase_fit_kernels(batch, preps) -> dict:
+    """Kernels 2 and 3 against their plain versions at the fit's shapes;
+    kernel 2 also on degenerate segments, on the render tile kernel's
+    edge inputs (`tile_kernel_edge_cases`: it shares that kernel's
+    staging and crossing lists) and on a tie across staged chunks
+    (`utils.synth_font.tied_point_chain`). Returns the numbers of the
+    kernels line."""
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
+    from versatiles_glyphs_tpu_torch.render.batch import wire_to_device
     from versatiles_glyphs_tpu_torch.tools import work
+    from versatiles_glyphs_tpu_torch.tools.roofline import first_group
+    from versatiles_glyphs_tpu_torch.utils.synth_font import tied_point_chain
 
     dev = torch.device("cuda", 0)
     pts, words, tmeta = fit_inputs(batch, dev)
     plan, dpts_ = degenerate_fit_case()
-    cases = {"fit": (pts, words, tmeta),
-             "degenerate": tuple(t.to(dev) for t in (dpts_, torch.as_tensor(plan.mask_words),
-                                                     torch.as_tensor(plan.tmeta.T.copy())))}
+    cases = {"fit": (pts, words, tmeta, TP),
+             "degenerate": (*(t.to(dev) for t in (dpts_, torch.as_tensor(plan.mask_words),
+                                                  torch.as_tensor(plan.tmeta.T.copy()))), TP),
+             **tile_kernel_edge_cases(first_group(preps), dev),
+             "tied": (*wire_to_device(tied_point_chain(), dev), TP)}
     out = {}
-    for key, (p, w, tm) in cases.items():
-        got = sdf_cuda.min_field_cuda_pts(p, w, tm, TP)
-        want = sdf_torch.min_field_pts(p, w, tm, TP)
+    for key, (p, w, tm, tp) in cases.items():
+        got = sdf_cuda.min_field_cuda_pts(p, w, tm, tp)
+        want = sdf_torch.min_field_pts(p, w, tm, tp)
         torch.cuda.synchronize()
         d2_bits = int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())
         wn_off = int((got[1] != want[1]).sum())
         am_off = int((got[2] != want[2]).sum())
         rec = {"phase": "kernel", "kernel": "sdf_min_field_pts", "case": key,
-               "tiles": int(tm.shape[1]), "lanes": int(p.shape[1]),
+               "tiles": int(tm.shape[1]), "lanes": int(p.shape[1]), "TP": tp,
+               "pixels_per_thread": sdf_cuda.min_field_pixels_per_thread(tp),
                "d2_bits_differ": d2_bits, "wn_differ": wn_off, "am_differ": am_off,
                "max_abs_err": float((got[0] - want[0]).abs().max()),
                "sentinels": int((got[2] == sdf_torch._BIGI).sum())}
@@ -390,8 +421,13 @@ def phase_fit_kernels(batch) -> dict:
         emit(rec)
         if d2_bits or wn_off or am_off:
             raise AssertionError(f"min field {key}: kernel and plain version differ")
-        if key == "degenerate" and not rec["sentinels"]:
-            raise AssertionError("degenerate case: no sentinel pixel")
+        if key in ("degenerate", "unaligned") and not rec["sentinels"]:
+            raise AssertionError(f"{key} case: no sentinel pixel")
+        # The row past w*h is zeros in all three outputs.
+        if key == "unaligned" and any(bool(t[5].any()) for t in got):
+            raise AssertionError("unaligned: the row past w*h is not zeros")
+        if key == "tied" and (int((got[2] == 308).sum()) or not int((got[2] == 8).sum())):
+            raise AssertionError("tied: the tie of lanes 8 and 308 is not 8's")
 
     _, _, am = sdf_cuda.min_field_cuda_pts(pts, words, tmeta, TP)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -424,6 +460,29 @@ def phase_fit_kernels(batch) -> dict:
     if not identical:
         raise AssertionError("backward kernel differs between two runs")
     out.update(bwd_err=err, bwd_ms=rec["kernel_ms"], bwd_plain_ms=rec["plain_ms"])
+
+    # The flat field's forward and backward on the host clock, with the
+    # wrappers' checks at every call (a host sync each) and with the
+    # plan checked once, as the fitter runs it: in turns.
+    from versatiles_glyphs_tpu_torch.ops.sdf_grad import signed_field_flat
+    from versatiles_glyphs_tpu_torch.tools.roofline import host_ms
+
+    sdf_cuda.check_flat_plan(pts.shape[1], words, tmeta, TP)
+
+    def field_and_grad(checked):
+        p = pts.clone().requires_grad_()
+        (signed_field_flat(p, words, tmeta, TP, checked=checked) * ct).sum().backward()
+        return p.grad
+
+    turns = [(c, host_ms(lambda: field_and_grad(c), 10)) for c in (False, True, True, False)]
+    same = bool(torch.equal(field_and_grad(False), field_and_grad(True)))
+    emit({"phase": "kernel", "kernel": "signed_field_flat", "case": "fit",
+          "host_ms_checks_each_call": min(t for c, t in turns if not c),
+          "host_ms_plan_checked_once": min(t for c, t in turns if c),
+          "turns_ms": [["once" if c else "each_call", t] for c, t in turns],
+          "gradients_equal": same})
+    if not same:
+        raise AssertionError("signed_field_flat: checked and unchecked gradients differ")
     return out
 
 
@@ -561,9 +620,14 @@ def padded_inputs(batch, dev):
     return segs, mask.float(), meta, batch.target.shape[1]
 
 
-def phase_padded_kernels(batch) -> dict:
+def phase_padded_kernels(batch, heavy_batch) -> dict:
     """Kernels 4 and 5 (the padded pair) against their plain versions at
-    the full fit batch; kernel 4 also on the edge inputs of
+    the full fit batch; kernel 5 also at the heavy font's batch, on
+    `utils.synth_font.PADDED_BWD_EDGE_CASES` (argmin from kernel 4, a
+    seeded cotangent over every pixel), on argmins outside [0, S), on a
+    batch whose every pixel has one argmin segment, and at launch shapes
+    the launcher does not pick for these sizes (the segments in passes,
+    four warps a glyph); kernel 4 also on the edge inputs of
     `utils.synth_font.padded_edge_case` (masks with holes, P a multiple
     of no block size, a bitmap too narrow and a row too crossed for the
     crossing lists, more segments than a staged chunk with a tie across
@@ -572,7 +636,9 @@ def phase_padded_kernels(batch) -> dict:
     Returns the numbers of the kernels line."""
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
     from versatiles_glyphs_tpu_torch.tools import work
-    from versatiles_glyphs_tpu_torch.utils.synth_font import PADDED_EDGE_CASES, padded_edge_case
+    from versatiles_glyphs_tpu_torch.utils.synth_font import (
+        PADDED_BWD_EDGE_CASES, PADDED_EDGE_CASES, out_of_range_argmin, padded_edge_case,
+    )
 
     dev = torch.device("cuda", 0)
     fit = padded_inputs(batch, dev)
@@ -622,35 +688,75 @@ def phase_padded_kernels(batch) -> dict:
         if key == "chunks" and (int((got[2][1] == 260).sum()) or not int((got[2][1] == 3).sum())):
             raise AssertionError("padded case chunks: the tie of segments 3 and 260 is not 3's")
 
-    segs, mask, meta, P = fit
-    _, _, am = sdf_cuda.min_field_cuda_padded(segs, mask, meta, P)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    ct = torch.randn(am.shape, generator=gen, device=dev)
-    got = sdf_cuda.min_field_padded_bwd_cuda(segs, meta, am, ct)
-    again = sdf_cuda.min_field_padded_bwd_cuda(segs, meta, am, ct)
-    want = sdf_torch.min_field_padded_bwd(segs, meta, am, ct)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    identical = bool(torch.equal(got, again))
-    B, S = segs.shape[:2]
-    n_px = int((am != sdf_torch._BIGI).sum())
-    out["pad_bwd_bound"] = bound_of(n_px * work.BWD_PIXEL_F32_OPS,
-                                    16 * B * S + 16 * B + 8 * B * P + 16 * B * S)
-    rec = {"phase": "kernel", "kernel": "sdf_min_field_padded_bwd", "case": "fit",
-           "argmin_pixels": n_px, **out["pad_bwd_bound"],
-           "glyphs": int(segs.shape[0]), "segments": int(segs.shape[1]), "P": P,
-           "max_abs_err": err, "max_abs_plain": scale, "tolerance": 1e-4 * scale,
-           "bit_identical_rerun": identical,
-           "ms": time_ms(lambda: sdf_cuda.launch_min_field_padded_bwd(segs, meta, am, ct), 50),
-           "call_ms": time_ms(lambda: sdf_cuda.min_field_padded_bwd_cuda(segs, meta, am, ct), 50),
-           "plain_ms": time_ms(lambda: sdf_torch.min_field_padded_bwd(segs, meta, am, ct), 3)}
-    emit(rec)
-    if not scale > 0 or err > 1e-4 * scale:
-        raise AssertionError(f"padded backward kernel off by {err} (plain max {scale})")
-    if not identical:
-        raise AssertionError("padded backward kernel differs between two runs")
-    out.update(pad_bwd_err=err, pad_bwd_ms=rec["ms"], pad_bwd_plain_ms=rec["plain_ms"])
+    # Kernel 5: key -> (segs, meta, am from kernel 4, cotangent over
+    # every pixel, the launch shape (None: the launcher's own)).
+    def bwd_case(segs, mask, meta, P, seed):
+        am = sdf_cuda.min_field_cuda_padded(segs, mask, meta, P)[2]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return segs, meta, am, torch.randn(am.shape, generator=gen, device=dev)
+
+    bwd = {"fit": (*bwd_case(*fit, 0), None),
+           "fit_heavy": (*bwd_case(*padded_inputs(heavy_batch, dev), 1), None)}
+    for k, name in enumerate(PADDED_BWD_EDGE_CASES):
+        segs, mask, meta, P = padded_edge_case(name)
+        bwd[name] = (*bwd_case(*(torch.as_tensor(a, device=dev) for a in (segs, mask, meta)), P,
+                               2 + k), None)
+    segs, meta, am, ct, _ = bwd["holes"]
+    wild = torch.as_tensor(out_of_range_argmin(am.cpu().numpy(), segs.shape[1]), device=dev)
+    bwd["out_of_range"] = (segs, meta, wild, ct, None)
+    # Every pixel of the fit batch with one argmin segment: the longest
+    # sets a warp can meet, at full size.
+    segs, meta, am, ct, _ = bwd["fit"]
+    bwd["fit_one_wins"] = (segs, meta, torch.full_like(am, 5), ct, None)
+    # The segments walked in passes of 64, and four warps a glyph.
+    bwd["chunks_passes"] = (*bwd["chunks"][:4], (128, 1, 64))
+    bwd["chunks_warps"] = (*bwd["chunks"][:4], (128, 4, 300))
+    for key, (segs, meta, am, ct, shape) in bwd.items():
+        B, S = segs.shape[:2]
+        P = am.shape[1]
+        launch_shape = shape or sdf_cuda.padded_bwd_launch_shape(S, P)
+        if shape is None:
+            run = lambda: sdf_cuda.min_field_padded_bwd_cuda(segs, meta, am, ct)
+        else:
+            run = lambda: sdf_cuda.launch_min_field_padded_bwd(segs, meta, am, ct, shape)
+        got, again = run(), run()
+        want = sdf_torch.min_field_padded_bwd(segs, meta, am, ct)
+        ordered = sdf_torch.min_field_padded_bwd_ordered(segs, meta, am, ct)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        identical = bool(torch.equal(got, again))
+        order_bits = int((got.view(torch.int32) != ordered.view(torch.int32)).sum())
+        n_px = int(((am >= 0) & (am < S)).sum())
+        rec = {"phase": "kernel", "kernel": "sdf_min_field_padded_bwd", "case": key,
+               "argmin_pixels": n_px, "glyphs": B, "segments": S, "P": P,
+               "launch_shape": list(launch_shape),
+               "max_abs_err": err, "max_abs_plain": scale, "tolerance": 1e-4 * scale,
+               "bit_identical_rerun": identical, "bits_differ_from_pixel_order": order_bits}
+        if key in ("fit", "fit_heavy", "fit_one_wins"):
+            rec["ms"] = time_ms(lambda: sdf_cuda.launch_min_field_padded_bwd(segs, meta, am, ct), 50)
+        if key == "fit":
+            out["pad_bwd_bound"] = bound_of(n_px * work.BWD_PIXEL_F32_OPS,
+                                            16 * B * S + 16 * B + 8 * B * P + 16 * B * S)
+            rec.update(out["pad_bwd_bound"])
+            rec["call_ms"] = time_ms(run, 50)
+            rec["plain_ms"] = time_ms(
+                lambda: sdf_torch.min_field_padded_bwd(segs, meta, am, ct), 3)
+            out.update(pad_bwd_err=err, pad_bwd_ms=rec["ms"], pad_bwd_plain_ms=rec["plain_ms"])
+        if key in ("fit_heavy", "fit_one_wins"):
+            out["pad_bwd_ms_" + key[4:]] = rec["ms"]
+        emit(rec)
+        if not scale > 0 or err > 1e-4 * scale:
+            raise AssertionError(f"padded backward {key}: off by {err} (plain max {scale})")
+        if not identical:
+            raise AssertionError(f"padded backward {key}: differs between two runs")
+        if launch_shape[1] == 1 and order_bits:
+            raise AssertionError(f"padded backward {key}: {order_bits} values are not the sum in "
+                                 "pixel order")
+        if key == "degenerate" and bool(got[2].any()):
+            raise AssertionError("padded backward: the all-sentinel glyph's gradient is not zero")
+        if key == "large" and launch_shape[1] < 2:
+            raise AssertionError("padded backward: 4,096 pixels a glyph on one warp")
     return out
 
 
@@ -1132,10 +1238,11 @@ def main() -> None:
     timed("build", phase_build)
     font_list = timed("host_prep", fonts)
     batch = timed("host_prep", fit_batch)
+    heavy_batch = timed("host_prep", heavy_fit_batch)
     k = timed("kernel_render", phase_kernel, font_list[0][1], font_list[1][1])
-    kf = timed("kernel_fit", phase_fit_kernels, batch)
+    kf = timed("kernel_fit", phase_fit_kernels, batch, font_list[0][1])
     kl = timed("kernel_flat", phase_flat_kernels, font_list[0][1], font_list[1][1])
-    kp = timed("kernel_padded", phase_padded_kernels, batch)
+    kp = timed("kernel_padded", phase_padded_kernels, batch, heavy_batch)
     kt = timed("kernel_tools", phase_tool_kernels, font_list[0][1])
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
@@ -1147,6 +1254,9 @@ def main() -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     tool_launches, roof_ops_per_s = timed("tools", phase_tools)
+    # The roof is the best rate the roof kernel reached in this run,
+    # in the tool or in phase 3.
+    roof_ops_per_s = max(roof_ops_per_s, kt["alu_roof"]["f32_ops"] / (kt["alu_roof"]["ms"] * 1e-3))
     emit({"phase": "seconds", "since_start": time.perf_counter() - T_START, **seconds})
 
     def row(name, replaces, n_launch, err, ms, plain_ms, bound, **more):
@@ -1185,7 +1295,8 @@ def main() -> None:
             kp["pad_plain_ms"], kp["pad_bound"]),
         row("sdf_min_field_padded_bwd", jax_ops + "sdf_grad.py:169",
             pad_launches["sdf_min_field_padded_bwd"], kp["pad_bwd_err"], kp["pad_bwd_ms"],
-            kp["pad_bwd_plain_ms"], kp["pad_bwd_bound"]),
+            kp["pad_bwd_plain_ms"], kp["pad_bwd_bound"], ms_synth_heavy=kp["pad_bwd_ms_heavy"],
+            ms_one_segment_wins_all=kp["pad_bwd_ms_one_wins"]),
         row("sdf_tiles_flat", jax_ops + "legacy.py:147", flat_launches["sdf_tiles_flat"],
             kl["sdf_tiles_flat_err"], kl["sdf_tiles_flat_ms"], kl["sdf_tiles_flat_plain_ms"],
             kl["sdf_tiles_flat_bound"], ms_synth_heavy=kl["sdf_tiles_flat_ms_synth_heavy"]),

@@ -272,3 +272,75 @@ def test_bwd_wrapper_rejects_bad_inputs(bad):
     with pytest.raises(ValueError):
         sdf_cuda.min_field_bwd_cuda(**args)
 
+
+
+@pytest.mark.parametrize("bad", [None, "swapped_rows", "lanes", "words_shape", "words_dtype", "tp"])
+def test_check_flat_plan_holds_both_wrappers_checks(bad):
+    """`check_flat_plan` accepts the flat plan and refuses what either
+    wrapper's per-call check refuses."""
+    plan, _ = _inputs("synth")
+    N, words, tm, tp = plan.N, _t(plan.mask_words), _t(plan.tmeta.T), TP
+    if bad is None:
+        sdf_cuda.check_flat_plan(N, words, tm, tp)
+        sdf_cuda.check_flat_plan(N, words, tm[:, :0].contiguous(), tp)  # an empty table
+        return
+    if bad == "swapped_rows":
+        tm = tm.clone()
+        tm[:, [0, 1]] = tm[:, [1, 0]]
+    elif bad == "lanes":
+        tm = tm.clone()
+        tm[5, 0] = N
+    elif bad == "words_shape":
+        words = words[:-1]
+    elif bad == "words_dtype":
+        words = words.long()
+    else:
+        tp = 100
+    with pytest.raises(ValueError):
+        sdf_cuda.check_flat_plan(N, words, tm, tp)
+
+
+def test_checked_signed_field_is_the_unchecked_one():
+    """``checked=True`` changes which checks run, never the values."""
+    plan, pts = _inputs("synth")
+    ct = _t(_masked_cotangent(plan, seed=3))
+    out = []
+    for checked in (False, True):
+        p = _t(pts).requires_grad_()
+        sd = sdf_grad.signed_field_flat(p, _t(plan.mask_words), _t(plan.tmeta.T), TP,
+                                        checked=checked)
+        (sd * ct).sum().backward()
+        out.append((sd.detach().numpy(), p.grad.numpy()))
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    assert np.abs(out[0][1]).max() > 0
+
+
+def test_fitter_checks_its_plan_once(monkeypatch):
+    """`FontFitter.init` runs the plan's check once; the steps run none
+    of the wrappers' per-call table checks when the launch goes alone
+    (on the CPU the wrappers still serve, so only the count at init is
+    held here)."""
+    calls = []
+    real = sdf_cuda.check_flat_plan
+    monkeypatch.setattr(sdf_cuda, "check_flat_plan",
+                        lambda *a: (calls.append(a[0]), real(*a))[1])
+    b = synth_fit_batch(4, 65, seed=1, depth=DEPTH, perturb=0.3)
+    fitter = fitting.FontFitter(depth=DEPTH, backend="flat", device="cpu")
+    params, opt, dev = fitter.init(b)
+    assert calls == [dev["plan_words"].shape[0] * 32]
+    fitter.step_many(params, opt, dev, 2)
+    assert len(calls) == 1
+    # A plan that the kernels cannot take is refused at init.
+    monkeypatch.setattr(fitting, "build_flat_plan", lambda *a, **k: _broken_plan(*a, **k))
+    with pytest.raises(ValueError, match="tile table"):
+        fitter.init(b)
+
+
+_real_build_flat_plan = fitting.build_flat_plan
+
+
+def _broken_plan(*args, **kwargs):
+    plan = _real_build_flat_plan(*args, **kwargs)
+    plan.tmeta[[0, 1]] = plan.tmeta[[1, 0]]  # a glyph's rows out of order
+    return plan

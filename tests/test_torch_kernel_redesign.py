@@ -1,8 +1,9 @@
 """The decomposition of the redesigned kernels, on the CPU.
 
 ``csrc/sdf_tiles_pts.cu`` (TPU kernel 1), ``csrc/sdf_tiles_flat.cu``
-(TPU kernel 6), ``csrc/sdf_grid_flat.cu`` (TPU kernel 7) and
-``csrc/sdf_min_field_padded.cu`` (TPU kernel 4) compute their plain
+(TPU kernel 6), ``csrc/sdf_grid_flat.cu`` (TPU kernel 7),
+``csrc/sdf_min_field_padded.cu`` (TPU kernel 4) and
+``csrc/sdf_min_field_pts.cu`` (TPU kernel 2) compute their plain
 versions' values by another route than one thread a pixel over every
 segment: live segments compacted chunk by chunk in ballot order (each
 with its index carried where the kernel keeps an argmin), R pixels a
@@ -27,7 +28,18 @@ and list sizes), must give
   FMA so that every multiply and add is rounded separately, as in the
   port.
 
-Tolerance: 0 bytes, 0 bits.
+``csrc/sdf_min_field_padded_bwd.cu`` (TPU kernel 5) routes each pixel's
+terms to its argmin segment: a warp walks a glyph's pixels 32 at a time,
+the lanes of a step with one argmin form a set, and the set's lowest
+lane adds the set's terms in lane order onto the segment's sums. The
+same routing in plain Python must give the bits of a sequential f32
+loop over the pixels (`sdf_torch.min_field_padded_bwd_ordered`) while
+one warp walks a glyph, and the plain version within 1e-4 of the
+largest gradient at every launch shape; one case is held against the
+JAX package's `_run_bwd` in interpret mode.
+
+Tolerance: 0 bytes, 0 bits, but for the backward's plain version (which
+sums in another order): 1e-4 of the largest gradient.
 """
 
 import os
@@ -47,7 +59,8 @@ from versatiles_glyphs_tpu_torch.ops import _build, legacy, sdf_cuda, sdf_torch
 from versatiles_glyphs_tpu_torch.render import batch as tbatch
 from versatiles_glyphs_tpu_torch.tools import kernel_turns, work
 from versatiles_glyphs_tpu_torch.utils.synth_font import (
-    PADDED_EDGE_CASES, curved_preps, padded_edge_case, row_list_edge_preps, unaligned_point_chain,
+    PADDED_BWD_EDGE_CASES, PADDED_EDGE_CASES, curved_preps, out_of_range_argmin, padded_edge_case,
+    row_list_edge_preps, synth_fit_batch, tied_point_chain, unaligned_point_chain,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -201,6 +214,85 @@ def _emulate_tiles_flat(flat, tmeta, TP: int, R: int, stats) -> torch.Tensor:
         byte = _span_bytes((x0, y0, w, h), base, TP, chunks, stats)
         for k in range(R):  # each thread stores its R pixels
             out[t, own[:, k]] = byte[own[:, k]].to(torch.uint8)
+    return out
+
+
+def _emulate_min_field_pts(pts, words, tmeta, TP: int, R: int, stats):
+    """``csrc/sdf_min_field_pts.cu``: `_emulate_tiles_pts`'s tile body
+    with each staged segment carrying its global lane and each pixel
+    keeping its first argmin; three stores a pixel, zeros in a row at or
+    past w·h."""
+    nt = TP // R
+    assert nt % 32 == 0
+    T = tmeta.shape[1]
+    d2 = torch.full((T, TP), -1.0)  # every value must be written
+    wn = torch.full((T, TP), -99, dtype=torch.int64)
+    am = torch.full((T, TP), -99, dtype=torch.int64)
+    own = torch.arange(nt)[:, None] + nt * torch.arange(R)[None, :]  # [tid, k] -> pixel
+    for t in range(T):
+        x0, y0, w, h, npts, off, base, _ = (int(v) for v in tmeta[:, t])
+        if base >= w * h:
+            d2[t], wn[t], am[t] = 0.0, 0, 0
+            continue
+        last = off + npts - 1
+        chunks = []
+        for c0 in range(off, last, CHUNK):
+            lanes = _stage_live(words, c0, min(c0 + CHUNK, last), nt)
+            assert lanes == sorted(lanes)  # lane order: strict `<` keeps the first argmin
+            if not lanes:
+                stats["empty_chunks"] += 1
+                continue
+            v = torch.tensor(lanes)
+            chunks.append((pts[0, v], pts[1, v], pts[0, v + 1], pts[1, v + 1], v))
+        stats["chunks"] = max(stats["chunks"], len(chunks))
+        dmin, w_, amin = _span_fields((x0, y0, w, h), base, TP, chunks, stats)
+        for k in range(R):  # each thread stores its R pixels
+            d2[t, own[:, k]], wn[t, own[:, k]], am[t, own[:, k]] = (
+                dmin[own[:, k]], w_[own[:, k]], amin[own[:, k]])
+    return d2, wn.to(torch.int32), am.to(torch.int32)
+
+
+def _emulate_padded_bwd(segs, meta, am, ct, shape, stats) -> np.ndarray:
+    """``csrc/sdf_min_field_padded_bwd.cu`` at launch shape (threads a
+    block, warps a glyph, segments a pass): warp k of a glyph walks the
+    k-th range of its pixels in steps of 32; the lanes of a step whose
+    am is one segment of the pass form a set, and the set's terms are
+    added in lane order onto the segment's sums of that warp; the
+    glyph's warps are summed in warp order. The terms are the plain
+    version's."""
+    _, wpg, s_chunk = shape
+    B, S = segs.shape[:2]
+    P = am.shape[1]
+    terms = sdf_torch._padded_bwd_terms(segs, meta, am, ct)[2].numpy()
+    am = am.numpy()
+    out = np.full((B, S, 4), np.nan, np.float32)  # every value must be written
+    share = (-(-P // wpg) + 31) // 32 * 32
+    for b in range(B):
+        for c0 in range(0, S, s_chunk):
+            n = min(s_chunk, S - c0)
+            acc = np.zeros((wpg, n, 4), np.float32)
+            for part in range(wpg):
+                p_lo = min(part * share, P)
+                p_hi = min(p_lo + share, P)
+                for p0 in range(p_lo, p_hi, 32):
+                    sets: dict[int, list[int]] = {}
+                    for p in range(p0, min(p0 + 32, p_hi)):  # lanes up: pixels up
+                        if c0 <= am[b, p] < c0 + n:
+                            sets.setdefault(int(am[b, p]), []).append(p)
+                    for key, members in sets.items():  # the leader is members[0]
+                        total = acc[part, key - c0].copy()
+                        for p in members:
+                            total = total + terms[b, p]
+                        acc[part, key - c0] = total
+                    stats["most"] = max([stats["most"], *map(len, sets.values())])
+                    stats["steps"] += 1
+            total = acc[0]
+            for k in range(1, wpg):
+                total = total + acc[k]
+            assert np.isnan(out[b, c0 : c0 + n]).all()
+            out[b, c0 : c0 + n] = total
+            stats["passes"] += 1
+    assert out.dtype == np.float32
     return out
 
 
@@ -364,7 +456,50 @@ def _tiles_case(name):
     return np.array(flat), tmeta, TP
 
 
+def _fit_plan_case():
+    """The flat backend's plan and point chain of 4 curved glyphs at
+    depth 2 from a perturbed start, as `tests/test_torch_fit_ops.py`
+    makes them: (plan, pts [2, N])."""
+    b = synth_fit_batch(4, 65, seed=1, depth=2, perturb=0.3)
+    plan = fitting.build_flat_plan(b.curve_mask, b.meta, 2, b.target.shape[1])
+    params = fitting.init_params(b.curves0, device="cpu")
+    pts = fitting.flat_chain_points(params["curves"], params["translate"], 2,
+                                    torch.as_tensor(plan.chunk_map).long()).detach().numpy()
+    return plan, np.ascontiguousarray(pts, np.float32)
+
+
+def _min_case(name):
+    """(pts, mask words, tile table [8, T], TP) of the min-field tile
+    kernel."""
+    if name == "fit":
+        plan, pts = _fit_plan_case()
+        return pts, plan.mask_words, np.ascontiguousarray(plan.tmeta.T), plan.TP
+    if name == "tied":
+        return (*tied_point_chain(), 256)
+    return _pts_case(name)
+
+
+def _bwd_case(name):
+    """(segs, meta, am, ct) of the padded backward: the argmin of the
+    plain padded min field and a seeded cotangent over every pixel, not
+    masked past w·h."""
+    segs, mask, meta, P = padded_edge_case("holes" if name == "out_of_range" else name)
+    am = sdf_torch.min_field_padded(_t(segs), _t(mask), _t(meta), P)[2]
+    if name == "out_of_range":
+        am = _t(out_of_range_argmin(am.numpy(), segs.shape[1]))
+    ct = np.random.default_rng(len(name)).normal(size=tuple(am.shape)).astype(np.float32)
+    return _t(segs), _t(meta), am, _t(ct)
+
+
 PTS_CASES = ("curved", "heavy", "degenerate", "unaligned", "fallbacks", "tp64")
+MIN_CASES = ("fit", "heavy", "degenerate", "unaligned", "fallbacks", "tp64", "tied")
+BWD_CASES = PADDED_BWD_EDGE_CASES + ("out_of_range",)
+# name -> (threads, warps a glyph, segments a pass) from S and P
+BWD_SHAPES = {
+    "launcher": lambda S, P: sdf_cuda.padded_bwd_launch_shape(S, P),
+    "passes": lambda S, P: (128, 1, max(1, min(S // 3, 64))),
+    "warps4": lambda S, P: sdf_cuda.padded_bwd_launch_shape(S, P, 256, 4),
+}
 TILES_CASES = ("curved", "heavy", "degenerate", "fallbacks", "tp64", "tp32")
 GRID_CASES = ("curved", "curved_tp256", "degenerate", "eight_tiles", "fallbacks")
 PADDED_CASES = PADDED_EDGE_CASES
@@ -591,6 +726,159 @@ def test_grid_kernel_decomposition_gives_the_plain_bytes(jax_twins, case, thread
         assert stats["per_pair"] > 0 and stats["by_row"] > 0
 
 
+_JAX_FITTING_SIDE = r"""
+import sys, numpy as np, jax.numpy as jnp
+from versatiles_glyphs_tpu.ops.sdf_pallas import min_field_pallas_pts
+from versatiles_glyphs_tpu.ops.sdf_grad import _run_bwd, _run_fwd
+
+def up(n, m):
+    return max(-(-n // m) * m, m)
+
+a = dict(np.load(sys.argv[1]))
+d2, wn, am = min_field_pallas_pts(a["pts"], a["words"], a["tmeta"], 256, interpret=True)
+out = {"min_d2": np.asarray(d2), "min_wn": np.asarray(wn), "min_am": np.asarray(am)}
+segs, mask, meta, ct = a["segs"], a["mask"], a["meta"], a["ct"]
+B, S, _ = segs.shape
+P = ct.shape[1]
+Sp, Pp = up(S, 128), up(P, 1024)
+segp = np.pad(segs, ((0, 0), (0, Sp - S), (0, 0)))
+maskp = np.pad(mask, ((0, 0), (0, Sp - S)))
+meta8 = np.zeros((B, 8), np.int32)
+meta8[:, :4] = meta
+_, _, am = _run_fwd(jnp.transpose(segp, (0, 2, 1)), maskp[:, None, :], meta8, Pp, Sp, True)
+gd = np.zeros((B, Pp), np.float32)
+gd[:, :P] = ct
+dsegt = _run_bwd(np.pad(segp, ((0, 0), (0, 0), (0, 124))), meta8, am, gd, Pp, Sp, True)
+out |= {"bwd_am": np.asarray(am)[:, :P], "bwd_dsegs": np.asarray(dsegt)[:, :S, :4]}
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_fitting_kernels(tmp_path_factory):
+    """The JAX package's flat min field (`min_field_pallas_pts`, Pallas
+    interpret mode, as `tests/test_torch_fit_ops.py` runs it) on the
+    ``fit`` case and its padded backward (`_run_bwd` on `_run_fwd`'s
+    argmin, as `tests/test_torch_padded.py` runs them) on the ``holes``
+    case, from one subprocess with XLA's FMA contraction off."""
+    tmp = tmp_path_factory.mktemp("jax_fitting_redesign")
+    plan, pts = _fit_plan_case()
+    segs, mask, meta, _ = padded_edge_case("holes")
+    src, dst = tmp / "in.npz", tmp / "out.npz"
+    np.savez(src, pts=pts, words=plan.mask_words, tmeta=np.ascontiguousarray(plan.tmeta.T),
+             segs=segs, mask=mask,
+             meta=meta, ct=_bwd_case("holes")[3].numpy())
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX",
+               VG_JAX_CACHE_DIR=str(tmp / "jax_cache"))
+    proc = subprocess.run([sys.executable, "-c", _JAX_FITTING_SIDE, str(src), str(dst)], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return dict(np.load(dst))
+
+
+@pytest.mark.parametrize("case,R", [(c, R) for c in MIN_CASES for R in (1, 2, 4)
+                                    if (c, R) != ("tp64", 4)])
+def test_min_field_tile_kernel_decomposition_gives_the_plain_fields(jax_fitting_kernels, case, R):
+    pts, words, tmeta, TP = _min_case(case)
+    assert R <= sdf_cuda.min_field_pixels_per_thread(TP) == (4 if TP == 256 else 2)
+    stats = dict.fromkeys(("per_pair", "by_row", "empty_chunks", "chunks"), 0)
+    got = _emulate_min_field_pts(_t(pts), words, tmeta, TP, R, stats)
+    want = sdf_torch.min_field_pts(_t(pts), _t(words), _t(tmeta), TP)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.numpy().view(np.int32), w.numpy().view(np.int32))
+    d2, wn, am = (t.numpy() for t in got)
+    live_row = tmeta[6] < tmeta[2] * tmeta[3]
+    found = am[live_row] != sdf_torch._BIGI
+    assert found.any() and stats["by_row"] > 0
+    # The argmin is a global lane of its row's run, and a live one.
+    lanes = am[live_row][found]
+    off = np.broadcast_to(tmeta[5][live_row, None], am[live_row].shape)[found]
+    npts = np.broadcast_to(tmeta[4][live_row, None], am[live_row].shape)[found]
+    assert (lanes >= off).all() and (lanes < off + npts - 1).all()
+    assert ((words[lanes >> 5] >> (lanes & 31)) & 1).all()
+    if case == "fit":  # the Pallas kernel, over the same plan
+        for g, name in zip(got, ("d2", "wn", "am")):
+            np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                          jax_fitting_kernels[f"min_{name}"].view(np.int32))
+    if case == "heavy":  # ~1,000 lanes a glyph: the argmin crosses chunks
+        assert stats["chunks"] > 2 and (lanes - off >= 2 * CHUNK).any()
+    if case == "unaligned":
+        assert int(tmeta[5, 0]) % 32 and stats["empty_chunks"] >= 1
+        # The all-dead glyph and the rows of npts <= 1 keep the sentinel;
+        # the row past w*h is zeros.
+        assert (am[2:5] == sdf_torch._BIGI).all() and (d2[2:5] == np.float32(sdf_torch._BIG)).all()
+        assert not am[5].any() and not d2[5].any() and not wn[5].any()
+        assert set(np.unique(am[:2])) <= set(range(37, 56)) | set(range(57, 86))
+    if case == "fallbacks":
+        assert stats["per_pair"] > 0  # too many rows, too many crossings
+    if case == "tied":  # lanes 8 and 308 are one segment, in two staged chunks
+        assert stats["chunks"] == 2 and (am == 8).any() and not (am == 308).any()
+        assert (am == 403).any()
+
+
+@pytest.mark.parametrize("shape", list(BWD_SHAPES))
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_padded_backward_routing_gives_the_pixel_order_sums(jax_fitting_kernels, case, shape):
+    segs, meta, am, ct = _bwd_case(case)
+    B, S = segs.shape[:2]
+    P = am.shape[1]
+    threads, wpg, s_chunk = launch = BWD_SHAPES[shape](S, P)
+    assert 16 * s_chunk * threads // 32 <= sdf_cuda.PADDED_BWD_SMEM and (threads // 32) % wpg == 0
+    stats = dict.fromkeys(("most", "steps", "passes"), 0)
+    got = _emulate_padded_bwd(segs, meta, am, ct, launch, stats)
+    twin = sdf_torch.min_field_padded_bwd(segs, meta, am, ct).numpy()
+    ordered = sdf_torch.min_field_padded_bwd_ordered(segs, meta, am, ct).numpy()
+    scale = np.abs(twin).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, twin, rtol=0, atol=1e-4 * scale)
+    if wpg == 1:  # one warp a glyph: every sum in pixel order
+        np.testing.assert_array_equal(got.view(np.int32), ordered.view(np.int32))
+    assert stats["passes"] == B * -(-S // s_chunk)
+    if shape == "launcher":
+        assert (wpg, s_chunk) == ((2 if case == "large" else 1), S)
+        assert stats["steps"] == B * wpg * -(-(-(-P // wpg)) // 32)
+    if shape == "passes":
+        assert s_chunk < S and stats["passes"] >= 3 * B
+    if shape == "warps4":
+        assert wpg == 4
+    # A segment no pixel chose, and every segment of a glyph without a
+    # live one, gets zeros.
+    chosen = np.zeros((B, S), bool)
+    ok = (am.numpy() >= 0) & (am.numpy() < S)
+    chosen[np.nonzero(ok)[0], am.numpy()[ok]] = True
+    assert not got[~chosen].any() and (~chosen).any()
+    if case == "holes" and wpg == 1:  # the Pallas kernel, on its own argmin
+        np.testing.assert_array_equal(am.numpy(), jax_fitting_kernels["bwd_am"])
+        np.testing.assert_allclose(got, jax_fitting_kernels["bwd_dsegs"], rtol=0, atol=1e-4 * scale)
+    if case == "one_wins":  # a step's 32 lanes are one set
+        assert stats["most"] == 32 and (np.count_nonzero(chosen[0]), chosen[0, 5]) == (1, True)
+    if case == "degenerate":
+        assert not ok[2].any() and not got[2].any()
+    if case == "out_of_range":
+        assert (~ok).mean() > 0.05 and (am.numpy()[~ok] < 0).any() and (am.numpy()[~ok] >= S).any()
+    if case == "large":
+        assert P > sdf_cuda.PADDED_BWD_WARP_PIXELS
+
+
+def test_pixel_order_sums_are_a_sequential_loop():
+    """`sdf_torch.min_field_padded_bwd_ordered` against a loop over the
+    glyphs, the pixels and the four terms, one f32 addition at a time."""
+    segs, meta, am, ct = _bwd_case("out_of_range")
+    B, S = segs.shape[:2]
+    terms = sdf_torch._padded_bwd_terms(segs, meta, am, ct)[2].numpy()
+    want = np.zeros((B, S, 4), np.float32)
+    for b in range(B):
+        for p in range(am.shape[1]):
+            s = int(am[b, p])
+            if 0 <= s < S:
+                for k in range(4):
+                    want[b, s, k] = want[b, s, k] + terms[b, p, k]
+    got = sdf_torch.min_field_padded_bwd_ordered(segs, meta, am, ct).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.abs(want).max() > 0
+
+
 def test_launch_helpers():
     # A block is whole warps: two pixels a thread only at multiples of 64.
     assert [sdf_cuda.pixels_per_thread(tp) for tp in (32, 64, 96, 128, 256, 1024)] == [1, 2, 1, 2, 2, 2]
@@ -620,11 +908,37 @@ def test_launch_helpers():
     for bad in ((0, 4), (48, 4), (512, 4), (256, 0), (256, 5)):
         with pytest.raises(ValueError, match="threads|r="):
             sdf_cuda.padded_launch_shape(768, *bad)
+    # The flat min field: four pixels a thread where that leaves whole warps.
+    assert [sdf_cuda.min_field_pixels_per_thread(tp) for tp in (32, 64, 96, 128, 256, 1024)] == [
+        1, 2, 1, 4, 4, 4]
+    assert sdf_cuda.min_field_pixels_per_thread(256, 2) == 2
+    with pytest.raises(ValueError, match="r=3"):
+        sdf_cuda.min_field_pixels_per_thread(256, 3)
+    # The padded backward: (threads a block, warps a glyph, segments a
+    # pass); one warp a glyph up to PADDED_BWD_WARP_PIXELS pixels, and
+    # the accumulators of a block's warps within PADDED_BWD_SMEM.
+    assert sdf_cuda.padded_bwd_launch_shape(128, 768) == (128, 1, 128)
+    assert sdf_cuda.padded_bwd_launch_shape(352, 768) == (128, 1, 352)
+    assert sdf_cuda.padded_bwd_launch_shape(128, 2048) == (128, 1, 128)
+    assert sdf_cuda.padded_bwd_launch_shape(128, 2049) == (128, 2, 128)
+    assert sdf_cuda.padded_bwd_launch_shape(128, sdf_cuda.MAX_PADDED_PIXELS) == (128, 4, 128)
+    assert sdf_cuda.padded_bwd_launch_shape(5000, 768) == (128, 1, 768)
+    assert sdf_cuda.padded_bwd_launch_shape(5000, 768, 1024, 8) == (1024, 8, 96)
+    assert sdf_cuda.padded_bwd_launch_shape(1, 0) == (128, 1, 1)
+    for S in (1, 8, 352, 769, 100000):
+        for threads in (32, 128, 256, 1024):
+            t, w, c = sdf_cuda.padded_bwd_launch_shape(S, 768, threads)
+            assert (t, w) == (threads, 1) and 1 <= c <= S
+            assert 16 * c * threads // 32 <= sdf_cuda.PADDED_BWD_SMEM
+    for bad in ({"threads": 0}, {"threads": 48}, {"threads": 2048}, {"warps": 3}, {"warps": 0}):
+        with pytest.raises(ValueError, match="threads|warps"):
+            sdf_cuda.padded_bwd_launch_shape(128, 768, **bad)
 
 
 def test_sizes_are_the_sources():
     """The launchers' constants against ``csrc/sdf_pair.cuh``,
-    ``csrc/sdf_grid_flat.cu`` and ``csrc/sdf_min_field_padded.cu``."""
+    ``csrc/sdf_grid_flat.cu``, ``csrc/sdf_min_field_padded.cu``,
+    ``csrc/sdf_min_field_pts.cu`` and ``csrc/sdf_min_field_padded_bwd.cu``."""
     csrc = os.path.join(os.path.dirname(pkg.__file__), "csrc")
     with open(os.path.join(csrc, "sdf_pair.cuh")) as f:
         header = f.read()
@@ -649,6 +963,19 @@ def test_sizes_are_the_sources():
         with open(os.path.join(csrc, name + ".cu")) as f:
             text = f.read()
         assert f"launch_r<{sdf_cuda.TILE_PIXELS_PER_THREAD}>" in text and "vg::render_tile<R>(" in text
+    # The render tile is the shared tile body keeping no argmin; the flat
+    # min field is the same body with one, compiled for the launcher's
+    # pixels a thread.
+    assert "tile_body<R, Pixels<R>>(staging" in header
+    with open(os.path.join(csrc, "sdf_min_field_pts.cu")) as f:
+        text = f.read()
+    assert f"launch_r<{sdf_cuda.MIN_FIELD_PIXELS_PER_THREAD}>" in text
+    assert "vg::tile_body<R, vg::MinPixels<R>>(vg::ChainStaging{" in text
+    assert "pts[n_lanes + lane + 1], lane);" in header  # stage_live carries the lane
+    with open(os.path.join(csrc, "sdf_min_field_padded_bwd.cu")) as f:
+        text = f.read()
+    assert int(re.search(r"constexpr int kSmemMax = (\d+) \* 1024;", text)[1]) * 1024 == sdf_cuda.PADDED_BWD_SMEM
+    assert "vg::match_keys(" in text and "vg::add_in_lane_order(" in text and "atomic" not in text.split("#include")[1]
 
 
 def test_row_shared_pair_ops_are_counted_from_the_source():
@@ -756,15 +1083,20 @@ def test_ptxas_report_parses_a_log(tmp_path):
 
 
 def test_kernel_turns_variants_and_no_card(monkeypatch, capsys):
-    assert kernel_turns.parse_variant("shipped") == {"label": "shipped", "r": None, "threads": None}
+    assert kernel_turns.parse_variant("shipped") == {
+        "label": "shipped", "r": None, "threads": None, "warps": None}
     assert kernel_turns.parse_variant("r2,r=2")["r"] == 2
     assert kernel_turns.parse_variant("t,threads=128")["threads"] == 128
-    assert kernel_turns.parse_variant("a,threads=256,r=4") == {"label": "a", "r": 4, "threads": 256}
+    assert kernel_turns.parse_variant("a,threads=256,r=4") == {
+        "label": "a", "r": 4, "threads": 256, "warps": None}
+    assert kernel_turns.parse_variant("w,warps=2,threads=64") == {
+        "label": "w", "r": None, "threads": 64, "warps": 2}
     assert kernel_turns.KERNELS == {
         "sdf_tiles_pts": ("r",), "sdf_grid_flat": ("threads",), "sdf_tiles_flat": ("r",),
-        "sdf_min_field_padded": ("threads", "r")}
+        "sdf_min_field_padded": ("threads", "r"), "sdf_min_field_pts": ("r",),
+        "sdf_min_field_padded_bwd": ("threads", "warps")}
     assert set(kernel_turns.KERNELS) <= set(sdf_cuda.KERNELS)
-    for bad in ("x,r=two", "x,r", ",r=2", "x,speed=9"):
+    for bad in ("x,r=two", "x,r", ",r=2", "x,speed=9", "x,warps=", "x,warps=-1"):
         with pytest.raises(ValueError):
             kernel_turns.parse_variant(bad)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -773,7 +1105,9 @@ def test_kernel_turns_variants_and_no_card(monkeypatch, capsys):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             kernel_turns.main(["--kernel", kernel])
     # An option the kernel does not take is refused before anything runs.
-    for kernel, variant in (("sdf_tiles_flat", "t,threads=64"), ("sdf_grid_flat", "r,r=2")):
+    for kernel, variant in (("sdf_tiles_flat", "t,threads=64"), ("sdf_grid_flat", "r,r=2"),
+                            ("sdf_min_field_pts", "t,threads=64"), ("sdf_min_field_pts", "w,warps=2"),
+                            ("sdf_min_field_padded_bwd", "r,r=2"), ("sdf_tiles_pts", "w,warps=2")):
         with pytest.raises(ValueError, match="takes no"):
             kernel_turns.main(["--kernel", kernel, "--variant", variant])
     assert capsys.readouterr().out == "" and not any(sdf_cuda.LAUNCHES.values())

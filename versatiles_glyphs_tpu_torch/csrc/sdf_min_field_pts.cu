@@ -7,23 +7,49 @@
 // min of d^2 over the glyph's live segments, the winding number and the
 // global lane of the FIRST argmin segment: the facts the backward
 // (sdf_min_field_bwd.cu) needs to route the gradient of the hard min.
+// Rows whose pix_base is at or past w*h write zeros in all three
+// outputs; pixels past w*h in a live row are computed like the others
+// (the backward drops them).
 //
-// Work: as in sdf_tiles_pts.cu, one thread block per tile-table row and
-// one thread per pixel; each chunk of TP segments is staged in shared
-// memory with its divides done once; d^2, argmin and winding stay in
-// registers. The running (dmin, amin) pair updates on a strict `<` while
-// the lanes go up, so ties keep the smallest lane, and a pixel with no
-// live segment keeps the sentinel 2^31 - 1. Rows whose pix_base is at or
-// past w*h write zeros in all three outputs; pixels past w*h in a live
-// row are computed like the others (the backward drops them).
+// Bound: f32 instruction slots, as the render kernels; the three outputs
+// are 12 bytes a pixel. The function is counted by
+// tools/work.row_shared_work (16 f32 operations a (pixel, live segment)
+// pair, 2 a bitmap row and segment, 4 a crossing and 1 a pixel of its
+// row). The design is the render tile kernel's (sdf_tiles_pts.cu), whose
+// tile body it shares (sdf_pair.cuh, `tile_body` over `ChainStaging`),
+// with the padded min field's pixels (sdf_min_field_padded.cu,
+// `MinPixels`):
 //
-// Bound: FP32 ALU, as the render kernel; the three outputs are 12 bytes
-// a pixel. It keeps SegChunk's loop (one pixel a thread, a validity
-// branch a staged segment, a crossing test a pair: 22 f32 operations a
-// pair executed), while its bound counts the function by
-// tools/work.row_shared_work; SegRecords' masked staging, MinPixels and
-// row lists (sdf_min_field_padded.cu) fit it as they are. Parity with the plain version (ops/sdf_torch.min_field_pts):
-// d^2 bit for bit, winding and argmin exactly, by the shared op order of
+// - one block of TP / R threads a tile-table row, thread tid owning the
+//   R pixels tid, tid + TP/R, ... of the tile with their running min of
+//   d^2, first argmin and winding count in registers; the three stores
+//   of a warp stay contiguous. The launcher picks R
+//   (ops/sdf_cuda.min_field_pixels_per_thread);
+// - the glyph's lane run is walked in chunks of kRecChunk lanes; only a
+//   chunk's live lanes are staged, compacted in lane order by warp
+//   ballot, as 32-byte records read by two 16-byte broadcast loads that
+//   serve the thread's R pixels. The loop has no validity word and no
+//   branch and is unrolled by four; a chunk with no live lane is
+//   skipped whole;
+// - a record's spare word carries the segment's global lane, which is
+//   what the argmin must be (the backward reads it as a lane of pts) and
+//   is neither the slot of a compacted segment nor the lane less the
+//   run's start;
+// - the running (dmin, amin) pair updates on a strict `<` while the
+//   staged segments go up in lane order, chunk after chunk, so ties
+//   keep the smallest lane also across chunks and with dead lanes
+//   between, and a pixel with no live segment keeps 3e38 and the
+//   sentinel 2^31 - 1;
+// - the winding goes by bitmap row (`RowLists`): the block tests each
+//   staged segment once against each row of the tile and a pixel sums
+//   its row's few crossings, so the loop over the segments keeps a
+//   pair's 16 distance operations, one compare and two selects. A tile
+//   of more than kRowsMax rows (a bitmap under 4 pixels wide at TP =
+//   256) or a row with more than kRowCross crossings in one chunk takes
+//   the loop that tests every pair's crossing.
+//
+// Parity with the plain version (ops/sdf_torch.min_field_pts): d^2 bit
+// for bit, winding and argmin exactly, by the shared op order of
 // sdf_pair.cuh under --fmad=false.
 
 #include <cstdint>
@@ -34,54 +60,22 @@
 
 namespace {
 
-__global__ void sdf_min_field_pts_kernel(
+template <int R>
+__global__ void __launch_bounds__(1024 / R) sdf_min_field_pts_kernel(
     const float* __restrict__ pts, int n_lanes,
     const int32_t* __restrict__ mask_words,
     const int32_t* __restrict__ tmeta, int n_tiles,
     float* __restrict__ d2_out, int32_t* __restrict__ wn_out,
     int32_t* __restrict__ am_out) {
-  extern __shared__ float smem[];
-  const int tp = blockDim.x;
-  const vg::SegChunk seg(smem, tp);
+  vg::tile_body<R, vg::MinPixels<R>>(vg::ChainStaging{pts, n_lanes, mask_words}, tmeta, n_tiles,
+                                     vg::MinFieldStore{d2_out, wn_out, am_out});
+}
 
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const vg::TileRow r = vg::load_tile(tmeta, n_tiles, t);
-  const size_t o = static_cast<size_t>(t) * tp + tid;
-
-  if (r.base >= r.w * r.h) {  // the same for every thread of the block
-    d2_out[o] = 0.0f;
-    wn_out[o] = 0;
-    am_out[o] = 0;
-    return;
-  }
-
-  float pxc, pyc;
-  vg::pixel_center(r, r.base + tid, pxc, pyc);
-
-  float dmin = vg::kBig;
-  int amin = vg::kBigI;
-  int wn = 0;
-  const int last = r.off + r.npts - 1;  // segments are lanes [off, last)
-  for (int c0 = r.off; c0 < last; c0 += tp) {
-    const int lane = c0 + tid;
-    if (lane < last) seg.stage(pts, n_lanes, mask_words, lane, tid);
-    __syncthreads();
-    const int nseg = min(tp, last - c0);
-    for (int j = 0; j < nseg; ++j) {
-      if (!seg.ok[j]) continue;  // the same segment for every thread
-      const float d2 = seg.d2_and_winding(j, pxc, pyc, wn);
-      if (d2 < dmin) {
-        dmin = d2;
-        amin = c0 + j;
-      }
-    }
-    __syncthreads();
-  }
-
-  d2_out[o] = dmin;
-  wn_out[o] = wn;
-  am_out[o] = amin;
+template <int R>
+void launch_r(const float* pts, int n_lanes, const int32_t* mask_words, const int32_t* tmeta,
+              int n_tiles, int tp, float* d2, int32_t* wn, int32_t* am, cudaStream_t stream) {
+  sdf_min_field_pts_kernel<R><<<n_tiles, tp / R, 0, stream>>>(
+      pts, n_lanes, mask_words, tmeta, n_tiles, d2, wn, am);
 }
 
 }  // namespace
@@ -89,19 +83,19 @@ __global__ void sdf_min_field_pts_kernel(
 // Launches the kernel on `stream` (a cudaStream_t) and returns
 // cudaGetLastError(). Pointers are device pointers: pts [2, n_lanes]
 // f32, mask_words [n_lanes / 32] i32, tmeta [8, n_tiles] i32, and the
-// outputs d2 f32, wn i32, am i32, each [n_tiles, tp]. tp is the block
-// size (a multiple of 32, at most 1024). The caller checks shapes and
-// bounds.
+// outputs d2 f32, wn i32, am i32, each [n_tiles, tp]. tp is the tile's
+// pixel count and r the pixels a thread (1, 2 or 4; tp / r is the block
+// size, a multiple of 32, at most 1024 / r). The caller checks shapes
+// and bounds.
 extern "C" int vg_sdf_min_field_pts(
     const void* pts, int n_lanes, const void* mask_words, const void* tmeta,
-    int n_tiles, int tp, void* d2, void* wn, void* am, void* stream) {
+    int n_tiles, int tp, int r, void* d2, void* wn, void* am, void* stream) {
   if (n_tiles == 0) return 0;
-  const size_t smem = vg::kSegChunkWords * static_cast<size_t>(tp) * sizeof(float);
-  sdf_min_field_pts_kernel<<<n_tiles, tp, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), n_lanes,
-      static_cast<const int32_t*>(mask_words),
-      static_cast<const int32_t*>(tmeta), n_tiles,
-      static_cast<float*>(d2), static_cast<int32_t*>(wn),
-      static_cast<int32_t*>(am));
+  if ((r != 1 && r != 2 && r != 4) || tp % (32 * r) || tp < 32 * r || tp > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = r == 4 ? launch_r<4> : r == 2 ? launch_r<2> : launch_r<1>;
+  launch(static_cast<const float*>(pts), n_lanes, static_cast<const int32_t*>(mask_words),
+         static_cast<const int32_t*>(tmeta), n_tiles, tp, static_cast<float*>(d2),
+         static_cast<int32_t*>(wn), static_cast<int32_t*>(am), static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

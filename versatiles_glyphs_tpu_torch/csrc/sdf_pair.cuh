@@ -4,14 +4,20 @@
 // sdf_min_field_padded_bwd.cu, sdf_tiles_pts_acc.cu).
 //
 // Two inner routines live here. `SegChunk` (eight scalar arrays, one
-// pixel a thread, a crossing test a pair) serves sdf_min_field_pts.cu
-// and sdf_tiles_pts_acc.cu; the backward kernels take `project` alone.
+// pixel a thread, a validity word and a crossing test a pair) is the
+// per-pair implementation: sdf_tiles_pts_acc.cu alone runs it, and the
+// other render kernels are held against that kernel's bytes.
 // `SegRecords` (one segment = two float4, live segments only, R pixels
-// a thread, crossings listed by bitmap row) serves the render kernels
-// sdf_tiles_pts.cu and sdf_tiles_flat.cu (one tile body, `render_tile`,
-// that differs in its staging), sdf_grid_flat.cu and, with the first
-// argmin carried in the record, sdf_min_field_padded.cu. Both evaluate
-// the same expressions in the same order, so they give the same bits.
+// a thread, crossings listed by bitmap row) serves the tile kernels
+// sdf_tiles_pts.cu, sdf_tiles_flat.cu and sdf_min_field_pts.cu (one
+// tile body, `tile_body`, that differs in its staging, in what a pixel
+// keeps and in what it stores), sdf_grid_flat.cu and
+// sdf_min_field_padded.cu; the two min-field kernels find the first
+// argmin in the index a record carries. Both routines evaluate the same
+// expressions in the same order, so they give the same bits. The
+// backward kernels take `project` alone, and sdf_min_field_padded_bwd.cu
+// routes a pixel's terms to its argmin segment with the warp's key sets
+// at the end of this file (`match_keys`, `add_in_lane_order`).
 //
 // One definition of the tile-row read, the pixel center, the
 // point-to-segment projection, the crossing test and the quantization
@@ -79,8 +85,7 @@ __device__ __forceinline__ void project(float ex, float ey, float dx, float dy,
 }
 
 // Segment chunk staged in shared memory by a block of tp threads (tp is
-// the block size, which is the tile's pixel count except in
-// sdf_tiles_pts_acc.cu): the
+// the block size: sdf_tiles_pts_acc.cu's TP * split threads): the
 // derived terms of segment (pts[:, lane], pts[:, lane + 1]) at index
 // lane - c0, divides paid once per segment and block.
 struct SegChunk {
@@ -151,8 +156,8 @@ struct SegChunk {
 constexpr int kSegChunkWords = 8;  // shared words per thread of SegChunk
 
 // ---- Packed records, R pixels a thread, crossings by row ----
-// (sdf_tiles_pts.cu, sdf_tiles_flat.cu, sdf_grid_flat.cu,
-// sdf_min_field_padded.cu)
+// (sdf_tiles_pts.cu, sdf_tiles_flat.cu, sdf_min_field_pts.cu,
+// sdf_grid_flat.cu, sdf_min_field_padded.cu)
 //
 // The pair math above costs 22 f32 instructions, and with SegChunk about
 // 16 more instruction slots around them (eight 4-byte shared loads, a validity
@@ -272,8 +277,9 @@ struct SegRecords {
   }
 
   // Point-chain layout: the block stages the live lanes among
-  // [c0, cend) (at most kRecChunk lanes, cend < n_lanes) in lane order
-  // and returns their count. A lane's slot is the live count before its
+  // [c0, cend) (at most kRecChunk lanes, cend < n_lanes) in lane order,
+  // each with its lane carried (the argmin of sdf_min_field_pts.cu is a
+  // global lane), and returns their count. A lane's slot is the live count before its
   // warp's 32 lanes, from the validity words, plus the live lanes below
   // it in the warp's ballot: a glyph's run starts at any lane, so a
   // warp's lanes straddle two words. Dead lanes never reach shared
@@ -293,7 +299,7 @@ struct SegRecords {
         const int warp0 = min(c0 + i0 + (tid & ~31), cend);
         const int slot = live_between(mask_words, c0, warp0) +
                          __popc(ballot & ((1u << (tid & 31)) - 1u));
-        put(slot, pts[lane], pts[n_lanes + lane], pts[lane + 1], pts[n_lanes + lane + 1]);
+        put(slot, pts[lane], pts[n_lanes + lane], pts[lane + 1], pts[n_lanes + lane + 1], lane);
       }
     }
     return live_between(mask_words, c0, cend);
@@ -446,11 +452,13 @@ __device__ __forceinline__ uint8_t sdf_byte(float dmin, int wn, float scale,
   return static_cast<uint8_t>(floorf(n + 0.5f));
 }
 
-// ---- The render tile body (sdf_tiles_pts.cu, sdf_tiles_flat.cu) ----
+// ---- The tile body (sdf_tiles_pts.cu, sdf_tiles_flat.cu,
+// sdf_min_field_pts.cu) ----
 //
-// The two tile kernels differ in how a glyph's segments reach the
-// records and in where the glyph's run of lanes ends; a staging says
-// both. stage() is called by every thread of the block for lanes
+// The tile kernels differ in how a glyph's segments reach the records
+// and in where the glyph's run of lanes ends (a staging says both), in
+// what a pixel keeps (Pixels or MinPixels) and in what it stores (a
+// store). stage() is called by every thread of the block for lanes
 // [c0, cend) of the run, at most kRecChunk, and returns the number of
 // segments it staged in slots 0 .. n - 1, the same for every thread.
 
@@ -480,16 +488,48 @@ struct SoupStaging {
   }
 };
 
+// What the render kernels store of a pixel: its SDF byte in out
+// [n_tiles, TP].
+struct ByteStore {
+  float scale, cutoff;
+  uint8_t* out;
+
+  __device__ __forceinline__ void zero(size_t o) const { out[o] = 0; }
+  template <class Px>
+  __device__ __forceinline__ void put(size_t o, const Px& px, int k) const {
+    out[o] = sdf_byte(px.dmin[k], px.wn[k], scale, cutoff);
+  }
+};
+
+// What the min-field kernel stores of a pixel: the min of d^2, the
+// winding number and the first argmin, each [n_tiles, TP].
+struct MinFieldStore {
+  float* d2;
+  int32_t* wn;
+  int32_t* am;
+
+  __device__ __forceinline__ void zero(size_t o) const {
+    d2[o] = 0.0f;
+    wn[o] = 0;
+    am[o] = 0;
+  }
+  template <class Px>
+  __device__ __forceinline__ void put(size_t o, const Px& px, int k) const {
+    d2[o] = px.dmin[k];
+    wn[o] = px.wn[k];
+    am[o] = px.amin[k];
+  }
+};
+
 // Tile-table row blockIdx.x of tmeta [8, n_tiles] by a block of TP / R
-// threads: thread tid renders pixels tid + k * TP / R, k < R, of the
-// tile against the glyph's staged segments and stores their bytes in
-// out [n_tiles, TP] (a warp's stores are contiguous). A row whose
+// threads: thread tid takes pixels tid + k * TP / R, k < R, of the tile
+// against the glyph's staged segments and stores what `store` keeps of
+// them at [n_tiles, TP] (a warp's stores are contiguous). A row whose
 // pix_base is at or past w*h is zeros.
-template <int R, class Staging>
-__device__ __forceinline__ void render_tile(const Staging& staging,
-                                            const int32_t* __restrict__ tmeta, int n_tiles,
-                                            float scale, float cutoff,
-                                            uint8_t* __restrict__ out) {
+template <int R, class Px, class Staging, class Store>
+__device__ __forceinline__ void tile_body(const Staging& staging,
+                                          const int32_t* __restrict__ tmeta, int n_tiles,
+                                          const Store& store) {
   __shared__ float4 smem[2 * kRecChunk];
   __shared__ RowLists rows;
   const SegRecords seg(smem);
@@ -498,11 +538,11 @@ __device__ __forceinline__ void render_tile(const Staging& staging,
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const TileRow r = load_tile(tmeta, n_tiles, t);
-  uint8_t* dst = out + static_cast<size_t>(t) * nt * R + tid;
+  const size_t o = static_cast<size_t>(t) * nt * R + tid;
 
   if (r.base >= r.w * r.h) {  // the same for every thread of the block
 #pragma unroll
-    for (int k = 0; k < R; ++k) dst[k * nt] = 0;
+    for (int k = 0; k < R; ++k) store.zero(o + k * nt);
     return;
   }
 
@@ -511,7 +551,7 @@ __device__ __forceinline__ void render_tile(const Staging& staging,
   const int row0 = r.base / ws;
   const int nrows = (r.base + nt * R - 1) / ws - row0 + 1;
   const bool use_rows = nrows <= kRowsMax;
-  Pixels<R> px;
+  Px px;
   px.init(r, r.base + tid, nt, row0);
 
   const int last = staging.last(r);
@@ -526,7 +566,67 @@ __device__ __forceinline__ void render_tile(const Staging& staging,
   }
 
 #pragma unroll
-  for (int k = 0; k < R; ++k) dst[k * nt] = sdf_byte(px.dmin[k], px.wn[k], scale, cutoff);
+  for (int k = 0; k < R; ++k) store.put(o + k * nt, px, k);
+}
+
+// The render kernels' tile: `tile_body` keeping the min of d^2 and the
+// winding of a pixel and storing its byte in out [n_tiles, TP].
+template <int R, class Staging>
+__device__ __forceinline__ void render_tile(const Staging& staging,
+                                            const int32_t* __restrict__ tmeta, int n_tiles,
+                                            float scale, float cutoff,
+                                            uint8_t* __restrict__ out) {
+  tile_body<R, Pixels<R>>(staging, tmeta, n_tiles, ByteStore{scale, cutoff, out});
+}
+
+// ---- A warp's lanes grouped by key (sdf_min_field_padded_bwd.cu) ----
+//
+// A backward kernel adds each pixel's terms to the accumulators of the
+// pixel's argmin segment. A warp that walks pixels 32 at a time groups
+// its lanes by that key: the lanes with one key are a set, the lowest
+// of them its leader, and the leader alone adds the set's terms, in
+// lane order, which is pixel order. No two lanes then add to one
+// accumulator, so the sum needs no atomics and its order is fixed by
+// the inputs.
+
+struct KeySets {
+  unsigned peers;  // the lanes of this lane's set (itself included)
+  bool leader;     // this lane is the lowest of a set with a key >= 0
+  int most;        // lanes in the warp's largest such set
+};
+
+// Groups the warp's lanes by `key`; lanes with a negative key join no
+// set (they have no leader). Every lane of the warp calls it.
+__device__ __forceinline__ KeySets match_keys(int key) {
+  KeySets s;
+  s.peers = __match_any_sync(0xffffffffu, key);
+  s.leader = key >= 0 && (threadIdx.x & 31) == __ffs(s.peers) - 1;
+  s.most = static_cast<int>(__reduce_max_sync(0xffffffffu, s.leader ? __popc(s.peers) : 0u));
+  return s;
+}
+
+// On a set's leader, adds the terms t of the set's lanes onto `sum`,
+// one lane after the other from the lowest, component by component
+// (sum = ((sum + t0) + t1) + ...). Other lanes' `sum` is untouched.
+// Every lane of the warp calls it.
+__device__ __forceinline__ void add_in_lane_order(const KeySets& s, const float4& t,
+                                                  float4& sum) {
+  unsigned rest = s.peers;
+  for (int k = 0; k < s.most; ++k) {
+    const bool more = rest != 0u;
+    const int src = __ffs(rest) - 1;  // -1 once the set is spent: any lane will do
+    rest &= rest - 1u;
+    const float x = __shfl_sync(0xffffffffu, t.x, src);
+    const float y = __shfl_sync(0xffffffffu, t.y, src);
+    const float z = __shfl_sync(0xffffffffu, t.z, src);
+    const float w = __shfl_sync(0xffffffffu, t.w, src);
+    if (s.leader && more) {
+      sum.x += x;
+      sum.y += y;
+      sum.z += z;
+      sum.w += w;
+    }
+  }
 }
 
 }  // namespace vg

@@ -250,14 +250,18 @@ def flat_chain_points(curves, translate, depth: int, chunk_map) -> torch.Tensor:
 def make_flat_kernel_loss(plan: FlatKernelPlan, depth: int):
     """Loss of the flat backend. The plan's arrays ride in the device
     batch (``plan_tmeta`` [8, T_pad], ``plan_words``, ``row_map``,
-    ``chunk_map``); its static ints are closed over."""
+    ``chunk_map``); its static ints are closed over. The batch's plan
+    arrays must have passed `ops.sdf_cuda.check_flat_plan` (as
+    `FontFitter.init` has them): the kernels launch without their
+    wrappers' per-step checks, each of which would synchronize the
+    host."""
     from ..ops.sdf_grad import signed_field_flat
 
     TP = plan.TP
 
     def loss_fn(params, batch):
         flat = flat_chain_points(params["curves"], params["translate"], depth, batch["chunk_map"])
-        field = signed_field_flat(flat, batch["plan_words"], batch["plan_tmeta"], TP)
+        field = signed_field_flat(flat, batch["plan_words"], batch["plan_tmeta"], TP, checked=True)
         B = params["curves"].shape[0]
         fb = field.index_select(0, batch["row_map"].reshape(-1)).reshape(B, -1)
         losses = sdf_loss(fb * torch.exp(params["log_gain"]), batch["target"], batch["pix_mask"])
@@ -320,6 +324,8 @@ class FontFitter:
             "target": torch.as_tensor(batch.target, dtype=torch.float32, device=dev),
         }
         if self.backend == "flat":
+            from ..ops.sdf_cuda import check_flat_plan
+
             plan = build_flat_plan(batch.curve_mask, batch.meta, self.depth, batch.target.shape[1])
             self._loss = make_flat_kernel_loss(plan, self.depth)
             dev_batch["meta"] = torch.as_tensor(batch.meta, dtype=torch.int32, device=dev)
@@ -327,6 +333,8 @@ class FontFitter:
             dev_batch["plan_words"] = torch.as_tensor(plan.mask_words, device=dev)
             dev_batch["row_map"] = torch.as_tensor(plan.row_map, dtype=torch.int64, device=dev)
             dev_batch["chunk_map"] = torch.as_tensor(plan.chunk_map, dtype=torch.int64, device=dev)
+            # Once, here: the loss launches the kernels without checks.
+            check_flat_plan(plan.N, dev_batch["plan_words"], dev_batch["plan_tmeta"], plan.TP)
         else:
             depth, sharpness = self.depth, self.sharpness
             self._loss = lambda p, b: batch_loss(p, b, depth, sharpness)

@@ -9,14 +9,19 @@ The port's nine hand-written kernels, each on the current stream:
   pixels a thread (`pixels_per_thread`); it stages only a chunk's live
   segments, as 32-byte records, and tests a segment's crossing once a
   bitmap row of the tile instead of once a pixel;
-- ``sdf_min_field_pts`` (fitting forward): `min_field_cuda_pts`;
+- ``sdf_min_field_pts`` (fitting forward): `min_field_cuda_pts`. The
+  render tile kernel's body with the first argmin kept: a staged
+  segment carries its global lane (`min_field_pixels_per_thread`);
 - ``sdf_min_field_bwd`` (fitting backward): `min_field_bwd_cuda`;
 - ``sdf_min_field_padded`` (padded-layout fitting forward):
   `min_field_cuda_padded`. A block renders a span of up to four pixels
   a thread of one glyph (`padded_launch_shape`), stages the glyph's live
   segments in order with their indices carried for the argmin, and
   takes the winding from the same per-row crossing lists;
-- ``sdf_min_field_padded_bwd`` (its backward): `min_field_padded_bwd_cuda`;
+- ``sdf_min_field_padded_bwd`` (its backward): `min_field_padded_bwd_cuda`.
+  A warp walks a glyph's pixels in order and routes each pixel's terms
+  to its argmin segment's accumulators, the lanes of a step grouped by
+  segment (`padded_bwd_launch_shape`); no scan of the segments;
 - ``sdf_tiles_flat`` and ``sdf_grid_flat`` (render over the flat
   segment layout): wrapped in `ops.legacy`; the flat tile kernel is
   ``sdf_tiles_pts``'s tile body over a staged soup, and the grid kernel
@@ -33,7 +38,8 @@ CPU tensors it runs the kernel's plain version in `ops.sdf_torch`.
 There is no fallback from one to the other: a build or launch that
 fails raises. Each wrapper checks dtypes, shapes and the tile table's
 bounds (one host sync) before it launches; ``launch_*`` is the launch
-alone, for a caller that has checked its inputs.
+alone, for a caller that has checked its inputs (the fitter checks its
+static plan once, `check_flat_plan`).
 
 The i8-delta decode, the dequantize and the tile table (the XLA
 prepass steps of the TPU path) are plain PyTorch ops on the tensor's
@@ -69,12 +75,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> (C symbol, ctypes argument types)
 _SIGNATURES = {
     "sdf_tiles_pts": ("vg_sdf_tiles_pts", [_P, _I, _P, _P, _I, _I, _I, _F, _F, _P, _P]),
-    "sdf_min_field_pts": ("vg_sdf_min_field_pts", [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P]),
+    "sdf_min_field_pts": ("vg_sdf_min_field_pts", [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
     "sdf_min_field_bwd": ("vg_sdf_min_field_bwd", [_P, _I, _P, _P, _P, _I, _I, _P, _P]),
     "sdf_min_field_padded": (
         "vg_sdf_min_field_padded", [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
     "sdf_min_field_padded_bwd": (
-        "vg_sdf_min_field_padded_bwd", [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P]),
+        "vg_sdf_min_field_padded_bwd", [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "sdf_tiles_flat": ("vg_sdf_tiles_flat", [_P, _I, _P, _I, _I, _I, _F, _F, _P, _P]),
     "sdf_grid_flat": ("vg_sdf_grid_flat", [_P, _I, _P, _I, _I, _I, _I, _F, _F, _P, _P]),
     "alu_roof": ("vg_alu_roof", [_I, _I, _I, _F, _I, _P, _P]),
@@ -93,8 +99,16 @@ PADDED_THREADS = 128
 PADDED_PIXELS_PER_THREAD = 3
 PADDED_THREADS_MAX = 256
 PADDED_PIXELS_PER_THREAD_MAX = 4
-# Segments per block of the padded backward.
-PADDED_TS = 128
+# ``sdf_min_field_padded_bwd``: threads a block (each warp a glyph, or
+# one of the ranges of a glyph's pixels; 64 to 512 are within 2 % of
+# each other on the text font's fit batch, 128 is faster than 256 and
+# 512 on the heavy font's, `tools.kernel_turns`), the pixels up to which one
+# warp walks a whole glyph, and the shared memory a block's
+# accumulators may take (kSmemMax of the source; 16 bytes a segment and
+# warp), which sizes the chunk of segments a pass covers.
+PADDED_BWD_THREADS = 128
+PADDED_BWD_WARP_PIXELS = 2048
+PADDED_BWD_SMEM = 48 * 1024
 # Pixel indices below this split into rows by integer div and mod as the
 # TPU's f32 division does (`versatiles_glyphs_tpu.ops.sdf_grad._pixel_coords`).
 MAX_PADDED_PIXELS = 1 << 23
@@ -109,8 +123,14 @@ ACC_SPLIT = 4
 # on both synthesized fonts, `tools.kernel_turns`; the kernels are
 # compiled for 1 and 2).
 TILE_PIXELS_PER_THREAD = 2
+# Pixels a thread of ``sdf_min_field_pts`` where TP allows it (a block
+# of TP / 4 threads a tile: faster than 1 and than 2 on both synthesized
+# fonts' fit plans, `tools.kernel_turns`; the kernel is compiled for 1,
+# 2 and 4).
+MIN_FIELD_PIXELS_PER_THREAD = 4
 # Sizes of ``csrc/sdf_pair.cuh`` that shape the work of ``sdf_tiles_pts``,
-# ``sdf_tiles_flat``, ``sdf_grid_flat`` and ``sdf_min_field_padded``:
+# ``sdf_tiles_flat``, ``sdf_min_field_pts``, ``sdf_grid_flat`` and
+# ``sdf_min_field_padded``:
 # segments a staged chunk (kRecChunk), bitmap
 # rows of a block's pixels that get a crossing list (kRowsMax), and
 # crossings a row lists for one chunk (kRowCross); past either the
@@ -151,14 +171,21 @@ def _launch(name: str, device: torch.device, *args) -> None:
 def _check(pts, mask_words, tmeta, TP: int) -> None:
     if pts.dtype != torch.float32 or pts.dim() != 2 or pts.shape[0] != 2:
         raise ValueError(f"pts must be [2, N] float32, got {tuple(pts.shape)} {pts.dtype}")
-    N = pts.shape[1]
+    _check_plan_shapes(pts.shape[1], mask_words, tmeta, TP)
+    if pts.device != tmeta.device:
+        raise ValueError("pts, mask_words and tmeta must be on one device")
+
+
+def _check_plan_shapes(N: int, mask_words, tmeta, TP: int) -> None:
+    """Mask words and tile table of a point chain of N lanes: dtypes,
+    shapes and one device (no host sync)."""
     if N % 32 or mask_words.dtype != torch.int32 or tuple(mask_words.shape) != (N // 32,):
         raise ValueError(
             f"mask_words must be [{N // 32}] int32 for N={N} (a multiple of 32), "
             f"got {tuple(mask_words.shape)} {mask_words.dtype}"
         )
     _check_tmeta(tmeta, TP)
-    if not (pts.device == mask_words.device == tmeta.device):
+    if mask_words.device != tmeta.device:
         raise ValueError("pts, mask_words and tmeta must be on one device")
 
 
@@ -329,9 +356,22 @@ def min_field_cuda_pts(
     return launch_min_field_pts(pts, mask_words, tmeta, TP)
 
 
-def launch_min_field_pts(pts, mask_words, tmeta, TP: int):
+def min_field_pixels_per_thread(TP: int, r: int = MIN_FIELD_PIXELS_PER_THREAD) -> int:
+    """Pixels a thread of the min-field tile kernel at tile size ``TP``:
+    the largest of 1, 2 and 4 that is at most ``r`` and leaves a block
+    of whole warps (TP a multiple of 32 times it)."""
+    if r not in (1, 2, 4):
+        raise ValueError(f"r={r} must be 1, 2 or 4")
+    while TP % (32 * r):
+        r //= 2
+    return r
+
+
+def launch_min_field_pts(pts, mask_words, tmeta, TP: int, r: int | None = None):
     """The min-field kernel on inputs the caller has checked (see
-    `min_field_cuda_pts`): allocate the outputs and launch."""
+    `min_field_cuda_pts`): allocate the outputs and launch, a block of
+    TP / r threads a tile (``r`` pixels a thread: 1, 2 or 4 with TP a
+    multiple of 32·r; None: `min_field_pixels_per_thread`)."""
     N, T = pts.shape[1], tmeta.shape[1]
     d2 = torch.empty((T, TP), dtype=torch.float32, device=pts.device)
     wn = torch.empty((T, TP), dtype=torch.int32, device=pts.device)
@@ -339,7 +379,8 @@ def launch_min_field_pts(pts, mask_words, tmeta, TP: int):
     if T:
         _launch(
             "sdf_min_field_pts", pts.device, pts.data_ptr(), N, mask_words.data_ptr(),
-            tmeta.data_ptr(), T, TP, d2.data_ptr(), wn.data_ptr(), am.data_ptr(),
+            tmeta.data_ptr(), T, TP, r or min_field_pixels_per_thread(TP), d2.data_ptr(),
+            wn.data_ptr(), am.data_ptr(),
         )
     return d2, wn, am
 
@@ -357,6 +398,25 @@ def _bad_glyph_rows(tmeta, N: int, TP: int) -> torch.Tensor:
     has_next = torch.cat([same, no])
     broken = ((base > 0) & ~has_prev) | ((base + TP < npix) & ~has_next)
     return live & (_lanes_out_of_bounds(tmeta, N) | (base < 0) | broken)
+
+
+def check_flat_plan(N: int, mask_words, tmeta, TP: int) -> None:
+    """Both launch checks of the flat fitting pair, `min_field_cuda_pts`'s
+    and `min_field_bwd_cuda`'s, on a static plan (mask words and tile
+    table on one device) for a point chain of ``N`` lanes: what a
+    caller runs once before it steps through `launch_min_field_pts` and
+    `launch_min_field_bwd` (one host sync for a plan on the card)."""
+    _check_plan_shapes(N, mask_words, tmeta, TP)
+    if not (mask_words.is_contiguous() and tmeta.is_contiguous()):
+        raise ValueError("kernel inputs must be contiguous")
+    if not tmeta.shape[1]:
+        return
+    bad = _lanes_out_of_bounds(tmeta, N).any() | _bad_glyph_rows(tmeta, N, TP).any()
+    if bool(bad):
+        raise ValueError(
+            f"tile table addresses lanes outside [0, {N}) or its rows are not "
+            f"consecutive per glyph (TP={TP})"
+        )
 
 
 def min_field_bwd_cuda(
@@ -499,8 +559,11 @@ def min_field_padded_bwd_cuda(
     """Backward of the padded min field (counterpart of
     `sdf_grad._run_bwd` without the TPU's lane padding): dsegs [B, S, 4]
     f32 (dvx, dvy, dwx, dwy) from the argmin segments am [B, P] i32 and
-    the cotangent of d², ct_d2 [B, P] f32. The kernel is deterministic
-    (no atomics)."""
+    the cotangent of d², ct_d2 [B, P] f32. An am outside [0, S) (the
+    sentinel 2³¹−1) adds nothing. The kernel is deterministic (no
+    atomics): while one warp walks a glyph (`padded_bwd_launch_shape`)
+    each segment's sum is taken in pixel order, the bits of
+    `sdf_torch.min_field_padded_bwd_ordered`."""
     P = am.shape[1] if am.dim() == 2 else -1
     _, meta = _padded_inputs(segs, None, meta, max(P, 0))
     B = segs.shape[0]
@@ -515,19 +578,49 @@ def min_field_padded_bwd_cuda(
     if segs.device.type == "cpu":
         return min_field_padded_bwd(segs, meta, am, ct_d2)
     _cuda_inputs(segs, meta, am, ct_d2)
+    if segs.data_ptr() % 16:
+        raise ValueError("segs must be 16-byte aligned (the kernel loads a segment at once)")
     return launch_min_field_padded_bwd(segs, meta, am, ct_d2)
 
 
-def launch_min_field_padded_bwd(segs, meta, am, ct_d2) -> torch.Tensor:
+def padded_bwd_launch_shape(
+    S: int, P: int, threads: int = PADDED_BWD_THREADS, warps: int | None = None
+) -> tuple[int, int, int]:
+    """(threads a block, warps a glyph, segments a pass) of the padded
+    backward kernel for S ≥ 1 segments and P pixels a glyph. A block is
+    ``threads`` threads; a glyph takes ``warps`` of its warps, each a
+    contiguous range of the glyph's pixels (None: one warp while a glyph
+    has at most ``PADDED_BWD_WARP_PIXELS`` pixels, which keeps each
+    segment's sum in pixel order, else the fewest warps that divide the
+    block's and leave a warp at most that many pixels, up to the whole
+    block). A warp's accumulators take 16 bytes a segment; a pass covers
+    as many of the S segments as ``PADDED_BWD_SMEM`` holds for the
+    block's warps, and a glyph of more is walked once a pass."""
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"threads={threads} must be a multiple of 32 in [32, 1024]")
+    n_warps = threads // 32
+    if warps is None:
+        fits = [w for w in range(1, n_warps + 1)
+                if n_warps % w == 0 and -(-P // w) <= PADDED_BWD_WARP_PIXELS]
+        warps = fits[0] if fits else n_warps
+    if warps < 1 or n_warps % warps:
+        raise ValueError(f"warps={warps} must divide the block's {n_warps} warps")
+    return threads, warps, max(1, min(S, PADDED_BWD_SMEM // (16 * n_warps)))
+
+
+def launch_min_field_padded_bwd(segs, meta, am, ct_d2, shape=None) -> torch.Tensor:
     """The padded backward kernel on inputs the caller has checked (see
     `min_field_padded_bwd_cuda`: meta [B, 4] i32): allocate the output
-    (the kernel writes all of it) and launch."""
+    (the kernel writes all of it) and launch. ``shape``: (threads a
+    block, warps a glyph, segments a pass); None:
+    `padded_bwd_launch_shape`."""
     B, S = segs.shape[:2]
     P = am.shape[1]
     dsegs = torch.empty((B, S, 4), dtype=torch.float32, device=segs.device)
     if B and S:
         _launch(
             "sdf_min_field_padded_bwd", segs.device, segs.data_ptr(), B, S, meta.data_ptr(),
-            am.data_ptr(), ct_d2.data_ptr(), P, PADDED_TS, dsegs.data_ptr(),
+            am.data_ptr(), ct_d2.data_ptr(), P, *(shape or padded_bwd_launch_shape(S, P)),
+            dsegs.data_ptr(),
         )
     return dsegs

@@ -12,7 +12,10 @@ min reaches the argmin segment alone, with its clamped projection
 parameter held fixed: ``∂d²/∂v = 2q·(tc−1)``, ``∂d²/∂w = −2q·tc``. The
 backward kernel (`ops.sdf_cuda.min_field_bwd_cuda`) sums those per lane
 from ``ct_d2 = ct·sgn·0.5/d``. The sign is piecewise constant and gets
-no gradient. On CPU tensors both steps run their plain versions.
+no gradient. On CPU tensors both steps run their plain versions. The
+wrappers check the tile table each call (a host sync each); a caller
+that ran `ops.sdf_cuda.check_flat_plan` once on a static plan passes
+``checked=True`` and both steps go to the launch alone.
 
 `signed_field_padded`, over the padded per-glyph layout [B, S, 4]:
 `MinD2Padded` is the JAX package's custom-VJP primitive `_min_d2_wn`,
@@ -29,6 +32,9 @@ from __future__ import annotations
 import torch
 
 from .sdf_cuda import (
+    _check,
+    launch_min_field_bwd,
+    launch_min_field_pts,
     min_field_bwd_cuda,
     min_field_cuda_padded,
     min_field_cuda_pts,
@@ -41,8 +47,15 @@ class SignedFieldFlat(torch.autograd.Function):
     """``sd [T, TP]`` from ``pts [2, N]``; see the module docstring."""
 
     @staticmethod
-    def forward(ctx, pts, mask_words, tmeta, TP: int):
-        d2, wn, am = min_field_cuda_pts(pts.detach(), mask_words, tmeta, TP)
+    def forward(ctx, pts, mask_words, tmeta, TP: int, checked: bool = False):
+        # The launch alone only on the card: CPU tensors take the
+        # wrappers and their plain versions.
+        ctx.launch_alone = checked and pts.device.type == "cuda"
+        if ctx.launch_alone:
+            _check(pts, mask_words, tmeta, TP)  # shapes and dtypes: no sync
+            d2, wn, am = launch_min_field_pts(pts.detach().contiguous(), mask_words, tmeta, TP)
+        else:
+            d2, wn, am = min_field_cuda_pts(pts.detach(), mask_words, tmeta, TP)
         d = sqrt_rn(torch.clamp(d2, min=1e-12))
         sgn = torch.where(wn != 0, -1.0, 1.0)
         ctx.save_for_backward(pts, am, d, sgn, tmeta)
@@ -56,20 +69,25 @@ class SignedFieldFlat(torch.autograd.Function):
         # no live segment carry d² = 3e38; their (masked) cotangents meet
         # a finite 1/d.
         ct_d2 = ct_sd * sgn * (0.5 / d)
-        dpts = min_field_bwd_cuda(pts.detach(), am, ct_d2.contiguous(), tmeta, ctx.TP)
-        return dpts, None, None, None
+        bwd = launch_min_field_bwd if ctx.launch_alone else min_field_bwd_cuda
+        dpts = bwd(pts.detach().contiguous(), am, ct_d2.contiguous(), tmeta, ctx.TP)
+        return dpts, None, None, None, None
 
 
 def signed_field_flat(
-    pts: torch.Tensor, mask_words: torch.Tensor, tmeta: torch.Tensor, TP: int = 256
+    pts: torch.Tensor, mask_words: torch.Tensor, tmeta: torch.Tensor, TP: int = 256,
+    *, checked: bool = False,
 ) -> torch.Tensor:
     """Differentiable signed distance [T, TP] f32 (negative inside).
 
     pts [2, N] f32 (segment i = points i, i+1 where mask bit i is set),
     mask_words [N//32] i32, tmeta [8, T] i32 (the kernel layout: the flat
     plan's row-major table transposed). Rows of padding tiles are 1e-6
-    (mask them). Gradients flow to ``pts`` only."""
-    return SignedFieldFlat.apply(pts, mask_words, tmeta, TP)
+    (mask them). Gradients flow to ``pts`` only. ``checked``: the caller
+    has run `ops.sdf_cuda.check_flat_plan` on these mask words and this
+    table for ``pts``'s lane count, and they are contiguous on ``pts``'s
+    device; the kernels then launch without the per-call checks."""
+    return SignedFieldFlat.apply(pts, mask_words, tmeta, TP, checked)
 
 
 class MinD2Padded(torch.autograd.Function):

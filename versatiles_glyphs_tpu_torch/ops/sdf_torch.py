@@ -438,6 +438,31 @@ def min_field_padded(segs: torch.Tensor, mask: torch.Tensor, meta: torch.Tensor,
     return d2_out, wn_out, am_out
 
 
+def _padded_bwd_terms(segs, meta, am, ct_d2):
+    """Per pixel of the padded backward: whether its argmin is a segment
+    (0 ≤ am < S), that segment's index (0 where it is none) and its four
+    terms [B, P, 4] (2g·q·(tc−1) for dv, −2g·q·tc for dw; zeros where am
+    is no segment), tc and q recomputed in the forward's op order."""
+    B, S = segs.shape[:2]
+    P = am.shape[1]
+    px, py = _padded_centers(meta.to(torch.int32), P)
+    live = (am >= 0) & (am < S)
+    a = torch.where(live, am, 0).long()
+    vx, vy, wx, wy = segs.gather(1, a[:, :, None].expand(B, P, 4)).unbind(-1)
+    dx = wx - vx
+    dy = wy - vy
+    l2 = dx * dx + dy * dy
+    l2inv = torch.where(l2 > 0.0, torch.reciprocal(l2), 0.0)
+    ex = px - vx
+    ey = py - vy
+    num = ex * dx + ey * dy
+    tc = torch.clamp(num * l2inv, 0.0, 1.0)
+    gqx = (2.0 * (ex - tc * dx)) * ct_d2
+    gqy = (2.0 * (ey - tc * dy)) * ct_d2
+    terms = torch.stack([gqx * (tc - 1.0), gqy * (tc - 1.0), -(gqx * tc), -(gqy * tc)], dim=-1)
+    return live, a, torch.where(live[:, :, None], terms, 0.0)
+
+
 def min_field_padded_bwd(
     segs: torch.Tensor, meta: torch.Tensor, am: torch.Tensor, ct_d2: torch.Tensor
 ) -> torch.Tensor:
@@ -457,22 +482,32 @@ def min_field_padded_bwd(
     dsegs = torch.zeros((B, S, 4), dtype=torch.float32, device=segs.device)
     if B == 0 or S == 0 or P == 0:
         return dsegs
-    px, py = _padded_centers(meta.to(torch.int32), P)
-    live = (am >= 0) & (am < S)
-    a = torch.where(live, am, 0).long()
-    vx, vy, wx, wy = segs.gather(1, a[:, :, None].expand(B, P, 4)).unbind(-1)
-    dx = wx - vx
-    dy = wy - vy
-    l2 = dx * dx + dy * dy
-    l2inv = torch.where(l2 > 0.0, torch.reciprocal(l2), 0.0)
-    ex = px - vx
-    ey = py - vy
-    num = ex * dx + ey * dy
-    tc = torch.clamp(num * l2inv, 0.0, 1.0)
-    gqx = (2.0 * (ex - tc * dx)) * ct_d2
-    gqy = (2.0 * (ey - tc * dy)) * ct_d2
-    terms = torch.stack([gqx * (tc - 1.0), gqy * (tc - 1.0), -(gqx * tc), -(gqy * tc)], dim=-1)
-    terms = torch.where(live[:, :, None], terms, 0.0)
+    _, a, terms = _padded_bwd_terms(segs, meta, am, ct_d2)
     rows = torch.arange(B, device=segs.device)[:, None] * S + a
     dsegs.view(B * S, 4).index_add_(0, rows.reshape(-1), terms.reshape(-1, 4))
+    return dsegs
+
+
+def min_field_padded_bwd_ordered(
+    segs: torch.Tensor, meta: torch.Tensor, am: torch.Tensor, ct_d2: torch.Tensor
+) -> torch.Tensor:
+    """`min_field_padded_bwd` with each segment's sum taken in pixel
+    order: a sequential f32 loop over the pixels, every glyph at once.
+    Step p adds pixel p's terms of every glyph onto its argmin segment's
+    sums; a glyph has one pixel p, so no step adds twice to one element
+    and the order of every sum is the pixels' (on any device). The
+    padded backward kernel sums in this order while one warp walks a
+    glyph, and then gives these bits. P small kernels' worth of steps: a
+    reference, not a fast path."""
+    B, S = segs.shape[:2]
+    P = am.shape[1]
+    dsegs = torch.zeros((B, S, 4), dtype=torch.float32, device=segs.device)
+    if B == 0 or S == 0 or P == 0:
+        return dsegs
+    # A pixel with no segment adds zeros at segment 0, which changes no
+    # sum: a sum starts at +0.0 and is never -0.0.
+    _, a, terms = _padded_bwd_terms(segs, meta, am, ct_d2)
+    glyphs = torch.arange(B, device=segs.device)
+    for p in range(P):
+        dsegs[glyphs, a[:, p]] += terms[:, p]
     return dsegs

@@ -285,7 +285,28 @@ def unaligned_point_chain():
     return pts, words, np.ascontiguousarray(tmeta)
 
 
+def tied_point_chain():
+    """A hand-made point chain (pts [2, 512] f32, mask words [16] i32,
+    tile table [8, 2] i32 at 256 pixels a tile) for the min-field tile
+    kernel's first argmin: one glyph of 400 points from lane 5, two
+    staged chunks of lanes, four live segments, of which lanes 8 and 308
+    are the same segment (the tie goes to 8, across the chunks and the
+    dead lanes between)."""
+    pts = np.zeros((2, 512), np.float32)
+    bits = np.zeros(512, bool)
+    for lane, (v, w) in {8: ((2.0, 2.0), (12.0, 15.0)), 308: ((2.0, 2.0), (12.0, 15.0)),
+                         105: ((-2.0, 19.0), (0.0, 19.5)), 403: ((15.0, -2.0), (15.5, 0.0))}.items():
+        pts[:, lane], pts[:, lane + 1] = v, w
+        bits[lane] = True
+    words = np.packbits(bits, bitorder="little").view(np.int32)
+    tmeta = np.array([[-3, -3, 19, 23, 400, 5, 0, 0], [-3, -3, 19, 23, 400, 5, 256, 0]], np.int32).T
+    return pts, words, np.ascontiguousarray(tmeta)
+
+
 PADDED_EDGE_CASES = ("holes", "narrow", "comb", "chunks", "degenerate")
+# The padded backward's: those, a glyph whose every pixel has one argmin
+# segment, and a glyph of more pixels than one warp walks.
+PADDED_BWD_EDGE_CASES = PADDED_EDGE_CASES + ("one_wins", "large")
 
 
 def padded_edge_case(name: str):
@@ -301,7 +322,10 @@ def padded_edge_case(name: str):
     segments, more than a staged chunk; glyph 1 has four live ones, of
     which 3 and 260 are the same segment (the tie goes to 3).
     ``degenerate``: zero-length and horizontal segments, negative
-    origins, and a glyph with every segment masked (the sentinel)."""
+    origins, and a glyph with every segment masked (the sentinel).
+    ``one_wins``: glyph 0 has one live segment, so it wins every pixel.
+    ``large``: 4,096 pixels a glyph, more than one warp of the padded
+    backward kernel walks."""
     if name == "degenerate":
         segs = np.zeros((3, 8, 4), np.float32)
         segs[0, :6] = [[3, 4, 7, 4], [2, 2, 6, 2], [6, 2, 6, 6], [6, 6, 2, 6], [2, 6, 2, 2],
@@ -317,6 +341,8 @@ def padded_edge_case(name: str):
         "narrow": (8, 2, 40, (0, 0, 5, 64), 768),
         "comb": (9, 2, 48, (0, 0, 16, 10), 160),
         "chunks": (10, 2, 300, (-3, -3, 19, 23), 19 * 23),
+        "one_wins": (11, 2, 24, (-2, -2, 17, 17), 300),
+        "large": (12, 3, 40, (0, 0, 64, 64), 4096),
     }[name]
     rng = np.random.default_rng(seed)
     x0, y0, w, h = box
@@ -329,9 +355,23 @@ def padded_edge_case(name: str):
         segs[0] = np.stack([x, np.where(up, 0.2, 9.8), x, np.where(up, 9.8, 0.2)], 1)
         mask[0] = 1.0
         mask[1, 12:] = 0.0  # glyph 1 stays inside the lists
+    if name == "one_wins":
+        mask[0] = 0.0
+        mask[0, 5] = 1.0
     if name == "chunks":
         mask[1] = 0.0
         mask[1, [3, 100, 260, 299]] = 1.0
         segs[1, 3] = segs[1, 260] = [2.0, 2.0, 12.0, 15.0]
         segs[1, 100], segs[1, 299] = [-2.0, 19.0, 0.0, 19.5], [15.0, -2.0, 15.5, 0.0]
     return segs, mask, np.tile(np.array([box], np.int32), (B, 1)), P
+
+
+def out_of_range_argmin(am: np.ndarray, S: int, seed: int = 0) -> np.ndarray:
+    """``am`` [B, P] i32 with about an eighth of its entries, drawn from
+    a numpy seed, replaced by values that name no segment of [0, S):
+    negative ones, S and beyond, the sentinel 2³¹−1 and −2³¹. The padded
+    backward must add nothing for them."""
+    rng = np.random.default_rng(seed)
+    bad = np.array([-1, -7, S, S + 9, 2**31 - 1, -(2**31)], np.int64)
+    out = np.where(rng.uniform(size=am.shape) < 0.125, rng.choice(bad, size=am.shape), am)
+    return out.astype(np.int32)

@@ -10,10 +10,11 @@ for Hopper, sm_90a). It imports the port (`versatiles_glyphs_tpu_torch`),
 torch and numpy, and never JAX or the JAX package. Phases, each printing
 JSON lines:
 
-1. device — the card's name and power limit (nvidia-smi).
+1. device — the card's name and power limit (nvidia-smi), its SM count
+   and top SM clock.
 2. build  — nvcc builds every kernel from ``csrc/``, one process each,
    all at once, and ptxas's report (registers, spills, shared memory)
-   of the six redesigned kernels is printed; g++ builds the
+   of the eight redesigned kernels is printed; g++ builds the
    native host library from ``csrc/vg_native.cpp``
    (`proto.native.require`).
 3. kernel — each kernel against its plain PyTorch version on the card,
@@ -28,7 +29,12 @@ JSON lines:
    (the hand-made chain, the glyphs past the crossing lists' sizes, 64
    pixels a tile) and on a glyph whose lanes 8 and 308 are one segment
    (the tie goes to 8, across staged chunks): d² bit-equal, winding and
-   argmin exact. The backward kernel at the full fit batch: within
+   argmin exact. The backward kernel at the full fit batch, at the heavy
+   font's (also in passes of 64 lanes and at 128 threads a block), on a
+   cotangent past w·h, one lane winning every pixel of a glyph, argmins
+   outside their glyph's run, runs off a multiple of 32, runs of npts
+   <= 1 and the degenerate plan's sentinels: 0 bits from the sum in
+   pixel order (`sdf_torch.min_field_bwd_pts_ordered`), within
    1e-4·max|dpts| of the plain version (whose scatter-add on the card
    sums in no fixed order), and bit-identical across two runs; the flat
    field's forward and backward on the host clock with the wrappers'
@@ -89,9 +95,12 @@ The slice and the fit enter below the font parser, so that they need no
 fontTools: their outlines are synthesized (the same outlines as a TTF
 through the CLIs are held against the JAX package by the CPU tests).
 Then a ``{"kernels": [...]}`` line (the nine kernels, each with its
-launches on its path, its time, its plain version's time and its bound:
+launches on its path, its time by CUDA events over back-to-back launches
+and replayed from a CUDA graph, its plain version's time and its bound:
 the larger of its f32 operations over 67 TFLOP/s and its bytes over
-3.35 TB/s, counted from this run's inputs by `tools.work`), and last ``{"ok": true, "device":
+3.35 TB/s, counted from this run's inputs by `tools.work`; the ALU roof
+kernel also with its share of the un-fused issue rate, SMs × 128 × the
+top SM clock read in phase 1), and last ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero.
 """
 
@@ -121,17 +130,24 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def phase_device() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def nvidia_smi(query: str, *fmt) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader" + "".join(fmt)],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> tuple[int, float]:
+    """Print the card's name and power limit; return its SM count and
+    top SM clock (MHz), the yardstick of the ALU roof's issue rate."""
+    smi = nvidia_smi("name,power.limit")
     print(smi, flush=True)
-    name = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "name": name, "nvidia_smi": smi,
-          "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
-    return smi
+    clock = float(nvidia_smi("clocks.max.sm", ",nounits"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "count": torch.cuda.device_count(), "sms": sms, "sm_clock_max_mhz": clock,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    return sms, clock
 
 
 def phase_build() -> None:
@@ -145,9 +161,10 @@ def phase_build() -> None:
         emit({"phase": "build", "kernel": name, "arch": "sm_90a",
               "so": os.path.relpath(so, ROOT), "nvcc_s": nvcc_s})
     emit({"phase": "build", "all_s": time.perf_counter() - t0})
-    # What ptxas said of the six redesigned kernels (-Xptxas -v).
+    # What ptxas said of the eight redesigned kernels (-Xptxas -v).
     for name in ("sdf_tiles_pts", "sdf_grid_flat", "sdf_tiles_flat", "sdf_min_field_padded",
-                 "sdf_min_field_pts", "sdf_min_field_padded_bwd"):
+                 "sdf_min_field_pts", "sdf_min_field_padded_bwd", "sdf_min_field_bwd",
+                 "sdf_tiles_pts_acc"):
         so = _build.BUILDS[name][0]
         emit({"phase": "build", "kernel": name, "ptxas": _build.ptxas_report(so)})
     from versatiles_glyphs_tpu_torch.proto import native
@@ -204,6 +221,14 @@ def degenerate_preps():
                       rings_px=[np.array([[3.0, 3.0], [12.0, 3.0], [12.0, 12.0], [3.0, 3.0]]),
                                 np.array([[6.0, 6.0], [6.0, 6.0], [7.0, 6.0]])])
     return [box, rings]
+
+
+def graph_ms(fn, reps: int) -> float:
+    """`tools.roofline.graph_ms`: ``fn``'s launches replayed from a CUDA
+    graph, the card's time without the host's enqueue in it."""
+    from versatiles_glyphs_tpu_torch.tools.roofline import graph_ms as replayed_ms
+
+    return replayed_ms(fn, reps)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -314,6 +339,7 @@ def phase_kernel(preps, heavy) -> dict:
     kern, plain = cases["f32"]
     rec = {"phase": "kernel", "kernel": "sdf_tiles_pts", "case": "f32",
            "ms": time_ms(lambda: sdf_cuda.launch_tiles_pts(*f32_inputs, TP), 50),
+           "graph_ms": graph_ms(lambda: sdf_cuda.launch_tiles_pts(*f32_inputs, TP), 50),
            "call_ms": time_ms(kern, 50), "plain_ms": time_ms(plain, 3)}
     rec.update(pixels_per_thread=sdf_cuda.pixels_per_thread(TP),
                ms_synth_heavy=time_ms(lambda: sdf_cuda.launch_tiles_pts(*heavy_inputs, TP), 50),
@@ -338,27 +364,6 @@ def heavy_fit_batch():
     return synth_fit_batch(1150, 0x600, seed=1, quads=24, depth=FIT_DEPTH, perturb=0.35)
 
 
-def degenerate_fit_case():
-    """A flat-plan point chain with zero-length curves, a horizontal line,
-    a square, and a glyph with no live segment (the argmin sentinel)."""
-    from versatiles_glyphs_tpu_torch.models import fitting
-
-    curves = np.zeros((3, 8, 4, 2), np.float32)
-    mask = np.zeros((3, 8), bool)
-    lines = [((3, 4), (7, 4)), ((2, 2), (6, 2)), ((6, 2), (6, 6)), ((6, 6), (2, 6)),
-             ((2, 6), (2, 2))]
-    for c, (a, b) in enumerate(lines):
-        a, b = np.array(a, np.float32), np.array(b, np.float32)
-        curves[0, c] = [a, a + (b - a) / 3, a + 2 * (b - a) / 3, b]
-    curves[0, 5:7] = 4.5
-    mask[0, :7] = True
-    meta = np.array([[0, 0, 10, 9], [0, 0, 17, 17], [-2, -1, 12, 6]], np.int32)
-    plan = fitting.build_flat_plan(mask, meta, 2, 512)
-    chain = fitting.flat_chain_points(torch.tensor(curves), torch.zeros(3, 2), 2,
-                                      torch.as_tensor(plan.chunk_map).long())
-    return plan, chain.contiguous()
-
-
 def fit_inputs(batch, dev):
     """The flat backend's kernel inputs at the start of the fit: the
     point chain [2, N], mask words and tile table on the card."""
@@ -372,22 +377,33 @@ def fit_inputs(batch, dev):
     return pts, db["plan_words"], db["plan_tmeta"]
 
 
-def phase_fit_kernels(batch, preps) -> dict:
+def phase_fit_kernels(batch, heavy_batch, preps) -> dict:
     """Kernels 2 and 3 against their plain versions at the fit's shapes;
     kernel 2 also on degenerate segments, on the render tile kernel's
     edge inputs (`tile_kernel_edge_cases`: it shares that kernel's
     staging and crossing lists) and on a tie across staged chunks
-    (`utils.synth_font.tied_point_chain`). Returns the numbers of the
-    kernels line."""
+    (`utils.synth_font.tied_point_chain`). Kernel 3 on kernel 2's argmin
+    at the fit batch (the cotangent masked past w·h, as the loss masks
+    it), at the heavy font's (~400 lanes a glyph, also in passes of 64
+    lanes and at 128 threads a block), on the degenerate plan's
+    sentinels and on `utils.synth_font.FLAT_BWD_EDGE_CASES` (a
+    cotangent over every pixel, one lane winning every pixel of a glyph,
+    argmins outside their glyph's run, runs off a multiple of 32, runs
+    of npts <= 1): 0 bits from the sum in pixel order
+    (`sdf_torch.min_field_bwd_pts_ordered`), within 1e-4·max of the
+    plain version and bit-identical across two runs. Returns the numbers
+    of the kernels line."""
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
     from versatiles_glyphs_tpu_torch.render.batch import wire_to_device
     from versatiles_glyphs_tpu_torch.tools import work
     from versatiles_glyphs_tpu_torch.tools.roofline import first_group
-    from versatiles_glyphs_tpu_torch.utils.synth_font import tied_point_chain
+    from versatiles_glyphs_tpu_torch.utils.synth_font import (
+        FLAT_BWD_EDGE_CASES, degenerate_fit_plan, flat_bwd_edge_case, tied_point_chain,
+    )
 
     dev = torch.device("cuda", 0)
     pts, words, tmeta = fit_inputs(batch, dev)
-    plan, dpts_ = degenerate_fit_case()
+    plan, dpts_ = degenerate_fit_plan()
     cases = {"fit": (pts, words, tmeta, TP),
              "degenerate": (*(t.to(dev) for t in (dpts_, torch.as_tensor(plan.mask_words),
                                                   torch.as_tensor(plan.tmeta.T.copy()))), TP),
@@ -410,6 +426,8 @@ def phase_fit_kernels(batch, preps) -> dict:
         if key == "fit":
             rec["kernel_ms"] = out["min_ms"] = time_ms(
                 lambda: sdf_cuda.launch_min_field_pts(p, w, tm, TP), 50)
+            rec["graph_ms"] = out["min_graph_ms"] = graph_ms(
+                lambda: sdf_cuda.launch_min_field_pts(p, w, tm, TP), 50)
             rec["call_ms"] = time_ms(lambda: sdf_cuda.min_field_cuda_pts(p, w, tm, TP), 50)
             rec["plain_ms"] = out["min_plain_ms"] = time_ms(
                 lambda: sdf_torch.min_field_pts(p, w, tm, TP), 3)
@@ -429,37 +447,81 @@ def phase_fit_kernels(batch, preps) -> dict:
         if key == "tied" and (int((got[2] == 308).sum()) or not int((got[2] == 8).sum())):
             raise AssertionError("tied: the tie of lanes 8 and 308 is not 8's")
 
+    # Kernel 3: key -> (pts, am from kernel 2, ct, tile table, launch
+    # shape (None: the launcher's own)).
     _, _, am = sdf_cuda.min_field_cuda_pts(pts, words, tmeta, TP)
     gen = torch.Generator(device=dev).manual_seed(0)
     ct = torch.randn(am.shape, generator=gen, device=dev)
     i = tmeta[6][:, None] + torch.arange(TP, device=dev)[None, :]
     ct = torch.where(i < (tmeta[2] * tmeta[3])[:, None], ct, 0.0).contiguous()
-    got = sdf_cuda.min_field_bwd_cuda(pts, am, ct, tmeta, TP)
-    again = sdf_cuda.min_field_bwd_cuda(pts, am, ct, tmeta, TP)
-    want = sdf_torch.min_field_bwd_pts(pts, am, ct, tmeta, TP)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    identical = bool(torch.equal(got, again))
-    # Pixels of the bitmaps whose argmin is a live segment; inputs pts,
-    # am, ct and the tile table, output dpts.
-    n_px = int(((i < (tmeta[2] * tmeta[3])[:, None]) & (am != sdf_torch._BIGI)).sum())
-    N, T = pts.shape[1], tmeta.shape[1]
-    out["bwd_bound"] = bound_of(n_px * work.BWD_PIXEL_F32_OPS, 8 * N + 8 * T * TP + 32 * T + 8 * N)
-    rec = {"phase": "kernel", "kernel": "sdf_min_field_bwd", "case": "fit",
-           "argmin_pixels": n_px, **out["bwd_bound"],
-           "tiles": int(tmeta.shape[1]), "lanes": int(pts.shape[1]),
-           "max_abs_err": err, "max_abs_plain": scale, "tolerance": 1e-4 * scale,
-           "bit_identical_rerun": identical,
-           "kernel_ms": time_ms(lambda: sdf_cuda.launch_min_field_bwd(pts, am, ct, tmeta, TP), 50),
-           "call_ms": time_ms(lambda: sdf_cuda.min_field_bwd_cuda(pts, am, ct, tmeta, TP), 50),
-           "plain_ms": time_ms(lambda: sdf_torch.min_field_bwd_pts(pts, am, ct, tmeta, TP), 3)}
-    emit(rec)
-    if not scale > 0 or err > 1e-4 * scale:
-        raise AssertionError(f"backward kernel off by {err} (plain max {scale})")
-    if not identical:
-        raise AssertionError("backward kernel differs between two runs")
-    out.update(bwd_err=err, bwd_ms=rec["kernel_ms"], bwd_plain_ms=rec["plain_ms"])
+    bwd = {"fit": (pts, am, ct, tmeta, None)}
+    host = [t.cpu().numpy() for t in (pts, am, tmeta)]
+    for name in FLAT_BWD_EDGE_CASES:
+        bwd[name] = (*(torch.as_tensor(a, device=dev)
+                       for a in flat_bwd_edge_case(name, *host, seed=1)), None)
+    for key, (p, w, tm) in (("fit_heavy", fit_inputs(heavy_batch, dev)),
+                            ("degenerate", cases["degenerate"][:3])):
+        a_ = sdf_cuda.min_field_cuda_pts(p, w, tm, TP)[2]
+        bwd[key] = (*(torch.as_tensor(a, device=dev) for a in flat_bwd_edge_case(
+            "unmasked", p.cpu().numpy(), a_.cpu().numpy(), tm.cpu().numpy(), seed=2)), None)
+    # The heavy plan's glyphs (~400 lanes) walked in passes of 64 lanes,
+    # and at 128 threads a block (768 lanes a pass).
+    bwd["heavy_passes"] = (*bwd["fit_heavy"][:4], (128, 64))
+    bwd["heavy_t128"] = (*bwd["fit_heavy"][:4], sdf_cuda.flat_bwd_launch_shape(128))
+    for key, (p, a_, c_, tm, shape) in bwd.items():
+        if shape is None:
+            run = lambda: sdf_cuda.min_field_bwd_cuda(p, a_, c_, tm, TP)
+        else:
+            run = lambda: sdf_cuda.launch_min_field_bwd(p, a_, c_, tm, TP, shape)
+        got, again = run(), run()
+        want = sdf_torch.min_field_bwd_pts(p, a_, c_, tm, TP)
+        ordered = sdf_torch.min_field_bwd_pts_ordered(p, a_, c_, tm, TP)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        identical = bool(torch.equal(got, again))
+        order_bits = int((got.view(torch.int32) != ordered.view(torch.int32)).sum())
+        ii = tm[6][:, None] + torch.arange(TP, device=dev)[None, :]
+        inside = ii < (tm[2] * tm[3])[:, None]
+        rec = {"phase": "kernel", "kernel": "sdf_min_field_bwd", "case": key,
+               "tiles": int(tm.shape[1]), "lanes": int(p.shape[1]),
+               "launch_shape": list(shape or sdf_cuda.flat_bwd_launch_shape()),
+               "sentinels": int((inside & (a_ == sdf_torch._BIGI)).sum()),
+               "ct_past_wh": bool(c_[~inside].any()),
+               "max_abs_err": err, "max_abs_plain": scale, "tolerance": 1e-4 * scale,
+               "bit_identical_rerun": identical, "bits_differ_from_pixel_order": order_bits}
+        if key in ("fit", "fit_heavy", "one_wins"):
+            rec["kernel_ms"] = time_ms(
+                lambda: sdf_cuda.launch_min_field_bwd(p, a_, c_, tm, TP, shape), 50)
+            rec["graph_ms"] = graph_ms(
+                lambda: sdf_cuda.launch_min_field_bwd(p, a_, c_, tm, TP, shape), 50)
+        if key == "fit":
+            # Pixels of the bitmaps whose argmin is a live segment; inputs
+            # pts, am, ct and the tile table, output dpts.
+            n_px = int((inside & (a_ != sdf_torch._BIGI)).sum())
+            N, T = p.shape[1], tm.shape[1]
+            out["bwd_bound"] = bound_of(n_px * work.BWD_PIXEL_F32_OPS,
+                                        8 * N + 8 * T * TP + 32 * T + 8 * N)
+            rec.update(argmin_pixels=n_px, **out["bwd_bound"])
+            rec["call_ms"] = time_ms(run, 50)
+            rec["plain_ms"] = time_ms(lambda: sdf_torch.min_field_bwd_pts(p, a_, c_, tm, TP), 3)
+            out.update(bwd_err=err, bwd_ms=rec["kernel_ms"], bwd_graph_ms=rec["graph_ms"],
+                       bwd_plain_ms=rec["plain_ms"])
+        if key in ("fit_heavy", "one_wins"):
+            out["bwd_ms_" + key] = rec["kernel_ms"]
+            out["bwd_graph_ms_" + key] = rec["graph_ms"]
+        emit(rec)
+        if not scale > 0 or err > 1e-4 * scale:
+            raise AssertionError(f"backward {key}: off by {err} (plain max {scale})")
+        if not identical:
+            raise AssertionError(f"backward {key}: differs between two runs")
+        if order_bits:
+            raise AssertionError(f"backward {key}: {order_bits} values are not the sum in pixel "
+                                 "order")
+        if key == "degenerate" and not rec["sentinels"]:
+            raise AssertionError("degenerate backward case: no sentinel pixel")
+        if key in ("unmasked", "fit_heavy") and not rec["ct_past_wh"]:
+            raise AssertionError(f"backward {key}: the cotangent past w*h is zero")
 
     # The flat field's forward and backward on the host clock, with the
     # wrappers' checks at every call (a host sync each) and with the
@@ -589,6 +651,7 @@ def phase_flat_kernels(preps, heavy) -> dict:
                 rec["ms"] = out[name + "_ms_synth_heavy"] = time_ms(launch, 50)
             if key == "group0":
                 rec["ms"] = out[name + "_ms"] = time_ms(launch, 50)
+                rec["graph_ms"] = out[name + "_graph_ms"] = graph_ms(launch, 50)
                 rec["call_ms"] = time_ms(kern, 50)
                 rec["plain_ms"] = out[name + "_plain_ms"] = time_ms(plain, 3)
                 # Kernel 7's rows are its padded grid's tiles; it reads
@@ -663,6 +726,8 @@ def phase_padded_kernels(batch, heavy_batch) -> dict:
         if key == "fit":
             rec["ms"] = out["pad_ms"] = time_ms(
                 lambda: sdf_cuda.launch_min_field_padded(segs, mask, meta, P), 50)
+            rec["graph_ms"] = out["pad_graph_ms"] = graph_ms(
+                lambda: sdf_cuda.launch_min_field_padded(segs, mask, meta, P), 50)
             rec["call_ms"] = time_ms(lambda: sdf_cuda.min_field_cuda_padded(segs, mask, meta, P), 50)
             rec["plain_ms"] = out["pad_plain_ms"] = time_ms(
                 lambda: sdf_torch.min_field_padded(segs, mask, meta, P), 3)
@@ -735,6 +800,8 @@ def phase_padded_kernels(batch, heavy_batch) -> dict:
                "bit_identical_rerun": identical, "bits_differ_from_pixel_order": order_bits}
         if key in ("fit", "fit_heavy", "fit_one_wins"):
             rec["ms"] = time_ms(lambda: sdf_cuda.launch_min_field_padded_bwd(segs, meta, am, ct), 50)
+            rec["graph_ms"] = graph_ms(
+                lambda: sdf_cuda.launch_min_field_padded_bwd(segs, meta, am, ct), 50)
         if key == "fit":
             out["pad_bwd_bound"] = bound_of(n_px * work.BWD_PIXEL_F32_OPS,
                                             16 * B * S + 16 * B + 8 * B * P + 16 * B * S)
@@ -742,7 +809,8 @@ def phase_padded_kernels(batch, heavy_batch) -> dict:
             rec["call_ms"] = time_ms(run, 50)
             rec["plain_ms"] = time_ms(
                 lambda: sdf_torch.min_field_padded_bwd(segs, meta, am, ct), 3)
-            out.update(pad_bwd_err=err, pad_bwd_ms=rec["ms"], pad_bwd_plain_ms=rec["plain_ms"])
+            out.update(pad_bwd_err=err, pad_bwd_ms=rec["ms"], pad_bwd_graph_ms=rec["graph_ms"],
+                       pad_bwd_plain_ms=rec["plain_ms"])
         if key in ("fit_heavy", "fit_one_wins"):
             out["pad_bwd_ms_" + key[4:]] = rec["ms"]
         emit(rec)
@@ -787,6 +855,7 @@ def phase_tool_kernels(preps) -> dict:
            "bits_differ": differ, "max_abs_err": float((got - want).abs().max()),
            "value": float(got[0, 0]), "all_equal": bool((got == got[0, 0]).all()),
            "ms": time_ms(lambda: sdf_cuda.alu_roof_cuda(T, TP, n_chunk, dev), 20),
+           "graph_ms": graph_ms(lambda: sdf_cuda.alu_roof_cuda(T, TP, n_chunk, dev), 20),
            "plain_ms": time_ms(lambda: sdf_torch.alu_roof(T, TP, n_chunk, dev), 2),
            **bound_of(ops, 4 * T * TP)}
     emit(rec)
@@ -823,6 +892,7 @@ def phase_tool_kernels(preps) -> dict:
                                  f"version, {vs_prod} from the tile kernel")
     rec = {"phase": "kernel", "kernel": "sdf_tiles_pts_acc", "case": "f32",
            "ms": time_ms(lambda: sdf_cuda.launch_tiles_pts_acc(pts, words, tmeta, TP), 50),
+           "graph_ms": graph_ms(lambda: sdf_cuda.launch_tiles_pts_acc(pts, words, tmeta, TP), 50),
            "call_ms": time_ms(lambda: sdf_cuda.render_bitmaps_cuda_pts_acc(pts, words, tmeta, TP), 50),
            "plain_ms": time_ms(lambda: sdf_torch.render_tiles_pts(pts, words, tmeta, TP), 3),
            "max_abs_err": max_err, **row_shared_bound_of(w)}
@@ -1234,13 +1304,13 @@ def main() -> None:
         seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
         return got
 
-    timed("device", phase_device)
+    sms, sm_clock = timed("device", phase_device)
     timed("build", phase_build)
     font_list = timed("host_prep", fonts)
     batch = timed("host_prep", fit_batch)
     heavy_batch = timed("host_prep", heavy_fit_batch)
     k = timed("kernel_render", phase_kernel, font_list[0][1], font_list[1][1])
-    kf = timed("kernel_fit", phase_fit_kernels, batch, font_list[0][1])
+    kf = timed("kernel_fit", phase_fit_kernels, batch, heavy_batch, font_list[0][1])
     kl = timed("kernel_flat", phase_flat_kernels, font_list[0][1], font_list[1][1])
     kp = timed("kernel_padded", phase_padded_kernels, batch, heavy_batch)
     kt = timed("kernel_tools", phase_tool_kernels, font_list[0][1])
@@ -1261,7 +1331,9 @@ def main() -> None:
 
     def row(name, replaces, n_launch, err, ms, plain_ms, bound, **more):
         # No single PyTorch call computes any of these functions. Beside
-        # the contract's keys: the share of the bound the launch reaches,
+        # the contract's keys: "graph_ms", the same launches replayed from a
+        # CUDA graph (the card's time where the host's enqueue of a launch
+        # takes longer than the kernel); the share of the bound the launch reaches,
         # and its f32 rate over the un-fused ALU roof that the roofline
         # tool measured in this run. The counts the bound comes from are
         # on each kernel's own `phase: kernel` record. alu_roof's bound
@@ -1280,34 +1352,47 @@ def main() -> None:
                 "share_of_bound": bound["bound_ms"] / ms,
                 "share_of_alu_roof": bound["f32_ops"] / (ms * 1e-3) / roof_ops_per_s, **more}
 
+    from versatiles_glyphs_tpu_torch.tools.work import share_of_issue_rate
+
     jax_ops = "versatiles_glyphs_tpu/ops/"
     k8, k9 = kt["alu_roof"], kt["sdf_tiles_pts_acc"]
     emit({"kernels": [
         row("sdf_tiles_pts", jax_ops + "sdf_pallas.py:61", launches, k["max_abs_err"],
-            k["ms"], k["plain_ms"], k,
+            k["ms"], k["plain_ms"], k, graph_ms=k["graph_ms"],
             ms_synth_heavy=k["ms_synth_heavy"]),
         row("sdf_min_field_pts", jax_ops + "sdf_pallas.py:339", fit_launches["sdf_min_field_pts"],
-            kf["min_err"], kf["min_ms"], kf["min_plain_ms"], kf["min_bound"]),
+            kf["min_err"], kf["min_ms"], kf["min_plain_ms"], kf["min_bound"],
+            graph_ms=kf["min_graph_ms"]),
         row("sdf_min_field_bwd", jax_ops + "sdf_grad.py:492", fit_launches["sdf_min_field_bwd"],
-            kf["bwd_err"], kf["bwd_ms"], kf["bwd_plain_ms"], kf["bwd_bound"]),
+            kf["bwd_err"], kf["bwd_ms"], kf["bwd_plain_ms"], kf["bwd_bound"],
+            graph_ms=kf["bwd_graph_ms"], ms_synth_heavy=kf["bwd_ms_fit_heavy"],
+            graph_ms_synth_heavy=kf["bwd_graph_ms_fit_heavy"],
+            ms_one_lane_wins_all=kf["bwd_ms_one_wins"],
+            graph_ms_one_lane_wins_all=kf["bwd_graph_ms_one_wins"]),
         row("sdf_min_field_padded", jax_ops + "sdf_grad.py:111",
             pad_launches["sdf_min_field_padded"], kp["pad_err"], kp["pad_ms"],
-            kp["pad_plain_ms"], kp["pad_bound"]),
+            kp["pad_plain_ms"], kp["pad_bound"], graph_ms=kp["pad_graph_ms"]),
         row("sdf_min_field_padded_bwd", jax_ops + "sdf_grad.py:169",
             pad_launches["sdf_min_field_padded_bwd"], kp["pad_bwd_err"], kp["pad_bwd_ms"],
-            kp["pad_bwd_plain_ms"], kp["pad_bwd_bound"], ms_synth_heavy=kp["pad_bwd_ms_heavy"],
+            kp["pad_bwd_plain_ms"], kp["pad_bwd_bound"], graph_ms=kp["pad_bwd_graph_ms"],
+            ms_synth_heavy=kp["pad_bwd_ms_heavy"],
             ms_one_segment_wins_all=kp["pad_bwd_ms_one_wins"]),
         row("sdf_tiles_flat", jax_ops + "legacy.py:147", flat_launches["sdf_tiles_flat"],
             kl["sdf_tiles_flat_err"], kl["sdf_tiles_flat_ms"], kl["sdf_tiles_flat_plain_ms"],
-            kl["sdf_tiles_flat_bound"], ms_synth_heavy=kl["sdf_tiles_flat_ms_synth_heavy"]),
+            kl["sdf_tiles_flat_bound"], graph_ms=kl["sdf_tiles_flat_graph_ms"],
+            ms_synth_heavy=kl["sdf_tiles_flat_ms_synth_heavy"]),
         row("sdf_grid_flat", jax_ops + "legacy.py:40", flat_launches["sdf_grid_flat"],
             kl["sdf_grid_flat_err"], kl["sdf_grid_flat_ms"], kl["sdf_grid_flat_plain_ms"],
-            kl["sdf_grid_flat_bound"],
+            kl["sdf_grid_flat_bound"], graph_ms=kl["sdf_grid_flat_graph_ms"],
             ms_synth_heavy=kl["sdf_grid_flat_ms_synth_heavy"]),
+        # The roof kernel's executed f32 instructions (un-fused) over the
+        # most the card's SMs issue at their top clock.
         row("alu_roof", "scripts/roofline.py:190", tool_launches["alu_roof"],
-            k8["max_abs_err"], k8["ms"], k8["plain_ms"], k8),
+            k8["max_abs_err"], k8["ms"], k8["plain_ms"], k8, graph_ms=k8["graph_ms"],
+            share_of_issue_rate=share_of_issue_rate(k8["f32_ops"], k8["ms"], sms, sm_clock),
+            sms=sms, sm_clock_max_mhz=sm_clock),
         row("sdf_tiles_pts_acc", "scripts/kernel_ab.py:69", tool_launches["sdf_tiles_pts_acc"],
-            k9["max_abs_err"], k9["ms"], k9["plain_ms"], k9),
+            k9["max_abs_err"], k9["ms"], k9["plain_ms"], k9, graph_ms=k9["graph_ms"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -59,7 +59,8 @@ from versatiles_glyphs_tpu_torch.ops import _build, legacy, sdf_cuda, sdf_torch
 from versatiles_glyphs_tpu_torch.render import batch as tbatch
 from versatiles_glyphs_tpu_torch.tools import kernel_turns, work
 from versatiles_glyphs_tpu_torch.utils.synth_font import (
-    PADDED_BWD_EDGE_CASES, PADDED_EDGE_CASES, curved_preps, out_of_range_argmin, padded_edge_case,
+    FLAT_BWD_EDGE_CASES, PADDED_BWD_EDGE_CASES, PADDED_EDGE_CASES, curved_preps,
+    degenerate_fit_plan, flat_bwd_edge_case, out_of_range_argmin, padded_edge_case,
     row_list_edge_preps, synth_fit_batch, tied_point_chain, unaligned_point_chain,
 )
 
@@ -296,6 +297,111 @@ def _emulate_padded_bwd(segs, meta, am, ct, shape, stats) -> np.ndarray:
     return out
 
 
+def _emulate_flat_bwd(pts, am, ct, tmeta, TP: int, shape, stats) -> np.ndarray:
+    """``csrc/sdf_min_field_bwd.cu`` at launch shape (threads a block,
+    segment lanes a pass): a warp a tile-table row, working only on a
+    glyph's first row (pix_base 0, w·h > 0); it walks the glyph's pixels,
+    contiguous from that row, in steps of 32, once a pass of the run's
+    segment lanes [off, off + npts − 1); the lanes of a step whose am is
+    a lane of the pass form a set, and the set's terms are added in lane
+    order onto that lane's sums (ax, ay, bx, by); each lane of a pass is
+    written once, (bx − ax) − bx of the lane before, bx carried across
+    passes, and the chain's last point after the last pass. The terms
+    are the kernel's arithmetic (`sdf_torch._flat_bwd_pixels`); which
+    pixels count is decided here, from am alone."""
+    threads, lanes_a_pass = shape
+    warps = threads // 32
+    T, N = tmeta.shape[1], pts.shape[1]
+    _, _, tc, qx, qy, g2 = sdf_torch._flat_bwd_pixels(pts, am, ct, _t(tmeta), TP)
+    gqx, gqy, tc = (g2 * qx).numpy(), (g2 * qy).numpy(), tc.numpy()
+    terms = np.stack([gqx, gqy, gqx * tc, gqy * tc], -1).reshape(-1, 4)
+    am = am.numpy().reshape(-1)
+    out = np.zeros((2, N), np.float32)
+    written = np.zeros(N, np.int64)
+    for t in range(-(-T // warps) * warps):  # block t // warps, warp t % warps
+        if t >= T:
+            continue
+        _, _, w, h, npts, off, base, _ = (int(v) for v in tmeta[:, t])
+        npix = w * h
+        if base != 0 or npix <= 0:
+            continue
+        stats["glyphs"] += 1
+        row, last = t * TP, off + npts - 1
+        carry = np.zeros(2, np.float32)
+        for c0 in range(off, last, lanes_a_pass):
+            n = min(lanes_a_pass, last - c0)
+            acc = np.zeros((n, 4), np.float32)
+            for p0 in range(0, npix, 32):
+                sets: dict[int, list[int]] = {}
+                for p in range(p0, min(p0 + 32, npix)):  # lanes up: pixels up
+                    if c0 <= am[row + p] < c0 + n:
+                        sets.setdefault(int(am[row + p]) - c0, []).append(p)
+                for key, members in sets.items():  # the leader is members[0]
+                    total = acc[key].copy()
+                    for p in members:
+                        total = total + terms[row + p]
+                    acc[key] = total
+                stats["most"] = max([stats["most"], *map(len, sets.values())])
+                stats["steps"] += 1
+            for s in range(n):
+                prev = acc[s - 1, 2:] if s else carry
+                out[:, c0 + s] = (acc[s, 2:] - acc[s, :2]) - prev
+                written[c0 + s] += 1
+            carry = acc[n - 1, 2:].copy()
+            stats["passes"] += 1
+        if npts >= 1:
+            out[:, last] = np.float32(0.0) - carry
+            written[last] += 1
+    assert written.max(initial=0) <= 1  # no lane has two writers
+    assert out.dtype == np.float32
+    return out
+
+
+def _emulate_tiles_pts_acc(pts, words, tmeta, TP: int, L: int, stats) -> torch.Tensor:
+    """``csrc/sdf_tiles_pts_acc.cu``: a block of TP·L threads a tile row,
+    L threads a pixel. Every lane of a chunk of TP·L lanes is staged in
+    its own slot (no compaction), its validity bit in the record; thread
+    l of a pixel keeps a partial (min d², winding) over the slots l,
+    l + L, … of each chunk, a masked slot a select (d² → 3e38, step →
+    0); the L partials are then reduced in the shuffle's xor order and
+    quantized once. (At TP = 256 the wrapper refuses L = 8, 2,048
+    threads a block; the decomposition is held here all the same.)"""
+    nthr = TP * L
+    T = tmeta.shape[1]
+    out = torch.full((T, TP), 7, dtype=torch.uint8)  # every byte must be written
+    partner = torch.arange(L)
+    for t in range(T):
+        x0, y0, w, h, npts, off, base, _ = (int(v) for v in tmeta[:, t])
+        if base >= w * h:
+            out[t] = 0
+            continue
+        row8 = torch.tensor([[x0], [y0], [w], [h], [0], [0], [base], [0]], dtype=torch.int32)
+        px, py, _ = (a[0][:, None] for a in sdf_torch._pixel_centers(row8, TP))
+        dmin = torch.full((L, TP), sdf_torch._BIG)
+        wn = torch.zeros((L, TP), dtype=torch.int64)
+        last = off + npts - 1
+        for c0 in range(off, last, nthr):
+            lanes = torch.arange(c0, min(c0 + nthr, last))
+            valid = torch.tensor([bool((int(words[ln >> 5]) >> (ln & 31)) & 1) for ln in lanes.tolist()])
+            d2, steps = sdf_torch._pair_d2_steps(
+                px, py, pts[0, lanes][None], pts[1, lanes][None], pts[0, lanes + 1][None],
+                pts[1, lanes + 1][None], valid[None])
+            stats["masked_slots"] += int((~valid).sum())
+            stats["chunks"] += 1
+            for l in range(L):  # thread l's slots of the chunk
+                if d2[:, l::L].shape[1]:
+                    dmin[l] = torch.minimum(dmin[l], d2[:, l::L].amin(dim=1))
+                    wn[l] += steps[:, l::L].sum(dim=1)
+        o = L // 2
+        while o:  # __shfl_xor_sync partners
+            dmin = torch.minimum(dmin, dmin[partner ^ o])
+            wn = wn + wn[partner ^ o]
+            o //= 2
+        assert (dmin == dmin[0]).all() and (wn == wn[0]).all()
+        out[t] = sdf_torch._sdf_bytes(dmin[0], wn[0]).to(torch.uint8)
+    return out
+
+
 def _stage_masked(mask_row, c0: int, cend: int, nt: int) -> list[int]:
     """The segments of [c0, cend) that a block of nt threads stages, by
     slot (`SegRecords::stage_masked`): every warp walks the run 32
@@ -491,6 +597,42 @@ def _bwd_case(name):
     return _t(segs), _t(meta), am, _t(ct)
 
 
+def _flat_bwd_case(name):
+    """(pts, am, ct, tmeta [8, T], TP) of the flat backward: a forward's
+    argmin (the plain min field) on a flat plan and a seeded cotangent.
+    ``fit``: the fit plan of `_fit_plan_case`, the cotangent masked past
+    w·h as the fitter's loss masks it; ``heavy``: three glyphs of
+    synth_heavy's kind (~380 lanes a glyph); ``degenerate``:
+    `degenerate_fit_plan` (a glyph with no live segment: the sentinel);
+    the rest: `flat_bwd_edge_case` of the fit plan, the cotangent over
+    every pixel."""
+    if name in ("heavy", "degenerate"):
+        if name == "heavy":
+            b = synth_fit_batch(3, 0x600, seed=1, quads=24, depth=3, perturb=0.35)
+            plan = fitting.build_flat_plan(b.curve_mask, b.meta, 3, b.target.shape[1])
+            params = fitting.init_params(b.curves0, device="cpu")
+            pts = fitting.flat_chain_points(params["curves"], params["translate"], 3,
+                                            torch.as_tensor(plan.chunk_map).long()).detach()
+        else:
+            plan, pts = degenerate_fit_plan()
+        pts = pts.numpy()
+    else:
+        plan, pts = _fit_plan_case()
+    tmeta = np.ascontiguousarray(plan.tmeta.T)
+    am = sdf_torch.min_field_pts(_t(pts), _t(plan.mask_words), _t(tmeta), plan.TP)[2].numpy()
+    base = "unmasked" if name in ("fit", "heavy", "degenerate") else name
+    pts, am, ct, tmeta = flat_bwd_edge_case(base, pts, am, tmeta, seed=1)
+    if name == "fit":
+        ct = _masked_flat_cotangent(ct, tmeta)
+    return _t(pts), _t(am), _t(ct), tmeta, plan.TP
+
+
+def _masked_flat_cotangent(ct, tmeta):
+    """``ct`` [T, TP] zero past w·h and on rows at or past it."""
+    i = tmeta[6][:, None] + np.arange(ct.shape[1])[None, :]
+    return np.where(i < (tmeta[2] * tmeta[3])[:, None], ct, 0.0).astype(np.float32)
+
+
 PTS_CASES = ("curved", "heavy", "degenerate", "unaligned", "fallbacks", "tp64")
 MIN_CASES = ("fit", "heavy", "degenerate", "unaligned", "fallbacks", "tp64", "tied")
 BWD_CASES = PADDED_BWD_EDGE_CASES + ("out_of_range",)
@@ -499,6 +641,13 @@ BWD_SHAPES = {
     "launcher": lambda S, P: sdf_cuda.padded_bwd_launch_shape(S, P),
     "passes": lambda S, P: (128, 1, max(1, min(S // 3, 64))),
     "warps4": lambda S, P: sdf_cuda.padded_bwd_launch_shape(S, P, 256, 4),
+}
+FLAT_BWD_CASES = ("fit", "heavy", "degenerate") + FLAT_BWD_EDGE_CASES
+# name -> (threads a block, segment lanes a pass) of the flat backward
+FLAT_BWD_SHAPES = {
+    "launcher": lambda: sdf_cuda.flat_bwd_launch_shape(),
+    "passes": lambda: (128, 24),
+    "t32": lambda: sdf_cuda.flat_bwd_launch_shape(32, 100),
 }
 TILES_CASES = ("curved", "heavy", "degenerate", "fallbacks", "tp64", "tp32")
 GRID_CASES = ("curved", "curved_tp256", "degenerate", "eight_tiles", "fallbacks")
@@ -592,6 +741,22 @@ def test_tile_kernel_decomposition_gives_the_plain_bytes(jax_twins, case, R):
         assert not want[2:].any() and want[:2].any()
     if case == "fallbacks":
         assert stats["per_pair"] > 0  # too many rows, too many crossings
+
+
+@pytest.mark.parametrize("L", [2, 4, 8])
+@pytest.mark.parametrize("case", PTS_CASES)
+def test_split_tile_kernel_decomposition_gives_the_plain_bytes(jax_twins, case, L):
+    pts, words, tmeta, TP = _pts_case(case)
+    stats = dict.fromkeys(("masked_slots", "chunks"), 0)
+    got = _emulate_tiles_pts_acc(_t(pts), words, tmeta, TP, L, stats)
+    want = sdf_torch.render_tiles_pts(_t(pts), _t(words), _t(tmeta), TP)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.numpy(), jax_twins[f"pts|{case}"])
+    assert int((want > 0).sum()) > 50
+    if case in ("curved", "heavy", "unaligned"):  # contour ends inside a chunk: masked slots
+        assert stats["masked_slots"] > 0
+    if case == "heavy":  # ~1,000 lanes a glyph: several chunks a tile at L = 2
+        assert L > 2 or stats["chunks"] > tmeta.shape[1]
 
 
 @pytest.mark.parametrize("case,R", [(c, R) for c in TILES_CASES for R in (1, 2)
@@ -727,9 +892,10 @@ def test_grid_kernel_decomposition_gives_the_plain_bytes(jax_twins, case, thread
 
 
 _JAX_FITTING_SIDE = r"""
-import sys, numpy as np, jax.numpy as jnp
+import functools, sys, numpy as np, jax.numpy as jnp
+from jax.experimental import pallas as pl
 from versatiles_glyphs_tpu.ops.sdf_pallas import min_field_pallas_pts
-from versatiles_glyphs_tpu.ops.sdf_grad import _run_bwd, _run_fwd
+from versatiles_glyphs_tpu.ops.sdf_grad import _min_field_bwd_pallas, _run_bwd, _run_fwd
 
 def up(n, m):
     return max(-(-n // m) * m, m)
@@ -737,6 +903,9 @@ def up(n, m):
 a = dict(np.load(sys.argv[1]))
 d2, wn, am = min_field_pallas_pts(a["pts"], a["words"], a["tmeta"], 256, interpret=True)
 out = {"min_d2": np.asarray(d2), "min_wn": np.asarray(wn), "min_am": np.asarray(am)}
+# The flat backward's Pallas call takes no interpret flag: give it one.
+pl.pallas_call = functools.partial(pl.pallas_call, interpret=True)
+out["flat_bwd"] = np.asarray(_min_field_bwd_pallas(a["pts"], out["min_am"], a["flat_ct"], a["tmeta"], 256))
 segs, mask, meta, ct = a["segs"], a["mask"], a["meta"], a["ct"]
 B, S, _ = segs.shape
 P = ct.shape[1]
@@ -757,8 +926,10 @@ np.savez(sys.argv[2], **out)
 @pytest.fixture(scope="module")
 def jax_fitting_kernels(tmp_path_factory):
     """The JAX package's flat min field (`min_field_pallas_pts`, Pallas
-    interpret mode, as `tests/test_torch_fit_ops.py` runs it) on the
-    ``fit`` case and its padded backward (`_run_bwd` on `_run_fwd`'s
+    interpret mode, as `tests/test_torch_fit_ops.py` runs it) and its
+    flat backward (`_min_field_bwd_pallas` on that argmin and the
+    ``unmasked`` case's cotangent, its Pallas call in interpret mode) on
+    the ``fit`` case, and its padded backward (`_run_bwd` on `_run_fwd`'s
     argmin, as `tests/test_torch_padded.py` runs them) on the ``holes``
     case, from one subprocess with XLA's FMA contraction off."""
     tmp = tmp_path_factory.mktemp("jax_fitting_redesign")
@@ -767,7 +938,8 @@ def jax_fitting_kernels(tmp_path_factory):
     src, dst = tmp / "in.npz", tmp / "out.npz"
     np.savez(src, pts=pts, words=plan.mask_words, tmeta=np.ascontiguousarray(plan.tmeta.T),
              segs=segs, mask=mask,
-             meta=meta, ct=_bwd_case("holes")[3].numpy())
+             meta=meta, ct=_bwd_case("holes")[3].numpy(),
+             flat_ct=_flat_bwd_case("unmasked")[2].numpy())
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX",
                VG_JAX_CACHE_DIR=str(tmp / "jax_cache"))
     proc = subprocess.run([sys.executable, "-c", _JAX_FITTING_SIDE, str(src), str(dst)], cwd=ROOT,
@@ -879,6 +1051,105 @@ def test_pixel_order_sums_are_a_sequential_loop():
     assert np.abs(want).max() > 0
 
 
+@pytest.mark.parametrize("shape", list(FLAT_BWD_SHAPES))
+@pytest.mark.parametrize("case", FLAT_BWD_CASES)
+def test_flat_backward_routing_gives_the_pixel_order_sums(jax_fitting_kernels, case, shape):
+    pts, am, ct, tmeta, TP = _flat_bwd_case(case)
+    threads, lanes_a_pass = launch = FLAT_BWD_SHAPES[shape]()
+    assert 16 * lanes_a_pass * threads // 32 <= sdf_cuda.FLAT_BWD_SMEM
+    stats = dict.fromkeys(("glyphs", "most", "steps", "passes"), 0)
+    got = _emulate_flat_bwd(pts, am, ct, tmeta, TP, launch, stats)
+    ordered = sdf_torch.min_field_bwd_pts_ordered(pts, am, ct, _t(tmeta), TP).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ordered.view(np.int32))
+    twin = sdf_torch.min_field_bwd_pts(pts, am, ct, _t(tmeta), TP).numpy()
+    scale = np.abs(twin).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, twin, rtol=0, atol=1e-4 * scale)
+    first = (tmeta[6] == 0) & (tmeta[2] * tmeta[3] > 0)
+    off, npts = tmeta[5][first], tmeta[4][first]
+    assert stats["glyphs"] == int(first.sum())
+    runs = np.zeros(pts.shape[1], bool)
+    for o, n in zip(off, npts):
+        runs[o : o + n] = True
+    assert not got[:, ~runs].any()  # lanes outside every glyph stay zeros
+    i = tmeta[6][:, None] + np.arange(TP)[None, :]
+    past = i >= (tmeta[2] * tmeta[3])[:, None]
+    assert stats["passes"] == sum(-(-(int(n) - 1) // lanes_a_pass) for n in npts if n >= 2)
+    if shape == "launcher":
+        assert launch == (256, 384)
+        if case == "heavy":  # a glyph of 387 lanes takes two passes
+            assert stats["passes"] > len(npts)
+    if shape == "passes" and case == "heavy":  # several passes a glyph carry bx
+        assert npts.min() > 3 * lanes_a_pass and stats["passes"] >= 3 * len(npts)
+    if case == "fit":
+        assert not ct.numpy()[past].any()
+    if case == "unmasked":  # the cotangent past w·h adds nothing
+        assert ct.numpy()[past].any() and past.any()
+        masked = sdf_torch.min_field_bwd_pts_ordered(
+            pts, am, _t(_masked_flat_cotangent(ct.numpy(), tmeta)), _t(tmeta), TP).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), masked.view(np.int32))
+        if shape == "launcher":  # the Pallas kernel, on its own argmin
+            np.testing.assert_array_equal(am.numpy(), jax_fitting_kernels["min_am"])
+            np.testing.assert_allclose(got, jax_fitting_kernels["flat_bwd"], rtol=0,
+                                       atol=1e-4 * scale)
+            np.testing.assert_allclose(twin, jax_fitting_kernels["flat_bwd"], rtol=0,
+                                       atol=1e-4 * scale)
+    if case == "one_wins":  # a step's 32 lanes are one set
+        assert stats["most"] == 32
+        assert np.count_nonzero(got[0]) <= 2 * len(off)
+    if case == "degenerate":  # sentinels add nothing, whatever their cotangent
+        sentinel = am.numpy() == sdf_torch._BIGI
+        assert ct.numpy()[sentinel & ~past].any() and npts[1] == 0
+        quiet = _t(np.where(sentinel, 0.0, ct.numpy()).astype(np.float32))
+        want = sdf_torch.min_field_bwd_pts_ordered(pts, am, quiet, _t(tmeta), TP).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if case == "out_of_run":  # as if those pixels had the sentinel
+        lanes = am.numpy()
+        inside = np.zeros_like(lanes, dtype=bool)
+        for t in range(tmeta.shape[1]):
+            inside[t] = (lanes[t] >= tmeta[5, t]) & (lanes[t] < tmeta[5, t] + tmeta[4, t] - 1)
+        assert 0.1 < (~inside & ~past).mean() and (lanes < 0).any() and (lanes >= pts.shape[1]).any()
+        clean = _t(np.where(inside, lanes, sdf_torch._BIGI).astype(np.int32))
+        want = sdf_torch.min_field_bwd_pts_ordered(pts, clean, ct, _t(tmeta), TP).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if case == "unaligned":  # the unshifted case's bits, five lanes on
+        assert (off % 32).all()
+        base = _flat_bwd_case("unmasked")
+        assert torch.equal(base[2], ct)
+        want = sdf_torch.min_field_bwd_pts_ordered(*base[:3], _t(base[3]), TP).numpy()
+        np.testing.assert_array_equal(got[:, 5:].view(np.int32), want.view(np.int32))
+    if case == "short_runs":  # glyph 0 owns one lane (a zero), glyph 1 none
+        assert (npts[0], npts[1]) == (1, 0) and not got[:, off[0] : off[2]].any()
+        assert runs[off[0]] and not runs[off[0] + 1 : off[2]].any()
+
+
+def test_flat_pixel_order_sums_are_a_sequential_loop():
+    """`sdf_torch.min_field_bwd_pts_ordered` against a loop over the
+    glyphs' pixels, one f32 addition at a time, and the epilogue lane by
+    lane."""
+    pts, am, ct, tmeta, TP = _flat_bwd_case("out_of_run")
+    _, _, tc, qx, qy, g2 = sdf_torch._flat_bwd_pixels(pts, am, ct, _t(tmeta), TP)
+    gqx, gqy, tc = (g2 * qx).numpy(), (g2 * qy).numpy(), tc.numpy()
+    N = pts.shape[1]
+    sums = np.zeros((4, N), np.float32)
+    want = np.zeros((2, N), np.float32)
+    for t in np.flatnonzero((tmeta[6] == 0) & (tmeta[2] * tmeta[3] > 0)):
+        _, _, w, h, npts, off = (int(v) for v in tmeta[:6, t])
+        for p in range(w * h):
+            r, j = t + p // TP, p % TP
+            a = int(am[r, j])
+            if off <= a < off + npts - 1:
+                for k, v in enumerate((gqx[r, j], gqy[r, j], gqx[r, j] * tc[r, j],
+                                       gqy[r, j] * tc[r, j])):
+                    sums[k, a] = sums[k, a] + v
+        for L in range(off, off + npts):
+            prev = sums[2:, L - 1] if L > off else np.zeros(2, np.float32)
+            want[:, L] = (sums[2:, L] - sums[:2, L]) - prev
+    got = sdf_torch.min_field_bwd_pts_ordered(pts, am, ct, _t(tmeta), TP).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.abs(want).max() > 0
+
+
 def test_launch_helpers():
     # A block is whole warps: two pixels a thread only at multiples of 64.
     assert [sdf_cuda.pixels_per_thread(tp) for tp in (32, 64, 96, 128, 256, 1024)] == [1, 2, 1, 2, 2, 2]
@@ -933,6 +1204,18 @@ def test_launch_helpers():
     for bad in ({"threads": 0}, {"threads": 48}, {"threads": 2048}, {"warps": 3}, {"warps": 0}):
         with pytest.raises(ValueError, match="threads|warps"):
             sdf_cuda.padded_bwd_launch_shape(128, 768, **bad)
+    # The flat backward: (threads a block, segment lanes a pass); a warp's
+    # accumulators of 16 bytes a lane within FLAT_BWD_SMEM for the block.
+    assert sdf_cuda.flat_bwd_launch_shape() == (sdf_cuda.FLAT_BWD_THREADS, 384) == (256, 384)
+    assert [sdf_cuda.flat_bwd_launch_shape(t) for t in (32, 128, 1024)] == [
+        (32, 3072), (128, 768), (1024, 96)]
+    assert sdf_cuda.flat_bwd_launch_shape(128, 512) == (128, 512)
+    for bad in (0, 48, 2048):
+        with pytest.raises(ValueError, match="threads"):
+            sdf_cuda.flat_bwd_launch_shape(bad)
+    for threads, lanes in ((256, 385), (128, 769), (32, 0)):
+        with pytest.raises(ValueError, match="lanes"):
+            sdf_cuda.flat_bwd_launch_shape(threads, lanes)
 
 
 def test_sizes_are_the_sources():
@@ -975,7 +1258,15 @@ def test_sizes_are_the_sources():
     with open(os.path.join(csrc, "sdf_min_field_padded_bwd.cu")) as f:
         text = f.read()
     assert int(re.search(r"constexpr int kSmemMax = (\d+) \* 1024;", text)[1]) * 1024 == sdf_cuda.PADDED_BWD_SMEM
-    assert "vg::match_keys(" in text and "vg::add_in_lane_order(" in text and "atomic" not in text.split("#include")[1]
+    assert "vg::match_keys(" in text and "vg::add_in_lane_order(" in text and "atomic" not in text.split("#include")[-1]
+    with open(os.path.join(csrc, "sdf_min_field_bwd.cu")) as f:
+        text = f.read()
+    assert int(re.search(r"constexpr int kSmemMax = (\d+) \* 1024;", text)[1]) * 1024 == sdf_cuda.FLAT_BWD_SMEM
+    body = text.split("#include")[-1]
+    assert "vg::match_keys(in ? a - c0 : -1)" in body and "vg::add_in_lane_order(" in body
+    assert "atomic" not in body and "__syncthreads" not in body  # warps never meet
+    # The parent kernel's op order of the terms.
+    assert "const float g2 = 2.0f * gc;" in body and "make_float4(gqx, gqy, gqx * tc, gqy * tc)" in body
 
 
 def test_row_shared_pair_ops_are_counted_from_the_source():
@@ -1084,17 +1375,21 @@ def test_ptxas_report_parses_a_log(tmp_path):
 
 def test_kernel_turns_variants_and_no_card(monkeypatch, capsys):
     assert kernel_turns.parse_variant("shipped") == {
-        "label": "shipped", "r": None, "threads": None, "warps": None}
+        "label": "shipped", "r": None, "threads": None, "warps": None, "split": None,
+        "lanes": None}
     assert kernel_turns.parse_variant("r2,r=2")["r"] == 2
     assert kernel_turns.parse_variant("t,threads=128")["threads"] == 128
     assert kernel_turns.parse_variant("a,threads=256,r=4") == {
-        "label": "a", "r": 4, "threads": 256, "warps": None}
+        "label": "a", "r": 4, "threads": 256, "warps": None, "split": None, "lanes": None}
     assert kernel_turns.parse_variant("w,warps=2,threads=64") == {
-        "label": "w", "r": None, "threads": 64, "warps": 2}
+        "label": "w", "r": None, "threads": 64, "warps": 2, "split": None, "lanes": None}
+    assert kernel_turns.parse_variant("l2,split=2")["split"] == 2
+    assert kernel_turns.parse_variant("p,threads=128,lanes=512")["lanes"] == 512
     assert kernel_turns.KERNELS == {
         "sdf_tiles_pts": ("r",), "sdf_grid_flat": ("threads",), "sdf_tiles_flat": ("r",),
         "sdf_min_field_padded": ("threads", "r"), "sdf_min_field_pts": ("r",),
-        "sdf_min_field_padded_bwd": ("threads", "warps")}
+        "sdf_min_field_padded_bwd": ("threads", "warps"), "sdf_min_field_bwd": ("threads", "lanes"),
+        "sdf_tiles_pts_acc": ("split",)}
     assert set(kernel_turns.KERNELS) <= set(sdf_cuda.KERNELS)
     for bad in ("x,r=two", "x,r", ",r=2", "x,speed=9", "x,warps=", "x,warps=-1"):
         with pytest.raises(ValueError):
@@ -1104,10 +1399,15 @@ def test_kernel_turns_variants_and_no_card(monkeypatch, capsys):
     for kernel in kernel_turns.KERNELS:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             kernel_turns.main(["--kernel", kernel])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            kernel_turns.main(["--kernel", kernel, "--parent", ROOT])
     # An option the kernel does not take is refused before anything runs.
     for kernel, variant in (("sdf_tiles_flat", "t,threads=64"), ("sdf_grid_flat", "r,r=2"),
                             ("sdf_min_field_pts", "t,threads=64"), ("sdf_min_field_pts", "w,warps=2"),
-                            ("sdf_min_field_padded_bwd", "r,r=2"), ("sdf_tiles_pts", "w,warps=2")):
+                            ("sdf_min_field_padded_bwd", "r,r=2"), ("sdf_tiles_pts", "w,warps=2"),
+                            ("sdf_min_field_bwd", "w,warps=2"), ("sdf_min_field_bwd", "s,split=2"),
+                            ("sdf_tiles_pts_acc", "t,threads=64"), ("sdf_tiles_pts", "s,split=2"),
+                            ("sdf_min_field_padded_bwd", "l,lanes=64")):
         with pytest.raises(ValueError, match="takes no"):
             kernel_turns.main(["--kernel", kernel, "--variant", variant])
     assert capsys.readouterr().out == "" and not any(sdf_cuda.LAUNCHES.values())

@@ -140,19 +140,23 @@ def test_work_count_of_a_segment_soup():
 
 
 def test_pair_ops_are_counted_from_the_source():
-    """`work.PAIR_F32_OPS` against the f32 operators of the pair math in
-    ``csrc/sdf_pair.cuh`` (`project`, `d2_and_winding`), counted from the
-    text: binary ``* + -`` between floats, ``fminf``/``fmaxf``, and the
-    float compares; plus the caller's running ``fminf``."""
+    """`work.PAIR_F32_OPS` against the f32 operators of the per-pair math:
+    `project` of ``csrc/sdf_pair.cuh`` and `d2_and_winding` of
+    ``csrc/sdf_tiles_pts_acc.cu``, counted from the text: binary
+    ``* + -`` between floats, ``fminf``/``fmaxf``, and the float
+    compares; plus the caller's running ``fminf``."""
     import os
     import re
 
     import versatiles_glyphs_tpu_torch as pkg
 
-    with open(os.path.join(os.path.dirname(pkg.__file__), "csrc", "sdf_pair.cuh")) as f:
-        src = f.read()
+    csrc = os.path.join(os.path.dirname(pkg.__file__), "csrc")
+    with open(os.path.join(csrc, "sdf_pair.cuh")) as f:
+        header = f.read()
+    with open(os.path.join(csrc, "sdf_tiles_pts_acc.cu")) as f:
+        acc = f.read()
 
-    def body(name):
+    def body(src, name):
         i = src.index(name)
         i = src.index("{", src.index(")", i))
         depth, j = 0, i
@@ -162,17 +166,32 @@ def test_pair_ops_are_counted_from_the_source():
             if depth == 0:
                 return re.sub(r"//[^\n]*", "", src[i:j])
 
-    proj = body("void project(")
-    pair = body("float d2_and_winding(")
-    pair = pair[pair.index("const float ex"):]  # the shared-memory loads are not arithmetic
-    pair = pair.replace("project(ex, ey, d_x, d_y, l2inv[j], tc, qx, qy);", "")
-    pair = pair.replace("wn += c1 ? 1 : -1", "")  # integer
+    proj = body(header, "void project(")
+    pair = body(acc, "float d2_and_winding(")
+    pair = pair.replace("vg::project(ex, ey, a.z, a.w, b.x, tc, qx, qy);", "")
+    # Integer: the winding's step; the validity select is not arithmetic.
+    pair = pair.replace("wn += valid && cross && cx <= pxc ? (c1 ? 1 : -1) : 0;",
+                        "cx <= pxc")
     ops = 0
     for text in (proj, pair):
         ops += len(re.findall(r"(?<=[\w\)\]]) [*+-] (?=[\w\(])", text))
         ops += len(re.findall(r"\bfm(?:in|ax)f\(", text))
         ops += len(re.findall(r"<=", text))
     assert ops + 1 == work.PAIR_F32_OPS == 22
+    # The caller's running min, once a pair.
+    assert acc.count("dmin = fminf(dmin, d2_and_winding(") == 2
+
+
+def test_issue_rate_is_half_the_published_peak():
+    """An un-fused f32 stream's roof: SMs × 128 instructions a clock; at
+    the H100's 132 SMs and 1,980 MHz half the published 67·10¹², which
+    counts a fused multiply-add as two."""
+    rate = work.issue_rate_ops_per_s(132, 1980)
+    assert rate == 132 * 128 * 1980e6 == pytest.approx(33.45e12, rel=1e-3)
+    assert 2 * rate == pytest.approx(work.PEAK_F32_OPS_PER_S, rel=3e-3)
+    assert work.share_of_issue_rate(rate * 2e-3, 2.0, 132, 1980) == pytest.approx(1.0)
+    assert work.share_of_issue_rate(rate * 1e-3, 2.0, 132, 990) == pytest.approx(1.0)
+    assert work.share_of_issue_rate(rate * 1e-3, 2.0, 66, 1980) == pytest.approx(1.0)
 
 
 def test_bound_picks_the_larger_time():

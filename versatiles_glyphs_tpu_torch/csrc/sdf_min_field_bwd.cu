@@ -12,24 +12,49 @@
 // start point and -2g*q*tc at its end point.
 //
 // The TPU kernel visits every (pixel, segment chunk) pair so that it
-// never scatters. Here the reduction is segment-major and DETERMINISTIC:
-// no atomics, every output lane written by exactly one thread, and each
-// lane's sums taken in one fixed order (tiles up, pixels up). Work: one
-// thread block per tile-table row; only a glyph's first row (pix_base 0,
-// w*h > 0) works, the others return at once. That block owns the
-// glyph's lanes [off, off + npts) (glyph lane runs are disjoint and a
-// glyph's rows are consecutive, as the flat plan lays them out) in
-// chunks of TP lanes, one thread per lane. For each chunk it walks the
-// glyph's rows in order, stages the row's am and g in shared memory, and
-// every thread scans them for its lane, recomputing the pair terms only
-// on a match. B of the last lane of a chunk carries to the next chunk in
-// a register. Lanes outside every glyph are left as the caller's zeros.
+// never scatters. Here the reduction is pixel-major: a pixel is routed
+// to its argmin lane once, with no scan of the lanes, no atomics and
+// every output lane written by one thread. The work is a glyph's w*h
+// pixels, not its pixels times its lanes.
 //
-// Bound: shared-memory broadcast reads, one (am, g) pair per pixel per
-// lane of the chunk; the pair math runs once per pixel (25 f32
-// operations, tools/work.BWD_PIXEL_F32_OPS, so the least time the card
-// could take is that of the bytes). Pixels past
-// w*h, skip rows and the sentinel 2^31 - 1 contribute nothing.
+// - A warp is given a row of the tile table and returns at once unless
+//   the row is a glyph's first (pix_base 0, w*h > 0). A glyph's rows
+//   are consecutive with pix_base 0, TP, 2*TP, ... (the flat plan lays
+//   them out so, the wrapper checks it), so its am and g are contiguous
+//   from row*TP for w*h pixels. The warp walks them in order, 32 pixels
+//   a step, am and g loaded one step ahead. A lane recomputes its
+//   pixel's tc, qx, qy on segment (a, a + 1) with the parent kernel's
+//   op order (g2 = 2g, g2*qx, terms g2*qx, g2*qy, g2*qx*tc, g2*qy*tc).
+// - The lanes of a step are grouped by a - off (`vg::match_keys`); the
+//   lowest lane of each set adds the set's terms, in lane order, which
+//   is pixel order, onto that lane's float4 accumulator (ax, ay, bx, by)
+//   in shared memory (`vg::add_in_lane_order`). One warp owns a glyph's
+//   accumulators, so no two lanes add to one of them, and each sum is
+//   taken in pixel order (tiles up, pixels up): the order of the
+//   sequential loop ops/sdf_torch.min_field_bwd_pts_ordered, whose bits
+//   this kernel gives. DETERMINISTIC.
+// - A pixel counts only if it is below w*h and its am is a segment lane
+//   of the glyph's run, [off, off + npts - 1); the sentinel 2^31 - 1,
+//   any other lane and the lanes past the walk take key -1, which has no
+//   leader. The cotangent past w*h is never read into a sum.
+// - Accumulators take 16 bytes a lane and warp, at most 48 KB a block;
+//   a glyph with more segment lanes than a pass covers is walked once a
+//   pass of lanes, its pixels reread, each pass keeping the pixels whose
+//   am lies in it. A lane lies in one pass, so the order of its sum
+//   does not change.
+// - Epilogue of a pass: every lane L of it is written once,
+//   dpts[L] = (bx_L - ax_L) - bx_{L-1}; the bx of the lane before the
+//   glyph's run is 0, and across a pass the previous pass's last bx is
+//   carried. After the last pass the chain's last point, where no
+//   segment starts, gets -bx of the last segment. Glyph lane runs are
+//   disjoint, so no lane has two writers; lanes outside every glyph stay
+//   the caller's zeros.
+//
+// Bound: bytes (25 f32 operations a pixel, tools/work.BWD_PIXEL_F32_OPS,
+// against 8 bytes read a pixel and 16 a lane). The time is the longest
+// glyph's serial walk: a step is a prefetched load, four L1 gathers of
+// the point chain, a divide, a warp match and one round of four
+// shuffles for each lane of the step's largest set.
 
 #include <cstdint>
 
@@ -39,76 +64,85 @@
 
 namespace {
 
+constexpr int kSmemMax = 48 * 1024;  // shared memory a block without opting in
+
 __global__ void sdf_min_field_bwd_kernel(
     const float* __restrict__ pts, int n_lanes,
     const int32_t* __restrict__ am, const float* __restrict__ ct,
-    const int32_t* __restrict__ tmeta, int n_tiles,
+    const int32_t* __restrict__ tmeta, int n_tiles, int tp, int lanes_a_pass,
     float* __restrict__ dpts) {
-  extern __shared__ float smem[];
-  const int tp = blockDim.x;
-  int* s_am = reinterpret_cast<int*>(smem);
-  float* s_ct = smem + tp;
-  float* s_bx = s_ct + tp;
-  float* s_by = s_bx + tp;
-
-  const int tid = threadIdx.x;
-  const vg::TileRow g = vg::load_tile(tmeta, n_tiles, blockIdx.x);
+  extern __shared__ float4 acc_all[];  // [warps a block][lanes_a_pass]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = blockIdx.x * (blockDim.x >> 5) + warp;  // this warp's tile-table row
+  if (t >= n_tiles) return;  // the same for every lane of the warp
+  const vg::TileRow g = vg::load_tile(tmeta, n_tiles, t);
   const int npix = g.w * g.h;
-  if (g.base != 0 || npix <= 0) return;  // the same for every thread
-  const int n_rows = (npix + tp - 1) / tp;
-  const int end = g.off + g.npts;   // point lanes [off, end)
-  const int last = end - 1;         // segment lanes [off, last)
+  if (g.base != 0 || npix <= 0) return;  // not a glyph's first row
+  float4* acc = acc_all + static_cast<size_t>(warp) * lanes_a_pass;
+  const size_t row = static_cast<size_t>(t) * tp;  // am, ct of pixel p at row + p
+  const int last = g.off + g.npts - 1;  // segment lanes [off, last)
 
-  float carry_bx = 0.0f, carry_by = 0.0f;  // B of the lane before the chunk
-  for (int c0 = g.off; c0 < end; c0 += tp) {
-    const int lane = c0 + tid;
-    const bool is_seg = lane < last;
-    float vx = 0.0f, vy = 0.0f, dx = 0.0f, dy = 0.0f, l2inv = 0.0f;
-    if (is_seg) {
-      vx = pts[lane];
-      vy = pts[n_lanes + lane];
-      dx = pts[lane + 1] - vx;
-      dy = pts[n_lanes + lane + 1] - vy;
-      l2inv = vg::l2_inverse(dx, dy);
+  float carry_x = 0.0f, carry_y = 0.0f;  // bx, by of the lane before the pass
+  for (int c0 = g.off; c0 < last; c0 += lanes_a_pass) {
+    const int n = min(lanes_a_pass, last - c0);
+    for (int s = lane; s < n; s += 32) acc[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    __syncwarp();
+
+    int a_next = -1;
+    float g_next = 0.0f;
+    if (lane < npix) {
+      a_next = am[row + lane];
+      g_next = ct[row + lane];
     }
-    float ax = 0.0f, ay = 0.0f, bx = 0.0f, by = 0.0f;
-    for (int k = 0; k < n_rows; ++k) {
-      const int t = blockIdx.x + k;
-      const size_t o = static_cast<size_t>(t) * tp + tid;
-      __syncthreads();  // the previous row's reads are done
-      s_am[tid] = am[o];
-      s_ct[tid] = ct[o];
-      __syncthreads();
-      if (!is_seg) continue;
-      const int base = tmeta[6 * n_tiles + t];
-      const int nj = min(tp, npix - base);  // pixels past w*h drop out
-      for (int j = 0; j < nj; ++j) {
-        if (s_am[j] != lane) continue;
-        float pxc, pyc;
-        vg::pixel_center(g, base + j, pxc, pyc);
-        float tc, qx, qy;
-        vg::project(pxc - vx, pyc - vy, dx, dy, l2inv, tc, qx, qy);
-        const float g2 = 2.0f * s_ct[j];
+    for (int p0 = 0; p0 < npix; p0 += 32) {
+      const int p = p0 + lane;
+      const int a = a_next;
+      const float gc = g_next;
+      a_next = -1;
+      if (p + 32 < npix) {
+        a_next = am[row + p + 32];
+        g_next = ct[row + p + 32];
+      }
+      // Lanes past w*h carry -1, and c0 >= 0.
+      const bool in = a >= c0 && a < c0 + n;
+      float4 terms = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (in) {
+        const float vx = pts[a];
+        const float vy = pts[n_lanes + a];
+        const float dx = pts[a + 1] - vx;
+        const float dy = pts[n_lanes + a + 1] - vy;
+        float pxc, pyc, tc, qx, qy;
+        vg::pixel_center(g, p, pxc, pyc);
+        vg::project(pxc - vx, pyc - vy, dx, dy, vg::l2_inverse(dx, dy), tc, qx, qy);
+        const float g2 = 2.0f * gc;
         const float gqx = g2 * qx;
         const float gqy = g2 * qy;
-        ax += gqx;
-        ay += gqy;
-        bx += gqx * tc;
-        by += gqy * tc;
+        terms = make_float4(gqx, gqy, gqx * tc, gqy * tc);
       }
+      const vg::KeySets sets = vg::match_keys(in ? a - c0 : -1);
+      float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (sets.leader) sum = acc[a - c0];
+      vg::add_in_lane_order(sets, terms, sum);
+      if (sets.leader) acc[a - c0] = sum;
+      __syncwarp();  // the next step's leaders and the epilogue read these
     }
-    s_bx[tid] = bx;
-    s_by[tid] = by;
-    __syncthreads();
-    const float prev_bx = tid ? s_bx[tid - 1] : carry_bx;
-    const float prev_by = tid ? s_by[tid - 1] : carry_by;
-    if (lane < end) {
-      dpts[lane] = (bx - ax) - prev_bx;
-      dpts[n_lanes + lane] = (by - ay) - prev_by;
+
+    for (int s = lane; s < n; s += 32) {
+      const float4 v = acc[s];
+      const float prev_x = s ? acc[s - 1].z : carry_x;
+      const float prev_y = s ? acc[s - 1].w : carry_y;
+      dpts[c0 + s] = (v.z - v.x) - prev_x;
+      dpts[n_lanes + c0 + s] = (v.w - v.y) - prev_y;
     }
-    carry_bx = s_bx[tp - 1];
-    carry_by = s_by[tp - 1];
-    // s_bx/s_by are rewritten only after the next chunk's row syncs.
+    carry_x = acc[n - 1].z;
+    carry_y = acc[n - 1].w;
+    __syncwarp();  // the accumulators are read before the next pass zeroes them
+  }
+  // The chain's last point: no segment starts there (bx - ax = +0).
+  if (g.npts >= 1 && lane == 0) {
+    dpts[last] = 0.0f - carry_x;
+    dpts[n_lanes + last] = 0.0f - carry_y;
   }
 }
 
@@ -118,17 +152,26 @@ __global__ void sdf_min_field_bwd_kernel(
 // cudaGetLastError(). Pointers are device pointers: pts [2, n_lanes]
 // f32, am [n_tiles, tp] i32, ct [n_tiles, tp] f32 (the cotangent of
 // d^2), tmeta [8, n_tiles] i32, dpts [2, n_lanes] f32 zeroed by the
-// caller. tp is the block size (a multiple of 32, at most 1024). The
-// caller checks shapes, bounds and that each glyph's rows are
-// consecutive.
+// caller. threads is the block size (a multiple of 32, at most 1024; a
+// warp a tile-table row), and lanes_a_pass >= 1 the segment lanes a
+// warp's accumulators cover at a time: 16 * lanes_a_pass * threads / 32
+// bytes of shared memory, at most 48 KB. The caller checks shapes,
+// bounds and that each glyph's rows are consecutive.
 extern "C" int vg_sdf_min_field_bwd(
     const void* pts, int n_lanes, const void* am, const void* ct,
-    const void* tmeta, int n_tiles, int tp, void* dpts, void* stream) {
+    const void* tmeta, int n_tiles, int tp, int threads, int lanes_a_pass, void* dpts,
+    void* stream) {
   if (n_tiles == 0) return 0;
-  const size_t smem = 4 * static_cast<size_t>(tp) * sizeof(float);
-  sdf_min_field_bwd_kernel<<<n_tiles, tp, smem, static_cast<cudaStream_t>(stream)>>>(
+  if (threads % 32 || threads < 32 || threads > 1024 || lanes_a_pass < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int warps = threads / 32;
+  const size_t smem = sizeof(float4) * static_cast<size_t>(lanes_a_pass) * warps;
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = (n_tiles + warps - 1) / warps;
+  sdf_min_field_bwd_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pts), n_lanes,
       static_cast<const int32_t*>(am), static_cast<const float*>(ct),
-      static_cast<const int32_t*>(tmeta), n_tiles, static_cast<float*>(dpts));
+      static_cast<const int32_t*>(tmeta), n_tiles, tp, lanes_a_pass,
+      static_cast<float*>(dpts));
   return static_cast<int>(cudaGetLastError());
 }

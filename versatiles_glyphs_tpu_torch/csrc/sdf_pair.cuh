@@ -3,21 +3,21 @@
 // sdf_tiles_flat.cu, sdf_grid_flat.cu, sdf_min_field_padded.cu,
 // sdf_min_field_padded_bwd.cu, sdf_tiles_pts_acc.cu).
 //
-// Two inner routines live here. `SegChunk` (eight scalar arrays, one
-// pixel a thread, a validity word and a crossing test a pair) is the
-// per-pair implementation: sdf_tiles_pts_acc.cu alone runs it, and the
-// other render kernels are held against that kernel's bytes.
-// `SegRecords` (one segment = two float4, live segments only, R pixels
-// a thread, crossings listed by bitmap row) serves the tile kernels
-// sdf_tiles_pts.cu, sdf_tiles_flat.cu and sdf_min_field_pts.cu (one
-// tile body, `tile_body`, that differs in its staging, in what a pixel
-// keeps and in what it stores), sdf_grid_flat.cu and
-// sdf_min_field_padded.cu; the two min-field kernels find the first
-// argmin in the index a record carries. Both routines evaluate the same
-// expressions in the same order, so they give the same bits. The
-// backward kernels take `project` alone, and sdf_min_field_padded_bwd.cu
-// routes a pixel's terms to its argmin segment with the warp's key sets
-// at the end of this file (`match_keys`, `add_in_lane_order`).
+// The inner routine lives here: `SegRecords` (one segment = two float4,
+// live segments only, R pixels a thread, crossings listed by bitmap
+// row) serves the tile kernels sdf_tiles_pts.cu, sdf_tiles_flat.cu and
+// sdf_min_field_pts.cu (one tile body, `tile_body`, that differs in its
+// staging, in what a pixel keeps and in what it stores),
+// sdf_grid_flat.cu and sdf_min_field_padded.cu; the two min-field
+// kernels find the first argmin in the index a record carries.
+// sdf_tiles_pts_acc.cu, the per-pair implementation that the render
+// kernels are held against, takes only the records' staging
+// (`SegRecords::put`, every lane with its validity bit) and tests every
+// pair's crossing itself, with the same expressions in the same order,
+// so the two give the same bits. The backward kernels take `project`
+// alone, and sdf_min_field_padded_bwd.cu and sdf_min_field_bwd.cu route
+// a pixel's terms to its argmin segment or lane with the warp's key
+// sets at the end of this file (`match_keys`, `add_in_lane_order`).
 //
 // One definition of the tile-row read, the pixel center, the
 // point-to-segment projection, the crossing test and the quantization
@@ -84,86 +84,16 @@ __device__ __forceinline__ void project(float ex, float ey, float dx, float dy,
   qy = ey - tc * dy;
 }
 
-// Segment chunk staged in shared memory by a block of tp threads (tp is
-// the block size: sdf_tiles_pts_acc.cu's TP * split threads): the
-// derived terms of segment (pts[:, lane], pts[:, lane + 1]) at index
-// lane - c0, divides paid once per segment and block.
-struct SegChunk {
-  float *vx, *vy, *wy, *dx, *dy, *l2inv, *dyinv;
-  int* ok;
-
-  // Carves 8 arrays of tp words out of smem.
-  __device__ __forceinline__ SegChunk(float* smem, int tp) {
-    vx = smem;
-    vy = vx + tp;
-    wy = vy + tp;
-    dx = wy + tp;
-    dy = dx + tp;
-    l2inv = dy + tp;
-    dyinv = l2inv + tp;
-    ok = reinterpret_cast<int*>(dyinv + tp);
-  }
-
-  // Thread tid stages segment (v, w) with its validity.
-  __device__ __forceinline__ void put(int tid, float v_x, float v_y, float w_x,
-                                      float w_y, bool valid) const {
-    const float d_x = w_x - v_x;
-    const float d_y = w_y - v_y;
-    vx[tid] = v_x;
-    vy[tid] = v_y;
-    wy[tid] = w_y;
-    dx[tid] = d_x;
-    dy[tid] = d_y;
-    l2inv[tid] = l2_inverse(d_x, d_y);
-    dyinv[tid] = d_y != 0.0f ? __fdiv_rn(1.0f, d_y) : 0.0f;
-    ok[tid] = valid;
-  }
-
-  // Point-chain layout: thread tid stages lane (caller guarantees
-  // lane + 1 < n_lanes), live iff its mask bit is set.
-  __device__ __forceinline__ void stage(const float* __restrict__ pts, int n_lanes,
-                                        const int32_t* __restrict__ mask_words,
-                                        int lane, int tid) const {
-    const uint32_t word = static_cast<uint32_t>(mask_words[lane >> 5]);
-    put(tid, pts[lane], pts[n_lanes + lane], pts[lane + 1], pts[n_lanes + lane + 1],
-        (word >> (lane & 31)) & 1u);
-  }
-
-  // d^2 from pixel (pxc, pyc) to staged segment j, and its step of the
-  // winding count (+1 upward crossing left of the pixel, -1 downward).
-  // The crossing test is the parity form: the row crosses iff
-  // (vy <= py) != (wy <= py), upward iff vy <= py. That is the half-open
-  // up/down form vy <= py < wy (+1), wy <= py < vy (-1) of the older TPU
-  // kernels (ops/legacy.py) written with two compares fewer.
-  __device__ __forceinline__ float d2_and_winding(int j, float pxc, float pyc,
-                                                  int& wn) const {
-    const float v_x = vx[j];
-    const float v_y = vy[j];
-    const float d_x = dx[j];
-    const float d_y = dy[j];
-    const float ex = pxc - v_x;
-    const float ey = pyc - v_y;
-    float tc, qx, qy;
-    project(ex, ey, d_x, d_y, l2inv[j], tc, qx, qy);
-    const bool c1 = v_y <= pyc;
-    const bool cross = c1 != (wy[j] <= pyc);
-    const float cx = v_x + (ey * dyinv[j]) * d_x;
-    if (cross && cx <= pxc) wn += c1 ? 1 : -1;
-    return qx * qx + qy * qy;
-  }
-};
-
-constexpr int kSegChunkWords = 8;  // shared words per thread of SegChunk
-
 // ---- Packed records, R pixels a thread, crossings by row ----
 // (sdf_tiles_pts.cu, sdf_tiles_flat.cu, sdf_min_field_pts.cu,
 // sdf_grid_flat.cu, sdf_min_field_padded.cu)
 //
-// The pair math above costs 22 f32 instructions, and with SegChunk about
-// 16 more instruction slots around them (eight 4-byte shared loads, a validity
-// test, the winding's integer select and add, the loop). The card starts
-// one instruction a clock a scheduler whatever its kind, so those slots
-// are lost f32 work. Here
+// The pair math (project below, the crossing test and the running min)
+// costs 22 f32 instructions, and from eight scalar shared arrays about 16
+// more instruction slots around them (eight 4-byte shared loads, a
+// validity test, the winding's integer select and add, the loop). The
+// card starts one instruction a clock a scheduler whatever its kind, so
+// those slots are lost f32 work. Here
 // - a staged segment is one 32-byte record read by 16-byte broadcast
 //   loads that serve R pixels of the thread;
 // - only live segments are staged (no validity word, no branch) and the
@@ -173,8 +103,8 @@ constexpr int kSegChunkWords = 8;  // shared words per thread of SegChunk
 //   segment once against each row of its pixels (RowLists) and a pixel
 //   then sums the few crossings of its row: the loop over the segments
 //   keeps the 16 distance operations and no compare, select or integer
-//   add. The expressions are those of d2_and_winding on the same values,
-//   so the count is the same integer;
+//   add. The expressions are those of the per-pair test on the same
+//   values, so the count is the same integer;
 // - a kernel that needs the first argmin (MinPixels) finds the original
 //   index of a staged segment in the record's spare word, since the slot
 //   of a compacted segment is not its index.
@@ -264,8 +194,9 @@ struct SegRecords {
 
   __device__ __forceinline__ explicit SegRecords(float4* smem) : rec(smem) {}
 
-  // Stages segment (v, w) at slot j with its carried index: the values
-  // of SegChunk::put.
+  // Stages segment (v, w) at slot j with its carried index (or, for
+  // sdf_tiles_pts_acc.cu, its validity bit): its derived terms, divides
+  // paid once a segment and block.
   __device__ __forceinline__ void put(int j, float v_x, float v_y, float w_x, float w_y,
                                       int idx = 0) const {
     const float d_x = w_x - v_x;
@@ -343,7 +274,8 @@ struct SegRecords {
   }
 
   // One staged segment against the thread's R pixels: the expressions
-  // of SegChunk::d2_and_winding and the caller's running min; without
+  // of sdf_tiles_pts_acc.cu's d2_and_winding and the caller's running
+  // min (the crossing test is the parity form that function describes); without
   // kWinding the distance alone. MinPixels also keep the first argmin:
   // the update is on a strict `<`, so while segments are staged and
   // walked in index order a tie keeps the smallest index.
@@ -387,7 +319,7 @@ struct SegRecords {
   }
 
   // The block lists, for each of the nrows bitmap rows from row0, the
-  // crossings of the first n staged segments: d2_and_winding's test
+  // crossings of the first n staged segments: the per-pair test
   // with the row's center y. The caller synchronizes the block before
   // (the records are staged, the lists cleared) and after.
   __device__ __forceinline__ void list_crossings(int n, RowLists& rows, const TileRow& r,
@@ -579,7 +511,8 @@ __device__ __forceinline__ void render_tile(const Staging& staging,
   tile_body<R, Pixels<R>>(staging, tmeta, n_tiles, ByteStore{scale, cutoff, out});
 }
 
-// ---- A warp's lanes grouped by key (sdf_min_field_padded_bwd.cu) ----
+// ---- A warp's lanes grouped by key (sdf_min_field_padded_bwd.cu,
+// sdf_min_field_bwd.cu) ----
 //
 // A backward kernel adds each pixel's terms to the accumulators of the
 // pixel's argmin segment. A warp that walks pixels 32 at a time groups

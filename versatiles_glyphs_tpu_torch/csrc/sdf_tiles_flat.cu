@@ -41,8 +41,8 @@
 // --fmad=false; on the same glyphs the bytes also equal kernel 1's on
 // the f32 wire (same endpoints, same op order). Kernels 1, 6 and 7 now
 // share SegRecords, so the implementations they are held against are
-// the plain versions and sdf_tiles_pts_acc.cu, which keeps SegChunk's
-// one pixel a thread and a crossing test a pair.
+// the plain versions and sdf_tiles_pts_acc.cu, which keeps every lane
+// of a chunk and a crossing test a pair.
 
 #include <cstdint>
 

@@ -12,7 +12,10 @@ The port's nine hand-written kernels, each on the current stream:
 - ``sdf_min_field_pts`` (fitting forward): `min_field_cuda_pts`. The
   render tile kernel's body with the first argmin kept: a staged
   segment carries its global lane (`min_field_pixels_per_thread`);
-- ``sdf_min_field_bwd`` (fitting backward): `min_field_bwd_cuda`;
+- ``sdf_min_field_bwd`` (fitting backward): `min_field_bwd_cuda`. A
+  warp walks a glyph's pixels in order and routes each pixel's terms to
+  its argmin lane's accumulators, the lanes of a step grouped by lane
+  (`flat_bwd_launch_shape`); no scan of the lanes;
 - ``sdf_min_field_padded`` (padded-layout fitting forward):
   `min_field_cuda_padded`. A block renders a span of up to four pixels
   a thread of one glyph (`padded_launch_shape`), stages the glyph's live
@@ -76,7 +79,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sdf_tiles_pts": ("vg_sdf_tiles_pts", [_P, _I, _P, _P, _I, _I, _I, _F, _F, _P, _P]),
     "sdf_min_field_pts": ("vg_sdf_min_field_pts", [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
-    "sdf_min_field_bwd": ("vg_sdf_min_field_bwd", [_P, _I, _P, _P, _P, _I, _I, _P, _P]),
+    "sdf_min_field_bwd": ("vg_sdf_min_field_bwd", [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "sdf_min_field_padded": (
         "vg_sdf_min_field_padded", [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
     "sdf_min_field_padded_bwd": (
@@ -109,6 +112,16 @@ PADDED_PIXELS_PER_THREAD_MAX = 4
 PADDED_BWD_THREADS = 128
 PADDED_BWD_WARP_PIXELS = 2048
 PADDED_BWD_SMEM = 48 * 1024
+# ``sdf_min_field_bwd``: threads a block (a warp a tile-table row; the
+# warps of a glyph's other rows return at once) and the shared memory a
+# block's accumulators may take (kSmemMax of the source; 16 bytes a
+# lane and warp), which sizes the segment lanes a pass covers. 256
+# threads (384 lanes a pass) ran 0.0195 / 0.0230 ms against 0.0259 /
+# 0.0251 at 128 (768 lanes) on the synthesized fonts' flat plans
+# (`tools.kernel_turns`, CUDA graph replays): at 48 KB a block, blocks of
+# 256 threads keep all of a plan's rows resident at once.
+FLAT_BWD_THREADS = 256
+FLAT_BWD_SMEM = 48 * 1024
 # Pixel indices below this split into rows by integer div and mod as the
 # TPU's f32 division does (`versatiles_glyphs_tpu.ops.sdf_grad._pixel_coords`).
 MAX_PADDED_PIXELS = 1 << 23
@@ -116,7 +129,9 @@ MAX_PADDED_PIXELS = 1 << 23
 # source): a launch executes T·TP·n_chunk·ALU_ROOF_CHAINS·30 f32 ops.
 ALU_ROOF_CHAINS = 4
 # Threads a pixel of ``sdf_tiles_pts_acc`` by default: TP·4 = 1,024
-# threads a block at TP = 256.
+# threads a block at TP = 256 (2 and 4 within 2 % of each other on both
+# synthesized fonts, 1 slower on the heavy one, `tools.kernel_turns`; 8
+# would need 2,048 threads a block).
 ACC_SPLIT = 4
 # Pixels a thread of ``sdf_tiles_pts`` and ``sdf_tiles_flat`` where TP
 # allows it (a block of TP / 2 threads a tile: faster than 1 and than 4
@@ -428,12 +443,15 @@ def min_field_bwd_cuda(
 ) -> torch.Tensor:
     """Backward reduction of the min field (counterpart of
     `sdf_grad._min_field_bwd_pallas`): dpts [2, N] f32 from the argmin
-    lanes am [T, TP] i32 and the cotangent of d², ct_d2 [T, TP] f32.
+    lanes am [T, TP] i32 and the cotangent of d², ct_d2 [T, TP] f32. A
+    pixel counts if it is below w·h and its am is a segment lane of its
+    row's run; the sentinel 2³¹−1 adds nothing.
 
-    The kernel is deterministic (no atomics). It needs each glyph's
-    tile rows to be consecutive and glyph lane runs to be disjoint, as
-    `models.fitting.build_flat_plan` lays them out; the first is
-    checked."""
+    The kernel is deterministic (no atomics): each lane's sum is taken
+    in pixel order, the bits of `sdf_torch.min_field_bwd_pts_ordered`.
+    It needs each glyph's tile rows to be consecutive and glyph lane
+    runs to be disjoint, as `models.fitting.build_flat_plan` lays them
+    out; the first is checked."""
     if pts.dtype != torch.float32 or pts.dim() != 2 or pts.shape[0] != 2:
         raise ValueError(f"pts must be [2, N] float32, got {tuple(pts.shape)} {pts.dtype}")
     _check_tmeta(tmeta, TP)
@@ -458,15 +476,32 @@ def min_field_bwd_cuda(
     return launch_min_field_bwd(pts, am, ct_d2, tmeta, TP)
 
 
-def launch_min_field_bwd(pts, am, ct_d2, tmeta, TP: int) -> torch.Tensor:
+def flat_bwd_launch_shape(threads: int = FLAT_BWD_THREADS, lanes: int | None = None
+                          ) -> tuple[int, int]:
+    """(threads a block, segment lanes a pass) of the flat backward
+    kernel: a warp a tile-table row, and ``lanes`` a pass (None: as many
+    as ``FLAT_BWD_SMEM`` holds for the block's warps, 384 at 256 threads;
+    a glyph of more segment lanes is walked once a pass)."""
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"threads={threads} must be a multiple of 32 in [32, 1024]")
+    most = FLAT_BWD_SMEM // (16 * (threads // 32))
+    if lanes is not None and not 1 <= lanes <= most:
+        raise ValueError(f"lanes={lanes} must be in [1, {most}] at {threads} threads a block")
+    return threads, lanes or most
+
+
+def launch_min_field_bwd(pts, am, ct_d2, tmeta, TP: int, shape=None) -> torch.Tensor:
     """The backward kernel on inputs the caller has checked (see
-    `min_field_bwd_cuda`): zero the output and launch."""
+    `min_field_bwd_cuda`): zero the output and launch. ``shape``:
+    (threads a block, segment lanes a pass); None:
+    `flat_bwd_launch_shape`."""
     N, T = pts.shape[1], tmeta.shape[1]
     dpts = torch.zeros((2, N), dtype=torch.float32, device=pts.device)
     if T:
         _launch(
             "sdf_min_field_bwd", pts.device, pts.data_ptr(), N, am.data_ptr(),
-            ct_d2.data_ptr(), tmeta.data_ptr(), T, TP, dpts.data_ptr(),
+            ct_d2.data_ptr(), tmeta.data_ptr(), T, TP, *(shape or flat_bwd_launch_shape()),
+            dpts.data_ptr(),
         )
     return dpts
 

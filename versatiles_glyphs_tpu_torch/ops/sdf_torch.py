@@ -279,6 +279,32 @@ def min_field_pts(
     return d2_out, wn_out, am_out
 
 
+def _flat_bwd_pixels(pts, am, ct_d2, tmeta, TP: int):
+    """Per pixel [T, TP] of the flat backward: whether it counts (a row
+    and a pixel below w·h, its am a segment lane of the row's run
+    [off, off + npts − 1): the sentinel `_BIGI` and any other lane add
+    nothing, whatever the cotangent), that lane (0 where it does not
+    count), tc, qx, qy recomputed on segment (a, a+1) in the forward's
+    op order, and g2 = 2g."""
+    N = pts.shape[1]
+    rows = tmeta.to(torch.int32)
+    px, py, i = _pixel_centers(rows, TP)
+    npix = (rows[2] * rows[3])[:, None]
+    off = rows[5][:, None]
+    live = (i < npix) & (rows[6][:, None] < npix) & (am >= off) & (am < off + rows[4][:, None] - 1)
+    a = torch.where(live, am, 0).clamp(0, N - 2).long()
+    vx, vy = pts[0][a], pts[1][a]
+    dx = pts[0][a + 1] - vx
+    dy = pts[1][a + 1] - vy
+    l2 = dx * dx + dy * dy
+    l2inv = torch.where(l2 > 0.0, torch.reciprocal(l2), 0.0)
+    ex = px - vx
+    ey = py - vy
+    num = ex * dx + ey * dy
+    tc = torch.clamp(num * l2inv, 0.0, 1.0)
+    return live, a, tc, ex - tc * dx, ey - tc * dy, 2.0 * ct_d2
+
+
 def min_field_bwd_pts(
     pts: torch.Tensor,
     am: torch.Tensor,
@@ -290,37 +316,69 @@ def min_field_bwd_pts(
     version of the backward kernel (`sdf_grad._bwd_kernel_flat`).
 
     am [T, TP] i32 argmin lanes of `min_field_pts`, ct_d2 [T, TP] f32
-    cotangent g of d². For each pixel with a live argmin a, tc and q
-    are recomputed on segment (a, a+1) in the forward's op order; the
-    pixel adds 2g·q·(tc−1) at lane a and −2g·q·tc at lane a+1. Pixels
-    with the `_BIGI` sentinel, pixels past w·h and skip rows (which carry
-    am = 0) add nothing. Returns dpts [2, N] f32."""
+    cotangent g of d². For each pixel below w·h whose argmin a is a
+    segment lane of its row's run, tc and q are recomputed on segment
+    (a, a+1) in the forward's op order; the pixel adds 2g·q·(tc−1) at
+    lane a and −2g·q·tc at lane a+1 (`index_add_`, in no fixed order on
+    the card). Pixels with the `_BIGI` sentinel, pixels past w·h and skip
+    rows (which carry am = 0) add nothing. Returns dpts [2, N] f32."""
     N = pts.shape[1]
     dpts = torch.zeros((2, N), dtype=torch.float32, device=pts.device)
     if tmeta.shape[1] == 0:
         return dpts
-    rows = tmeta.to(torch.int32)
-    px, py, i = _pixel_centers(rows, TP)
-    npix = (rows[2] * rows[3])[:, None]
-    live = (am != _BIGI) & (i < npix) & (rows[6][:, None] < npix)
-    a = torch.where(live, am, 0).clamp(0, N - 2).long()
-    vx, vy = pts[0][a], pts[1][a]
-    dx = pts[0][a + 1] - vx
-    dy = pts[1][a + 1] - vy
-    l2 = dx * dx + dy * dy
-    l2inv = torch.where(l2 > 0.0, torch.reciprocal(l2), 0.0)
-    ex = px - vx
-    ey = py - vy
-    num = ex * dx + ey * dy
-    tc = torch.clamp(num * l2inv, 0.0, 1.0)
-    qx = ex - tc * dx
-    qy = ey - tc * dy
-    g2 = 2.0 * ct_d2
+    live, a, tc, qx, qy, g2 = _flat_bwd_pixels(pts, am, ct_d2, tmeta, TP)
     a = a.reshape(-1)
     for k, q in enumerate((qx, qy)):
         gq = g2 * q
         dpts[k].index_add_(0, a, torch.where(live, gq * (tc - 1.0), 0.0).reshape(-1))
         dpts[k].index_add_(0, a + 1, torch.where(live, -(gq * tc), 0.0).reshape(-1))
+    return dpts
+
+
+def min_field_bwd_pts_ordered(
+    pts: torch.Tensor,
+    am: torch.Tensor,
+    ct_d2: torch.Tensor,
+    tmeta: torch.Tensor,
+    TP: int = 256,
+) -> torch.Tensor:
+    """`min_field_bwd_pts` as the backward kernel sums it: per lane L,
+    A_L = Σ 2g·q and B_L = Σ 2g·q·tc over the pixels whose am is L, each
+    sum a sequential f32 loop in pixel order (a glyph's tile rows up,
+    pixels up), then dpts[L] = (B_L − A_L) − B_{L−1} over each glyph's
+    lanes [off, off + npts), with B of the lane before the run 0. Step
+    (k, j) adds pixel k·TP + j of every glyph onto its lane's sums; glyph
+    lane runs are disjoint, so no step adds twice to one element, and
+    the order of every sum is the pixels' (on any device). Only a glyph's
+    first row (pix_base 0, w·h > 0) owns lanes, as in the kernel. The
+    counterpart of `min_field_padded_bwd_ordered`: a reference, not a
+    fast path (TP steps a tile row of the largest glyph)."""
+    N = pts.shape[1]
+    dev = pts.device
+    dpts = torch.zeros((2, N), dtype=torch.float32, device=dev)
+    T = tmeta.shape[1]
+    if T == 0:
+        return dpts
+    rows = tmeta.to(torch.int32)
+    live, a, tc, qx, qy, g2 = _flat_bwd_pixels(pts, am, ct_d2, tmeta, TP)
+    gqx, gqy = g2 * qx, g2 * qy
+    terms = torch.where(live, torch.stack([gqx, gqy, gqx * tc, gqy * tc]), 0.0)  # [4, T, TP]
+    lane = torch.where(live, a, N)  # column N takes the zeros of pixels that do not count
+    sums = torch.zeros((4, N + 1), dtype=torch.float32, device=dev)  # ax, ay, bx, by
+    npix = rows[2] * rows[3]
+    k_of = torch.where(rows[6] < npix, torch.div(rows[6], TP, rounding_mode="floor"), -1)
+    for k in range(int(k_of.max()) + 1):  # one host sync
+        ks = torch.nonzero(k_of == k).reshape(-1)
+        for j in range(TP):
+            cols = lane[ks, j]
+            sums[:, cols] += terms[:, ks, j]
+    first = (rows[6] == 0) & (npix > 0) & (rows[4] >= 1)
+    off, npts = rows[5][first].long(), rows[4][first].long()
+    start = torch.repeat_interleave(off, npts)
+    lanes = start + torch.arange(start.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(npts, 0) - npts, npts)
+    prev = torch.where(lanes > start, sums[2:, lanes - 1], 0.0)
+    dpts[:, lanes] = (sums[2:, lanes] - sums[:2, lanes]) - prev
     return dpts
 
 

@@ -130,6 +130,31 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` on the card with the host out of the
+    way: ``reps`` calls captured once into a CUDA graph (their outputs
+    allocated from the graph's pool), replayed once to warm up, then one
+    replay timed by CUDA events. Where a launch takes the host longer to
+    enqueue than the card to run (kernels of a few tens of microseconds),
+    `time_ms` measures the host and this the card. ``fn`` must only
+    enqueue work on the current stream (no host sync)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def host_ms(fn, reps: int = 5) -> float:
     """Best host-clock milliseconds of ``fn()`` followed by a device
     synchronize, after one warm-up call."""

@@ -4,9 +4,9 @@ take for it.
 
 The operation counts are read off the sources, not assumed:
 
-- `PAIR_F32_OPS`: one (pixel, live segment) pair of
-  ``csrc/sdf_pair.cuh`` `SegChunk::d2_and_winding` and the running min
-  around it. Subtractions ex, ey (2); num = ex·dx + ey·dy (3); num·l2inv
+- `PAIR_F32_OPS`: one (pixel, live segment) pair of the per-pair
+  test, `d2_and_winding` of ``csrc/sdf_tiles_pts_acc.cu`` with
+  `project` of ``csrc/sdf_pair.cuh``, and the running min around it. Subtractions ex, ey (2); num = ex·dx + ey·dy (3); num·l2inv
   (1); the clamp's max and min (2); qx = ex − tc·dx and qy (4); the
   crossing's three compares (3); cx = vx + (ey·dyinv)·dx (3); d² =
   qx² + qy² (3); the running ``fminf`` (1): 22. The build passes
@@ -41,6 +41,13 @@ The operation counts are read off the sources, not assumed:
 The peaks are the published ones of an NVIDIA H100 SXM: 67 TFLOP/s of
 f32 outside the tensor cores (a fused multiply-add counted as two) and
 3.35 TB/s of device memory.
+
+`issue_rate_ops_per_s` is the yardstick of an instruction stream that
+keeps every multiply and add apart (``--fmad=false``): an SM issues at
+most `F32_LANES_PER_SM` f32 lane-instructions a clock, so such a
+stream runs at most at SMs × 128 × the SM clock, half the published
+peak (132 × 128 × 1,980 MHz = 33.45·10¹² against 67·10¹²). The card's SM
+count and top clock are read on the card (``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +64,19 @@ CROSSING_PIXEL_F32_OPS = 1
 
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+F32_LANES_PER_SM = 128  # f32 instructions an SM issues a clock, one a lane of its four schedulers
+
+
+def issue_rate_ops_per_s(sms: int, clock_mhz: float) -> float:
+    """The most f32 instructions a second ``sms`` SMs at ``clock_mhz``
+    issue: the roof of an un-fused instruction stream."""
+    return sms * F32_LANES_PER_SM * clock_mhz * 1e6
+
+
+def share_of_issue_rate(ops: float, ms: float, sms: int, clock_mhz: float) -> float:
+    """``ops`` f32 instructions executed in ``ms`` milliseconds over
+    `issue_rate_ops_per_s`."""
+    return ops / (ms * 1e-3) / issue_rate_ops_per_s(sms, clock_mhz)
 
 
 def live_segments(tmeta: np.ndarray, mask_words: np.ndarray | None = None) -> np.ndarray:

@@ -375,3 +375,92 @@ def out_of_range_argmin(am: np.ndarray, S: int, seed: int = 0) -> np.ndarray:
     bad = np.array([-1, -7, S, S + 9, 2**31 - 1, -(2**31)], np.int64)
     out = np.where(rng.uniform(size=am.shape) < 0.125, rng.choice(bad, size=am.shape), am)
     return out.astype(np.int32)
+
+
+def degenerate_fit_plan():
+    """A flat-plan point chain for the fitting kernels' edges: (plan,
+    chain [2, N] f32 torch tensor) of three glyphs at depth 2, one with
+    zero-length curves, a horizontal line and a square, one with no
+    live segment (the argmin sentinel), and one whose bitmap has
+    negative origins."""
+    import torch
+
+    from ..models import fitting
+
+    curves = np.zeros((3, 8, 4, 2), np.float32)
+    mask = np.zeros((3, 8), bool)
+    lines = [((3, 4), (7, 4)), ((2, 2), (6, 2)), ((6, 2), (6, 6)), ((6, 6), (2, 6)),
+             ((2, 6), (2, 2))]
+    for c, (a, b) in enumerate(lines):
+        a, b = np.array(a, np.float32), np.array(b, np.float32)
+        curves[0, c] = [a, a + (b - a) / 3, a + 2 * (b - a) / 3, b]
+    curves[0, 5:7] = 4.5
+    mask[0, :7] = True
+    meta = np.array([[0, 0, 10, 9], [0, 0, 17, 17], [-2, -1, 12, 6]], np.int32)
+    plan = fitting.build_flat_plan(mask, meta, 2, 512)
+    chain = fitting.flat_chain_points(torch.tensor(curves), torch.zeros(3, 2), 2,
+                                      torch.as_tensor(plan.chunk_map).long())
+    return plan, chain.contiguous()
+
+
+# The flat backward's edge inputs, made from a plan's own (pts, am, ct,
+# tile table) by `flat_bwd_edge_case`.
+FLAT_BWD_EDGE_CASES = ("unmasked", "one_wins", "out_of_run", "unaligned", "short_runs")
+
+
+def flat_bwd_edge_case(name: str, pts: np.ndarray, am: np.ndarray, tmeta: np.ndarray,
+                       seed: int = 0):
+    """An input at an edge of the flat backward kernel
+    (``csrc/sdf_min_field_bwd.cu``), made from a flat plan's point chain
+    pts [2, N] f32, a forward's argmin am [T, TP] i32 and the tile table
+    [8, T] i32, with a cotangent drawn from a numpy seed over every
+    pixel (past w·h and on skip rows too, where it must add nothing):
+    (pts, am, ct [T, TP] f32, tmeta), numpy arrays.
+
+    ``unmasked``: the plan as it is. ``one_wins``: every pixel of a glyph
+    has the argmin lane off + (npts − 1) // 2 (a step's 32 lanes are one
+    set). ``out_of_run``: about a quarter of the argmins replaced by
+    lanes outside their glyph's segment lanes [off, off + npts − 1): the
+    lane before the run, the chain's last point, lanes past it, another
+    glyph's lane, negative ones, N and beyond, and the sentinel.
+    ``unaligned``: the lanes shifted by 5, so that no run starts on a
+    multiple of 32. ``short_runs``: glyph 0 given npts = 1 and glyph 1
+    npts = 0 (their argmins then lie outside their runs, and glyph 0
+    owns one lane, glyph 1 none)."""
+    rng = np.random.default_rng(seed)
+    pts, am, tmeta = pts.copy(), am.copy(), tmeta.copy()
+    T, TP = am.shape
+    N = pts.shape[1]
+    ct = rng.normal(size=(T, TP)).astype(np.float32)
+    first = np.flatnonzero((tmeta[6] == 0) & (tmeta[2] * tmeta[3] > 0) & (tmeta[4] >= 2))
+    # Each glyph's rows: from its first row while pix_base goes up.
+    glyph = np.full(T, -1)
+    for g, t0 in enumerate(first):
+        t = t0
+        while t < T and (t == t0 or tmeta[6, t] == tmeta[6, t - 1] + TP):
+            glyph[t] = g
+            t += 1
+    off, npts = tmeta[5, first].astype(np.int64), tmeta[4, first].astype(np.int64)
+    if name == "one_wins":
+        rows = glyph >= 0
+        am[rows] = (off + (npts - 1) // 2)[glyph[rows]][:, None]
+    elif name == "out_of_run":
+        rows = glyph >= 0
+        g = glyph[rows][:, None]
+        other = off[(glyph[rows] + 1) % len(first)][:, None]
+        bad = np.stack(np.broadcast_arrays(
+            off[g] - 1, off[g] + npts[g] - 1, off[g] + npts[g] + 3, other,
+            np.full_like(g, -5), np.full_like(g, N), np.full_like(g, N + 40),
+            np.full_like(g, 2**31 - 1)), -1)  # [rows, 1, 8]
+        pick = bad[:, 0, :][np.arange(g.shape[0])[:, None], rng.integers(0, 8, size=(g.shape[0], TP))]
+        am[rows] = np.where(rng.uniform(size=pick.shape) < 0.25, pick, am[rows])
+    elif name == "unaligned":
+        pts = np.concatenate([np.zeros((2, 5), np.float32), pts], 1)
+        am = np.where((am >= 0) & (am < N), am + 5, am)
+        tmeta[5] += 5
+    elif name == "short_runs":
+        tmeta[4, glyph == 0] = 1
+        tmeta[4, glyph == 1] = 0
+    elif name != "unmasked":
+        raise ValueError(f"unknown flat backward case {name!r}")
+    return pts, am.astype(np.int32), ct, np.ascontiguousarray(tmeta)

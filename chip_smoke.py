@@ -67,13 +67,22 @@ JSON lines:
    to its plain version and to the tile kernel's.
 4. slice  — two synthesized fonts at real sizes (a text font of 1,700
    glyphs over 7 blocks, a heavy one of 1,150 glyphs of ~1,000 points)
-   through the port's renderer, render session, native PBF encode and
-   writer, with the launch counts reset just before. Every PBF is held
-   against the exact f64 renderer (integer metrics equal, bitmaps
-   within 1 on at most 5 % of pixels) and one block against the
-   ``torch`` backend on the CPU byte for byte. Then both fonts whole
-   through each segment-layout render kernel (one launch each a font),
-   held against the exact renderer to the same bound.
+   through the port's renderer, pipelined render session (each group's
+   launch and fetch queued without a host wait, copies on their own
+   streams from pinned staging), native PBF encode and writer, with the launch
+   counts reset just before. Every PBF is held against the exact f64
+   renderer (integer metrics equal, bitmaps within 1 on at most 5 % of
+   pixels) and one block against the ``torch`` backend on the CPU byte
+   for byte. A warm render runs under `torch.profiler`: the card's busy
+   share of its wall time, the copies' times, `WIRE_STATS` and the rates
+   they imply, and no session thread left after it. Then the session's
+   several-device path with the one card listed twice as the local
+   devices (`parallel.mesh.data_devices` patched; two lanes, each
+   with its streams; the bins of `Renderer._lpt_rounds`): its tree must
+   equal the one-device tree byte for byte, one launch a group. Then
+   both fonts whole through each segment-layout render kernel (one
+   launch each a font), held against the exact renderer to the same
+   bound.
 5. fit    — a self-fit of the text font's 1,700 glyphs at depth 3 from
    a perturbed start (`utils.synth_font.synth_fit_batch`): 20 Adam steps
    of the ``flat`` backend with the counts reset just before (each
@@ -109,9 +118,11 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -928,8 +939,8 @@ def phase_tools() -> dict:
 
 def render_font(name, preps, renderer, out_dir):
     """The atlas pipeline below the font parser: blocks of 256
-    codepoints through one render session, the fused native PBF
-    encode and the directory writer. Returns (seconds, groups)."""
+    codepoints through one render session, the fused native PBF encode
+    and the directory writer. Returns (seconds, groups)."""
     from versatiles_glyphs_tpu_torch.font.index_files import build_index_json
     from versatiles_glyphs_tpu_torch.proto import native
     from versatiles_glyphs_tpu_torch.writer import Writer
@@ -952,6 +963,51 @@ def render_font(name, preps, renderer, out_dir):
     writer.finish()
     torch.cuda.synchronize()
     return time.perf_counter() - t0, session.groups
+
+
+def session_threads() -> list:
+    """Threads of the package's render session alive (named ``vg``...):
+    the session dispatches on the caller's thread and starts none."""
+    return [t.name for t in threading.enumerate() if t.name.startswith("vg")]
+
+
+def warm_render_profile(name, preps, renderer, out_dir) -> dict:
+    """One warm render under `torch.profiler` (`tools.session_turns.busy_share`):
+    the share of its wall time in which the card ran a kernel or a copy,
+    the copies' own times, the session's `WIRE_STATS` with the rates
+    they imply, and no session thread left after it."""
+    from versatiles_glyphs_tpu_torch.render import driver
+    from versatiles_glyphs_tpu_torch.tools.session_turns import busy_share
+
+    driver.reset_wire_stats()
+    groups = []
+
+    def render():
+        secs, n = render_font(name, preps, renderer, out_dir)
+        groups.append(n)
+        return secs
+
+    rec = busy_share(render)
+    wire = dict(driver.WIRE_STATS)
+    left = session_threads()
+    if left:
+        raise AssertionError(f"{name}: session threads left after the render: {left}")
+    if wire["groups"] != groups[0]:
+        raise AssertionError(f"{name}: WIRE_STATS counts {wire['groups']} groups of {groups[0]}")
+    secs = rec["seconds_profiled"]
+    rec = {"phase": "warm_render", "font": name, "groups": groups[0], **rec, "wire_stats": wire,
+           "upload_GB_per_s_of_wall": wire["upload_bytes"] / secs / 1e9,
+           "fetch_GB_per_s_of_wall": wire["fetch_bytes"] / secs / 1e9,
+           "session_threads_after": len(left)}
+    if rec["device_events"]:
+        rec["upload_GB_per_s_of_copy"] = (wire["upload_bytes"] / (rec["htod_ms"] * 1e6)
+                                          if rec["htod_ms"] else None)
+        rec["fetch_GB_per_s_of_copy"] = (wire["fetch_bytes"] / (rec["dtoh_ms"] * 1e6)
+                                         if rec["dtoh_ms"] else None)
+    else:
+        rec["device_busy_share"] = "not measured: the profiler saw no device event"
+    emit(rec)
+    return rec
 
 
 def compare_trees(name, got_dir, want_dir):
@@ -990,6 +1046,20 @@ def compare_trees(name, got_dir, want_dir):
     return len(files), n_glyphs, n_pix, n_diff, max_d
 
 
+def compare_bytes(name, got_dir, want_dir) -> list:
+    """The files of fontstack ``name`` whose bytes differ between two
+    trees, or that only one of them has."""
+    a = sorted(os.listdir(os.path.join(got_dir, name)))
+    b = sorted(os.listdir(os.path.join(want_dir, name)))
+    differ = sorted(set(a) ^ set(b))
+    for fn in set(a) & set(b):
+        with open(os.path.join(got_dir, name, fn), "rb") as f1, \
+                open(os.path.join(want_dir, name, fn), "rb") as f2:
+            if f1.read() != f2.read():
+                differ.append(fn)
+    return differ
+
+
 def debug_rows(name, out_dir):
     """The ``debug`` command's rows (codepoint, width, height, left, top,
     advance, bitmap size) of a rendered fontstack, BMP blocks only."""
@@ -1010,6 +1080,7 @@ def debug_rows(name, out_dir):
 def phase_slice(font_list, work) -> int:
     from versatiles_glyphs_tpu_torch.proto import native
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda
+    from versatiles_glyphs_tpu_torch.parallel import mesh
     from versatiles_glyphs_tpu_torch.render.driver import Renderer
 
     native.require()
@@ -1024,8 +1095,35 @@ def phase_slice(font_list, work) -> int:
             raise AssertionError(f"{name}: {n_launch} kernel launches for {groups} groups")
         launches += n_launch
         # The same font again in the same process: the steady state of a
-        # run over many fonts (the first render pays one-time costs).
-        warm_s, _ = render_font(name, preps, cuda_r, os.path.join(work, "cuda_warm"))
+        # run over many fonts (the first render pays one-time costs); the
+        # median of five, since one render on a shared host varies by tens
+        # of percent.
+        warm = []
+        for k in range(5):
+            warm.append(render_font(name, preps, cuda_r, os.path.join(work, "cuda_warm"))[0])
+            shutil.rmtree(os.path.join(work, "cuda_warm"))
+        warm_s = statistics.median(warm)
+        warm_render_profile(name, preps, cuda_r, os.path.join(work, "cuda_prof"))
+
+        # The several-device path (`Renderer._render_devices`, the bins of
+        # `_lpt_rounds`) with the one card listed twice as the local
+        # devices: two lanes, each with its own streams. Its tree must be
+        # the one-device tree.
+        dev = torch.device("cuda", 0)
+        two_dir = os.path.join(work, "cuda_two")
+        sdf_cuda.reset_launches()
+        real_devices = mesh.data_devices
+        mesh.data_devices = lambda *a, **kw: [dev, dev]
+        try:
+            two_s, two_groups = render_font(name, preps, cuda_r, two_dir)
+        finally:
+            mesh.data_devices = real_devices
+        two_launch = sdf_cuda.LAUNCHES["sdf_tiles_pts"]
+        if not (two_launch == two_groups >= 2):
+            raise AssertionError(f"{name}: {two_launch} launches for {two_groups} groups "
+                                 "on two lanes")
+        if compare_bytes(name, two_dir, got_dir):
+            raise AssertionError(f"{name}: the two-lane tree differs from the one-device tree")
 
         want_dir = os.path.join(work, "exact")
         exact_s, _ = render_font(name, preps, exact_r, want_dir)
@@ -1053,11 +1151,14 @@ def phase_slice(font_list, work) -> int:
               "tiles": int(sum(p.ntiles256 for p in preps if not p.empty)),
               "groups": groups, "launches": n_launch, "seconds": secs,
               "glyphs_per_s": len(preps) / secs, "seconds_warm": warm_s,
+              "seconds_warm_each": warm,
+              "two_lanes": {"groups": two_groups, "launches": two_launch, "seconds": two_s,
+                            "tree_equal": True},
               "exact_seconds": exact_s,
               "pixels": n_pix, "pixels_off_by_1": n_diff, "frac_off": frac,
               "max_abs_diff": max_d, "debug_rows": len(rows),
               "torch_cpu_block_bytes_equal": True})
-        for sub in ("cuda", "cuda_warm", "exact", "torch"):
+        for sub in ("cuda", "cuda_warm", "cuda_prof", "cuda_two", "exact", "torch"):
             shutil.rmtree(os.path.join(work, sub), ignore_errors=True)
     return launches
 

@@ -30,6 +30,7 @@ import versatiles_glyphs_tpu.font.wrapper as jx_wrapper
 import versatiles_glyphs_tpu.models.render_fitted as jx_fitted
 import versatiles_glyphs_tpu.ops.flatten as jx_flatten
 import versatiles_glyphs_tpu.ops.sdf_ref as jx_ref
+import versatiles_glyphs_tpu.parallel.mesh as jx_mesh
 import versatiles_glyphs_tpu.proto.native as jx_native
 import versatiles_glyphs_tpu.proto.pbf as jx_pbf
 import versatiles_glyphs_tpu.render.driver as jx_driver
@@ -51,6 +52,7 @@ import versatiles_glyphs_tpu_torch.font.wrapper as pt_wrapper
 import versatiles_glyphs_tpu_torch.models.render_fitted as pt_fitted
 import versatiles_glyphs_tpu_torch.ops.flatten as pt_flatten
 import versatiles_glyphs_tpu_torch.ops.sdf_ref as pt_ref
+import versatiles_glyphs_tpu_torch.parallel.mesh as pt_mesh
 import versatiles_glyphs_tpu_torch.proto.native as pt_native
 import versatiles_glyphs_tpu_torch.proto.pbf as pt_pbf
 import versatiles_glyphs_tpu_torch.render.driver as pt_driver
@@ -349,6 +351,30 @@ def test_arena_and_progress():
             bar.update(6)
         state.append((bar.total, bar.pos, bar.enabled))
     assert state[0] == state[1] == (10, 10, False)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_partition_tasks(seed):
+    """The process partition: the same share for every rank and process
+    count, with and without weights (ties and zeros included)."""
+    rng = np.random.default_rng(seed)
+    tasks = [(f"font{i % 5}", list(range(int(rng.integers(0, 40)))))
+             for i in range(int(rng.integers(1, 30)))]
+    weights = rng.integers(0, 6, len(tasks)).tolist() if seed % 2 else None
+    for P in (1, 2, 3, 4, 7):
+        got = [pt_mesh.partition_tasks(tasks, r, P, weights) for r in range(P)]
+        assert got == [jx_mesh.partition_tasks(tasks, r, P, weights) for r in range(P)]
+        assert sorted(id(t) for part in got for t in part) == sorted(map(id, tasks))
+
+
+@pytest.mark.parametrize("shape,multiple,axis", [((5, 3), 4, 0), ((8, 3), 4, 0), ((2, 7), 3, 1),
+                                                 ((0, 2), 5, 0), ((3, 2, 5), 2, 2)])
+def test_pad_to_multiple(shape, multiple, axis):
+    arr = np.arange(int(np.prod(shape)), dtype=np.int32).reshape(shape) + 1
+    got = pt_mesh.pad_to_multiple(arr, multiple, axis)
+    want = jx_mesh.pad_to_multiple(arr, multiple, axis)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])

@@ -12,9 +12,11 @@
   byte for byte `ops.sdf_torch.render_tiles_pts` and the JAX package's
   `render_bitmaps_pts_jax`, which is what ``scripts/kernel_ab.py:187-189``
   asserts of the TPU variant.
-- Both tools raise without a card; the wrappers take their plain
+- The tools raise without a card; the wrappers take their plain
   versions only for the CPU by name.
 """
+
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,7 @@ from versatiles_glyphs_tpu.ops.sdf_jax import render_bitmaps_pts_jax
 from versatiles_glyphs_tpu.render import batch as jbatch
 from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
 from versatiles_glyphs_tpu_torch.render import batch as pbatch
-from versatiles_glyphs_tpu_torch.tools import kernel_ab, roofline, work
+from versatiles_glyphs_tpu_torch.tools import kernel_ab, roofline, session_turns, work
 from versatiles_glyphs_tpu_torch.utils.synth_font import curved_preps
 
 TP = 256
@@ -252,7 +254,8 @@ def test_split_wrapper_rejects_bad_splits(preps):
     assert sdf_cuda.render_bitmaps_cuda_pts_acc(pts, words, tmeta[:, :0], TP).shape == (0, TP)
 
 
-@pytest.mark.parametrize("tool", [roofline, kernel_ab], ids=["roofline", "kernel_ab"])
+@pytest.mark.parametrize("tool", [roofline, kernel_ab, session_turns],
+                         ids=["roofline", "kernel_ab", "session_turns"])
 def test_tools_raise_without_a_card(monkeypatch, tool, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     sdf_cuda.reset_launches()
@@ -260,6 +263,33 @@ def test_tools_raise_without_a_card(monkeypatch, tool, capsys):
         tool.main([])
     assert capsys.readouterr().out == ""
     assert not any(sdf_cuda.LAUNCHES.values())
+
+
+def test_session_turns_on_the_cpu(monkeypatch):
+    """`session_turns.turns` on the ``torch`` backend with a tiny font:
+    two variants of this package, timed in turns, trees held equal, the
+    profiled render without device events and `WIRE_STATS` read."""
+    monkeypatch.setitem(roofline.FONTS, "tiny", (20, 65, 3, 8))
+    variants = [session_turns.Variant(label, "versatiles_glyphs_tpu_torch", "torch")
+                for label in ("a", "b")]
+    res = session_turns.turns(variants, ["tiny"], 3, lambda: None, with_timeline=True)
+    for label in ("a", "b"):
+        rec = res["tiny"][label]
+        tl = rec["timeline"]
+        assert {"MainThread:pack", "MainThread:upload", "MainThread:render",
+                "MainThread:fetch", "MainThread:wait_fetch", "MainThread:encode"} <= set(tl["stage_ms"])
+        assert all(0 <= a <= b <= 1e3 * tl["seconds"] + 1 for _, _, a, b in tl["spans"])
+        assert len(rec["seconds"]) == 3 and rec["seconds_min"] <= rec["seconds_median"]
+        assert rec["seconds_iqr"] >= 0
+        assert ("turns_first_faster" in rec) == (label == "b")
+        assert rec["device_events"] == 0 and rec["device_busy_share"] is None
+        assert rec["wire_stats"]["groups"] == 1
+        assert rec["wire_stats"]["fetch_bytes"] == 256 * sum(
+            p.ntiles256 for p in curved_preps(20, 65, seed=3))
+    variants[1].native = types.SimpleNamespace(
+        encode_block_from_preps=lambda name, rng, bp, it: b"other" + bytes(len(list(zip(bp, it)))))
+    with pytest.raises(AssertionError, match="tree differs"):
+        session_turns.turns(variants, ["tiny"], 1, lambda: None)
 
 
 def test_first_group_is_the_sessions(monkeypatch, preps):

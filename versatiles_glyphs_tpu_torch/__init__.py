@@ -23,7 +23,13 @@ Layers, from the entry points down to the device:
                               the tile kernel against the measured ALU
                               and copy roofs, and against its split
                               variant
-- ``font.manager``          — the render scheduler, single-process
+- ``tools.session_turns``   — warm renders through the render session,
+                              in turns against another checkout's
+- ``font.manager``          — the render scheduler; across processes,
+                              each renders its share of the blocks
+- ``parallel.mesh``         — the local devices a batch is dealt over,
+                              and the processes of a run
+                              (`torch.distributed`) with their partition
 - ``font.{entry,wrapper,block,names,index_files}`` — the font parser
                               (fontTools), font stacks, 256-codepoint
                               blocks, names and the index files
@@ -37,6 +43,7 @@ Layers, from the entry points down to the device:
 - ``models.render_fitted``  — fitted parameters → a glyph atlas
 - ``render.driver``         — `Renderer` backends and the `RenderSession`
                               that packs glyph groups and dispatches them
+                              over one or several devices
 - ``render.metrics``        — `GlyphPrep`: f64 metrics, q16 chains and the
                               font-level prep cores
 - ``proto.{pbf,native}``    — the PBF encoder and the native runtime
@@ -44,7 +51,8 @@ Layers, from the entry points down to the device:
                               first use into ``build/native/``)
 - ``writer``                — directory, tar and in-memory writers
 - ``render.batch``          — the point-chain, i8-delta and flat
-                              segment packers, and `wire_to_device`
+                              segment packers, `wire_to_device`, and the
+                              session's streams (`DeviceLane`)
 - ``ops.sdf_grad``          — `signed_field_flat`, the autograd function
                               over the fitting kernels (the ``flat``
                               backend), and `signed_field_padded` over

@@ -5,10 +5,11 @@ parallelism re-shaped for an accelerator: where the reference fans the
 flat block task list over a rayon thread pool with a Mutex-guarded
 writer (`manager.rs:102-121`), this manager batches each block into one
 device call (the device's internal grid is the fine-grained
-parallelism). The writer stays host-side and single-threaded — the same
-single-writer collection pattern, without the lock. One process, one
-device: sharding the block list across processes is not part of this
-port yet.
+parallelism) and, with ``parallel``, deals the batch over the local
+devices (`parallel.mesh.data_devices`). The writer stays host-side and
+single-threaded — the same single-writer collection pattern, without
+the lock. Across processes (`parallel.mesh.initialize_multihost`) each
+process renders and writes its own share of the block task list.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ from .wrapper import FontWrapper
 class FontManager:
     def __init__(self, parallel: bool = True):
         """``parallel`` mirrors `FontManager::new(parallel)`
-        (`manager.rs:28`) and is passed on to the render session, which
-        renders on one device either way."""
+        (`manager.rs:28`): True deals the render over every local device
+        of the backend's kind (`parallel.mesh.data_devices`); False keeps
+        it on one device (the reference's ``--single-thread``)."""
         self.fonts: dict[str, FontWrapper] = {}
         self.parallel = parallel
 
@@ -97,13 +99,13 @@ class FontManager:
         tasks = self.collect_tasks()
         tasks = self._host_partition(tasks, renderer)
         total = sum(len(block) for _, block in tasks)
-        with progress_bar(total) as progress:
-            # The bar advances as results land: non-empty glyphs tick
-            # inside the session (per fetched device group), the rest
-            # tick as their block is written — summing to ``total``.
-            session = renderer.start_session(
-                parallel=self.parallel, progress=progress.update
-            )
+        # The bar advances as results land: non-empty glyphs tick inside
+        # the session (per fetched device group), the rest tick as their
+        # block is written — summing to ``total``. Leaving the block
+        # closes the session, also on an error before its results.
+        with progress_bar(total) as progress, renderer.start_session(
+            parallel=self.parallel, progress=progress.update
+        ) as session:
 
             # One future per FONT (all of its blocks), so two fonts'
             # parse/flatten/metrics overlap each other and the main
@@ -173,17 +175,45 @@ class FontManager:
 
     @staticmethod
     def _host_partition(tasks, renderer=None):
-        """The block partition of a multi-process run, in which each
-        process renders and writes only its own disjoint task subset.
-        This port runs one process: every task is this host's."""
-        return tasks
+        """Multi-process block partition: after
+        `parallel.mesh.initialize_multihost` each process renders and
+        writes only its own disjoint task subset (`partition_tasks` by
+        rank and world size) — the host-local writer rule (no PBF bytes
+        ever cross processes). One process: identity.
+
+        Partition weights are pixel-tile counts when a renderer is
+        available, as the JAX package weighs them (every process preps
+        every font to weigh it; glyph counts alone balance mixed-script
+        sets to only ~0.8 mean/max)."""
+        from ..parallel.mesh import partition_tasks, process_count, process_index
+
+        P = process_count()
+        if P <= 1:
+            return tasks
+        weights = None
+        if renderer is not None:
+            TP = 256
+
+            def block_tiles(block):
+                n = 0
+                for cp, entry in block.glyph_sources():
+                    p = renderer.prep_glyph(entry, cp)
+                    if p is not None and not p.empty:
+                        n += max(1, -(-(p.width * p.height) // TP))
+                return n
+
+            weights = [block_tiles(b) for _, b in tasks]
+        return partition_tasks(tasks, process_index(), P, weights)
 
     # -- index files -----------------------------------------------------
 
     def _is_index_host(self) -> bool:
-        """Whether this process writes the run-global index files: the
-        one process of a run does."""
-        return True
+        """Only process 0 writes the run-global index files in a run of
+        several processes (they are identical everywhere; writing them
+        once keeps the per-process file sets disjoint)."""
+        from ..parallel.mesh import process_count, process_index
+
+        return process_count() <= 1 or process_index() == 0
 
     def write_index_json(self, writer) -> None:
         if not self._is_index_host():

@@ -42,7 +42,8 @@ There is no fallback from one to the other: a build or launch that
 fails raises. Each wrapper checks dtypes, shapes and the tile table's
 bounds (one host sync) before it launches; ``launch_*`` is the launch
 alone, for a caller that has checked its inputs (the fitter checks its
-static plan once, `check_flat_plan`).
+static plan once, `check_flat_plan`; the render session checks each
+group's host arrays, `check_lane_runs`, and passes ``checked=True``).
 
 The i8-delta decode, the dequantize and the tile table (the XLA
 prepass steps of the TPU path) are plain PyTorch ops on the tensor's
@@ -56,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..constants import CUTOFF, SDF_RADIUS
@@ -235,21 +237,44 @@ def _check_cuda_lanes(pts, mask_words, tmeta) -> None:
         raise ValueError(f"tile table addresses lanes outside [0, {N})")
 
 
+def check_lane_runs(N: int, npts, off, anchor_lanes=None) -> None:
+    """The render path's lane checks on a group's host arrays, before
+    they are uploaded (no device sync): every run ``[off, off + npts)``
+    (the tile table's rows, or meta's, from which the i8 path derives
+    it) inside ``[0, N)``, and every i8 anchor lane too (the decode's
+    scatter-add would fault on the card). The render session checks
+    here and then launches with ``checked=True``."""
+    npts = np.asarray(npts, dtype=np.int64)
+    off = np.asarray(off, dtype=np.int64)
+    if ((off < 0) | (npts < 0) | (off + npts > N)).any():
+        raise ValueError(f"tile table addresses lanes outside [0, {N})")
+    if anchor_lanes is not None:
+        lanes = np.asarray(anchor_lanes, dtype=np.int64)
+        if ((lanes < 0) | (lanes >= N)).any():
+            raise ValueError(f"i8 anchors address lanes outside [0, {N})")
+
+
 def render_bitmaps_cuda_pts(
-    pts: torch.Tensor, mask_words: torch.Tensor, tmeta: torch.Tensor, TP: int = 256
+    pts: torch.Tensor, mask_words: torch.Tensor, tmeta: torch.Tensor, TP: int = 256,
+    *, checked: bool = False,
 ) -> torch.Tensor:
     """Quantized uint8 bitmaps [T, TP] over the point-chain layout
     (counterpart of `sdf_pallas.render_bitmaps_pallas_pts`).
 
     pts: [2, N] f32, or i16 q16 fixed point (dequantized first);
     mask_words: [N//32] i32; tmeta: [8, T] i32 (`render.batch.plan_tiles`
-    transposed)."""
+    transposed). ``checked``: the caller has checked the lane runs on
+    its host arrays (`check_lane_runs`), so the card is not asked (the
+    dtypes, shapes and devices are still checked, with no sync)."""
     if pts.dtype == torch.int16:
         pts = dequantize(pts)
     _check(pts, mask_words, tmeta, TP)
     if pts.device.type == "cpu":
         return render_tiles_pts(pts, mask_words, tmeta, TP)
-    _check_cuda_lanes(pts, mask_words, tmeta)
+    if checked:
+        _cuda_inputs(pts, mask_words, tmeta)
+    else:
+        _check_cuda_lanes(pts, mask_words, tmeta)
     return launch_tiles_pts(pts, mask_words, tmeta, TP)
 
 
@@ -346,14 +371,17 @@ def render_bitmaps_cuda_delta(
     TP: int = 256,
     *,
     T_pad: int,
+    checked: bool = False,
 ) -> torch.Tensor:
     """Render over the i8-delta wire (counterpart of
     `sdf_pallas.render_bitmaps_pallas_delta`): decode, dequantize,
     derive the [8, T_pad] tile table from meta [G, 8], then the tile
-    kernel. Inputs are the `render.batch.pack_points_delta` arrays."""
+    kernel. Inputs are the `render.batch.pack_points_delta` arrays.
+    ``checked`` as in `render_bitmaps_cuda_pts` (meta's runs and the
+    anchors' lanes checked on the host)."""
     pts = dequantize(reconstruct_delta(deltas, anchors))
     tmeta = derive_tmeta(meta, TP, T_pad)
-    return render_bitmaps_cuda_pts(pts, mask_words, tmeta, TP)
+    return render_bitmaps_cuda_pts(pts, mask_words, tmeta, TP, checked=checked)
 
 
 def min_field_cuda_pts(

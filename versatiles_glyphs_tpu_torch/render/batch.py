@@ -7,10 +7,15 @@ buckets, so the wire that crosses between the two packages is one
 format. Their arena buffers have keys of their own (``torch_`` prefix),
 so the two packages never hand out one buffer to each other.
 
-`wire_to_device` turns a pack tuple into tensors on an explicit device.
+`wire_to_device` turns a pack tuple into tensors on an explicit device
+with blocking copies; the render session makes them on a `DeviceLane`'s
+upload stream and fetches its outputs asynchronously on its fetch
+stream.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -217,3 +222,100 @@ def wire_to_device(pack_tuple, device: torch.device) -> tuple:
         torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
         for a in pack_tuple
     )
+
+
+class DeviceLane:
+    """One device of a render session and its streams.
+
+    On a CUDA device: a compute stream (the i8 decode, the tile table and
+    the kernel), an upload stream and a fetch stream. The upload is a
+    blocking copy from the packers' pageable arena buffers, which the
+    next pack rewrites; on a stream of its own it waits for nothing but
+    itself, not for the kernel of the group before. The fetch of a group
+    is queued after its kernel's event and not awaited, so it overlaps
+    the next group's pack and kernel (the card has a copy engine each
+    way). A CUDA stream is the thread's current stream only inside `on`.
+    On the CPU the streams are None and every step is done when it
+    returns; events are None. One card listed twice as the local devices
+    gives two lanes, two sets of streams.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        if self.cuda:
+            self.compute = torch.cuda.Stream(self.device)
+            self.upload = torch.cuda.Stream(self.device)
+            self.fetch = torch.cuda.Stream(self.device)
+        else:
+            self.compute = self.upload = self.fetch = None
+
+    def on(self, stream):
+        """Make ``stream`` the calling thread's current stream."""
+        return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+    @staticmethod
+    def record(stream):
+        """An event at the end of what is queued on ``stream`` (None on
+        the CPU)."""
+        if stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        return ev
+
+    def to_device(self, arrays) -> tuple:
+        """The numpy ``arrays`` as tensors on the lane's device, copied on
+        the upload stream (`wire_to_device`: complete when it returns, so
+        the arrays may be rewritten and the compute stream may read the
+        tensors at once). They are marked as in use by the compute
+        stream, so the upload stream cannot reuse their memory before
+        the kernel has read it."""
+        with self.on(self.upload):
+            dev = wire_to_device(arrays, self.device)
+        if self.cuda:
+            for t in dev:
+                t.record_stream(self.compute)
+        return dev
+
+    def fetch_to_host(self, out: torch.Tensor, ready):
+        """Queue the copy of ``out`` to a fresh host tensor on the fetch
+        stream, after the event ``ready`` (the kernel's). Returns (host
+        [numel] u8, the copy's event). On a card the host tensor is
+        pinned, the copy asynchronous, and ``out`` is marked as in use
+        by the fetch stream, so the compute stream cannot reuse its
+        memory before the copy has read it."""
+        with self.on(self.fetch):
+            if ready is not None:
+                self.fetch.wait_event(ready)
+            host = torch.empty(out.numel(), dtype=torch.uint8, pin_memory=self.cuda)
+            host.copy_(out.reshape(-1), non_blocking=self.cuda)
+            done = self.record(self.fetch)
+        if self.cuda:
+            out.record_stream(self.fetch)
+        return host, done
+
+    def synchronize(self) -> None:
+        """Wait for everything queued on the lane's streams."""
+        if self.cuda:
+            for s in (self.upload, self.compute, self.fetch):
+                s.synchronize()
+
+
+_LANES: dict = {}
+
+
+def device_lanes(devices) -> list:
+    """A `DeviceLane` for each entry of ``devices`` (a device listed
+    twice gets two), kept for the life of the process: the caching
+    allocator keeps freed device memory per stream, so a session that
+    reused no streams would allocate afresh what the last one freed."""
+    lanes, seen = [], {}
+    for d in devices:
+        d = torch.device(d)
+        k = seen[d] = seen.get(d, -1) + 1
+        lane = _LANES.get((d, k))
+        if lane is None:
+            lane = _LANES[(d, k)] = DeviceLane(d)
+        lanes.append(lane)
+    return lanes

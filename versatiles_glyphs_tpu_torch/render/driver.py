@@ -4,7 +4,8 @@
 Backends:
 
 - ``"cuda"``  — the hand-written tile kernel (`ops.sdf_cuda`) on the
-                first CUDA device; raises when there is none.
+                first CUDA device, or on every local one
+                (`Renderer.start_session`); raises when there is none.
 - ``"torch"`` — the same session and wire on the CPU, through the
                 kernel's plain PyTorch version.
 - ``"exact"`` — the float64 native/NumPy renderer (`proto.native`,
@@ -26,6 +27,16 @@ import torch
 from ..device import cuda_device
 from ..proto.pbf import PbfGlyph
 from .metrics import GlyphPrep, prepare_glyph
+
+# Bytes the device backends uploaded and fetched, and their groups, since
+# the last `reset_wire_stats` (counterpart of the JAX driver's ledger):
+# every wire array of a group once, and its whole output.
+WIRE_STATS = {"upload_bytes": 0, "fetch_bytes": 0, "groups": 0}
+
+
+def reset_wire_stats() -> None:
+    WIRE_STATS.update(upload_bytes=0, fetch_bytes=0, groups=0)
+
 
 BACKENDS = ("auto", "cuda", "torch", "exact", "zeros")
 TRANSPORTS = ("auto", "i8", "i16", "f32")
@@ -159,9 +170,12 @@ class Renderer:
     # -- batched rendering -----------------------------------------------
 
     def start_session(self, parallel: bool = True, progress=None) -> "RenderSession":
-        """Open a render session. ``parallel`` is accepted for the
-        manager's call; this driver renders on one device."""
-        return RenderSession(self, progress=progress)
+        """Open an incremental render session (see `RenderSession`).
+        ``parallel=True`` deals the batch over every local device of the
+        backend's kind when there are two or more
+        (`parallel.mesh.data_devices`); ``False`` keeps it on one device
+        (the reference's ``--single-thread``)."""
+        return RenderSession(self, parallel=parallel, progress=progress)
 
     def render_bitmaps(self, preps, parallel: bool = True, progress=None) -> list:
         """Quantized uint8 bitmaps (flat, Y-flipped, len w·h) of non-empty
@@ -173,28 +187,106 @@ class Renderer:
             session.add(preps)
             return list(session.results())
 
-    def _dispatch_group(self, gitems, wire: str, TP: int):
-        """Pack one group, copy it to the device (blocking copies) and
-        launch its render. Returns (items, starts, out [T, TP] u8 on the
-        device); the result is fetched in `RenderSession.results`."""
-        from ..ops.sdf_cuda import render_bitmaps_cuda_delta, render_bitmaps_cuda_pts
-        from .batch import pack_points, pack_points_delta, plan_tiles, tile_starts, wire_to_device
+    # Caps on one bin of the several-device path (`_lpt_rounds`): the JAX
+    # driver's SMEM caps, kept so that the bins equal its bins.
+    _LANES_MAX = 1_500_000
+    _TILES_MAX = 12288
+
+    def _dispatch_group(self, gitems, wire: str, TP: int, lane):
+        """Pack one group, check its lane runs on the host arrays, upload
+        it and queue its render and its fetch on the ``lane``'s streams;
+        nothing is awaited but the upload (see `batch.DeviceLane`). A
+        plan that fails the check raises before anything is uploaded.
+        Returns the group's `_Group`."""
+        from ..ops import sdf_cuda
+        from .batch import pack_points, pack_points_delta, plan_tiles, tile_starts
 
         gpreps = [p for _, p in gitems]
         G = len(gpreps)
         if wire == "i8":
             deltas, words, anchors, meta = pack_points_delta(gpreps)
             starts, T = tile_starts(meta, G, TP)
-            d, w, a, m = wire_to_device((deltas, words, anchors, meta), self.device)
-            out = render_bitmaps_cuda_delta(d, w, a, m, TP, T_pad=T)
+            sdf_cuda.check_lane_runs(deltas.shape[1], meta[:, 4], meta[:, 5], anchors[0])
+            arrays = (deltas, words, anchors, meta)
         else:
             dt = np.int16 if wire == "i16" else np.float32
             pts, words, meta = pack_points(gpreps, dtype=dt)
             starts, T = tile_starts(meta, G, TP)
             tmeta, _, _ = plan_tiles(gpreps, meta, TP, T_pad=T)
-            p, w, tm = wire_to_device((pts, words, tmeta.T), self.device)
-            out = render_bitmaps_cuda_pts(p, w, tm, TP)
-        return gitems, starts, out
+            sdf_cuda.check_lane_runs(pts.shape[1], tmeta[:, 4], tmeta[:, 5])
+            arrays = (pts, words, tmeta.T)
+        dev = lane.to_device(arrays)
+        WIRE_STATS["upload_bytes"] += sum(a.nbytes for a in arrays)
+        with lane.on(lane.compute):
+            if wire == "i8":
+                out = sdf_cuda.render_bitmaps_cuda_delta(*dev, TP, T_pad=T, checked=True)
+            else:
+                out = sdf_cuda.render_bitmaps_cuda_pts(*dev, TP, checked=True)
+            rendered = lane.record(lane.compute)
+        host, fetched = lane.fetch_to_host(out, rendered)
+        WIRE_STATS["fetch_bytes"] += host.numel()
+        WIRE_STATS["groups"] += 1
+        return _Group(gitems, starts, host, fetched)
+
+    def _lpt_rounds(self, items, D: int, TP: int):
+        """Balance (index, prep) items across ``D`` devices: greedy
+        longest-processing-time bin packing by tile count into ``k·D``
+        bins, growing ``k`` until every bin fits the SMEM caps. Returns
+        a list of rounds, each a list of D bins (possibly empty)."""
+
+        def tiles(p):
+            return max(1, -(-(p.width * p.height) // TP))
+
+        order = sorted(items, key=lambda ip: -tiles(ip[1]))
+        k = 1
+        while True:
+            nb = D * k
+            bins: list[list] = [[] for _ in range(nb)]
+            loads = [0] * nb
+            lanes = [0] * nb
+            for i, p in order:
+                b = loads.index(min(loads))
+                bins[b].append((i, p))
+                loads[b] += tiles(p)
+                lanes[b] += p.npts
+            if max(loads) <= self._TILES_MAX and max(lanes) <= self._LANES_MAX:
+                return [bins[r * D : (r + 1) * D] for r in range(k)]
+            k += 1
+
+    def _render_devices(self, lanes, main, aux, TP: int) -> list:
+        """The several-device path (counterpart of the JAX
+        `_render_tpu_mesh`): each partition's items dealt by
+        `_lpt_rounds` over the lanes, every non-empty bin of every round
+        dispatched as one group on its own lane, all in flight at once.
+        The main partition keeps the session's wire, the aux one ships
+        f32. Returns the groups' `_Group`s in dispatch order; the session
+        places their bitmaps by submit index."""
+        out = []
+        for items, wire in ((main, self.transport), (aux, "f32")):
+            if not items:
+                continue
+            for round_bins in self._lpt_rounds(items, len(lanes), TP):
+                for lane, b in zip(lanes, round_bins):
+                    if b:
+                        out.append(self._dispatch_group(b, wire, TP, lane))
+        return out
+
+
+class _Group:
+    """A dispatched group: its (submit index, prep) items, each glyph's
+    first tile, the host tensor its bitmaps are fetched into and the
+    fetch's event (None on the CPU)."""
+
+    __slots__ = ("items", "starts", "host", "fetched")
+
+    def __init__(self, items, starts, host, fetched):
+        self.items, self.starts, self.host, self.fetched = items, starts, host, fetched
+
+    def wait(self) -> np.ndarray:
+        """The fetched tiles, flat, once the fetch has completed."""
+        if self.fetched is not None:
+            self.fetched.synchronize()
+        return self.host.numpy()
 
 
 class RenderSession:
@@ -210,29 +302,59 @@ class RenderSession:
 
     Device backends route preps to a q16 "main" buffer (the i8 or i16
     wire) and an f32 "aux" buffer (glyphs outside the q16 range,
-    `GlyphPrep.q16_ok`). A buffer that reaches the soft caps is packed
-    and dispatched at once; `results` dispatches the rest, then fetches
-    the groups in order and yields bitmaps in submit order. The
-    ``exact`` and ``zeros`` backends render inside `add`.
+    `GlyphPrep.q16_ok`).
 
-    `close` drops every pending group; `results` calls it when it ends,
-    and so does leaving a ``with`` block.
+    One device: a buffer that reaches the soft caps becomes a group at
+    once. `add` packs it, checks it on the host, uploads it and queues
+    its launch and its fetch on the lane's streams (`batch.DeviceLane`)
+    without waiting for the card, so the card renders group g while the
+    caller prepares and packs group g+1. `results` dispatches the rest,
+    then waits for each group's fetch in order and yields bitmaps in
+    submit order: the caller's encode of group g overlaps the later
+    groups' kernels and copies. Everything runs on the caller's thread:
+    pack and encode are Python and hold the GIL, so a dispatch thread
+    overlapped neither and made a warm render 7-28 % slower (median of
+    16 in turns, NVIDIA H100 80GB HBM3 at 700 W, `tools.session_turns`;
+    `PERF.md` §6). The arena buffers the packers return are rewritten only
+    by the next pack, after the blocking upload has read them; an
+    asynchronous copy from a pinned staging ring cost more host time
+    than it hid (`PERF.md` §6).
+
+    Several devices (``parallel`` and two or more of them): dispatch is
+    deferred to `results`. With at least two items a device, the batch
+    is dealt by `Renderer._render_devices`; with fewer, it goes as the
+    one-device groups on the first device.
+
+    The ``exact`` and ``zeros`` backends render inside `add`.
+
+    `close` waits for every copy and kernel in flight and drops every
+    pending group. `results` calls it when it ends, is left early or
+    raises, and so does leaving a ``with`` block.
     """
 
     _TP = 256  # the tile size `GlyphPrep.ntiles256` bakes in
 
-    def __init__(self, renderer: Renderer, progress=None):
+    def __init__(self, renderer: Renderer, parallel: bool = True, progress=None):
         self.r = renderer
         self.tick = progress or (lambda n: None)
         self.groups = 0  # device groups dispatched
         self._n = 0  # preps submitted
         self._eager: list[np.ndarray] = []
-        self._pending: list = []
+        self._pending: list[_Group] = []
         self._main: list = []
         self._aux: list = []
         self._main_sz = [0, 0]
         self._aux_sz = [0, 0]
         self._closed = False
+        self._lanes: list = []
+        self._several = False
+        if renderer.device is not None:
+            from ..parallel import mesh
+            from .batch import device_lanes
+
+            devices = mesh.data_devices(device_type=renderer.device.type) if parallel else None
+            self._several = devices is not None and len(devices) >= 2
+            self._lanes = device_lanes(devices if self._several else [renderer.device])
 
     def __enter__(self) -> "RenderSession":
         return self
@@ -242,6 +364,8 @@ class RenderSession:
 
     def close(self) -> None:
         self._closed = True
+        for lane in self._lanes:
+            lane.synchronize()
         self._pending = []
         self._eager = []
         self._main = []
@@ -287,7 +411,7 @@ class RenderSession:
 
     def _buf_add(self, buf: list, sz: list, item, wire: str) -> None:
         _, p = item
-        if buf and (
+        if not self._several and buf and (
             sz[0] + p.npts > self.r._LANES_SOFT or sz[1] + p.ntiles256 > self.r._TILES_SOFT
         ):
             self._dispatch(buf, wire)
@@ -298,7 +422,8 @@ class RenderSession:
         sz[1] += p.ntiles256
 
     def _dispatch(self, items: list, wire: str) -> None:
-        self._pending.append(self.r._dispatch_group(list(items), wire, self._TP))
+        self._pending.append(
+            self.r._dispatch_group(list(items), wire, self._TP, self._lanes[0]))
         self.groups += 1
 
     # -- consumption -----------------------------------------------------
@@ -311,21 +436,29 @@ class RenderSession:
             if self.r.device is None:
                 yield from self._eager
                 return
-            if self._main:
-                self._dispatch(self._main, self.r.transport)
-            if self._aux:
-                self._dispatch(self._aux, "f32")
+            if self._several and self._n >= 2 * len(self._lanes):
+                groups = self.r._render_devices(
+                    self._lanes, self._main, self._aux, self._TP)
+                self._pending += groups
+                self.groups += len(groups)
+            else:
+                if self._main:
+                    self._dispatch(self._main, self.r.transport)
+                if self._aux:
+                    self._dispatch(self._aux, "f32")
             self._main, self._aux = [], []
 
             TP = self._TP
             placed: list = [None] * self._n
             ptr = 0
-            for gitems, starts, out in self._pending:
-                flat = out.cpu().numpy().reshape(-1)
-                # Placed by submit index: the q16/aux partition reorders.
-                for g, (i, p) in enumerate(gitems):
-                    placed[i] = flat[starts[g] * TP : starts[g] * TP + p.width * p.height]
-                self.tick(len(gitems))
+            for group in self._pending:
+                flat = group.wait()
+                # Placed by submit index: the q16/aux partition and the
+                # bins of several devices reorder.
+                for g, (i, p) in enumerate(group.items):
+                    s0 = group.starts[g] * TP
+                    placed[i] = flat[s0 : s0 + p.width * p.height]
+                self.tick(len(group.items))
                 while ptr < self._n and placed[ptr] is not None:
                     yield placed[ptr]
                     placed[ptr] = False  # drop the reference once consumed

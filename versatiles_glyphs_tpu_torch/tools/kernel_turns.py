@@ -188,19 +188,24 @@ def _inputs(kernel: str, font: str, dev):
     return (flat, meta, P, tp), shape, (sdf_torch.render_grid_flat(flat, meta, P, tp),)
 
 
-def parent_ops(root: str):
-    """The ``ops.sdf_cuda`` and ``ops.legacy`` modules of the package of
-    another checkout unpacked at ``root``, imported under the name
-    ``vg_parent`` (its kernels build from its own ``csrc/`` into
-    ``root/build/``)."""
+def import_parent(root: str, name: str = "vg_parent"):
+    """The package of another checkout unpacked at ``root``, imported
+    under the module name ``name`` (its kernels and native library build
+    from its own sources into ``root/build/``)."""
     pkg_dir = os.path.join(os.path.abspath(root), "versatiles_glyphs_tpu_torch")
-    if "vg_parent" not in sys.modules:
+    if name not in sys.modules:
         spec = importlib.util.spec_from_file_location(
-            "vg_parent", os.path.join(pkg_dir, "__init__.py"),
+            name, os.path.join(pkg_dir, "__init__.py"),
             submodule_search_locations=[pkg_dir])
         mod = importlib.util.module_from_spec(spec)
-        sys.modules["vg_parent"] = mod
+        sys.modules[name] = mod
         spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+def parent_ops(root: str):
+    """The ``ops.sdf_cuda`` and ``ops.legacy`` modules of `import_parent`."""
+    import_parent(root)
     return (importlib.import_module("vg_parent.ops.sdf_cuda"),
             importlib.import_module("vg_parent.ops.legacy"))
 

@@ -23,8 +23,10 @@ JSON line:
    than the L2 cache);
 5. the prepass costs of the q16 wires: the i16 dequantize and the i8
    decode (`ops.sdf_torch.reconstruct_delta`);
-6. upload and fetch rates from pageable host memory, as the render
-   session copies.
+6. upload and fetch rates from pageable host memory (the blocking
+   copies of `render.batch.wire_to_device`, as the render session
+   uploads), and the fetch into pinned memory on a copy stream, as the
+   session fetches (`batch.DeviceLane.fetch_to_host`).
 
 The glyphs are a synthesized font's first render group
 (`utils.synth_font.curved_preps`), packed as the session packs them. It
@@ -266,7 +268,7 @@ def main(argv=None) -> dict:
 
     dev = cuda_device()
     from ..ops import _build, sdf_cuda, sdf_torch
-    from ..render.batch import pack_points_delta, wire_to_device
+    from ..render.batch import DeviceLane, pack_points_delta, wire_to_device
 
     res: dict = {"font": args.font, "device": torch.cuda.get_device_name(dev),
                  "nvidia_smi": nvidia_smi_line()}
@@ -281,16 +283,22 @@ def main(argv=None) -> dict:
     emit({"tool": "roofline", "step": "work", **w})
     res["work"] = w
 
-    # Upload and fetch, from pageable memory as the session copies.
+    # Upload and fetch: pageable blocking copies, then the session's
+    # fetch into pinned memory on its fetch stream.
     nbytes = sum(a.nbytes for a in host)
     up_ms = host_ms(lambda: wire_to_device(host, dev))
     pts, words, tmeta = wire_to_device(host, dev)
     out = sdf_cuda.render_bitmaps_cuda_pts(pts, words, tmeta, TP)
     fetch_ms = host_ms(lambda: out.cpu())
+    lane = DeviceLane(dev)
+    torch.cuda.synchronize()
+    pin_fetch_ms = host_ms(lambda: lane.fetch_to_host(out, None)[1].synchronize())
     res["transfer"] = {"upload_bytes": nbytes, "upload_ms": up_ms,
                        "upload_GBps": nbytes / up_ms / 1e6,
                        "fetch_bytes": out.numel(), "fetch_ms": fetch_ms,
-                       "fetch_GBps": out.numel() / fetch_ms / 1e6}
+                       "fetch_GBps": out.numel() / fetch_ms / 1e6,
+                       "pinned_fetch_ms": pin_fetch_ms,
+                       "pinned_fetch_GBps": out.numel() / pin_fetch_ms / 1e6}
     emit({"tool": "roofline", "step": "transfer", "wire": "f32", **res["transfer"]})
 
     # The tile kernel alone.

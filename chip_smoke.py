@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's atlas render path, its outline-fitting
-path, the renders over the flat segment layout, the padded-layout
-fitting loss and the two measurement tools once on one GPU.
+path on one device and sharded, the renders over the flat segment
+layout, the padded-layout fitting loss, the graft entry and the two
+measurement tools once on one GPU.
 
     python3 chip_smoke.py
 
@@ -95,7 +96,23 @@ JSON lines:
    start (each padded kernel launches once a step, the loss descends),
    and its loss and gradients against the ``torch`` backend's on the
    first 256-codepoint block.
-6. tools  — `tools.roofline.main` and `tools.kernel_ab.main` on the text
+6. sharded_fit — the fit of phase 5 sharded over the one card listed
+   twice (`FontFitter(devices=[cuda:0, cuda:0])`, 850 glyphs a shard,
+   each with its own flat plan): one loss and gradient against the
+   one-device fitter (loss within 1e-6 relative, gradients within
+   1e-5·max|g|); 20 Adam steps with the counts reset just before (the
+   loss descends, kernels 2 and 3 launch twice a step); 10 steps against
+   10 on one device (losses within 1e-5 relative, parameters within 1e-3
+   px); 5 + 5 steps through a checkpoint against 10 (Δ = 0); seconds a
+   step warm, sharded and on one device in turns. The same for
+   `make_sharded_kernel_loss` against `batch_loss_kernel` (kernels 4 and
+   5 twice a step). Then the graft entry (`__graft_entry_torch__.py`):
+   `entry()` (kernel 1 once, its bytes equal to
+   `sdf_torch.render_tiles_pts` on the same wire) and
+   `dryrun_multichip(2)` (finite losses, kernels 2 and 3 once a shard,
+   the render over the card listed twice equal to the one-device
+   render).
+7. tools  — `tools.roofline.main` and `tools.kernel_ab.main` on the text
    font, with the launch counts reset just before: the tile kernel
    against the measured ALU and copy roofs and against its split
    variant.
@@ -1390,6 +1407,174 @@ def phase_padded_fit(batch) -> dict:
     return launches
 
 
+def one_device_agree(loss, grads, loss1, grads1, B: int) -> dict:
+    """A sharded fitter's loss and gradients against the one-device
+    fitter's on the same batch: the loss within 1e-6 relative, each
+    gradient (its first B rows) within 1e-5·max|g| (the shards' sums are
+    added in another order than one mean), rows past B exactly 0."""
+    res = {"loss_sharded": float(loss), "loss_one_device": float(loss1),
+           "loss_rel_diff": abs(float(loss) - float(loss1)) / max(abs(float(loss1)), 1e-12)}
+    ok = res["loss_rel_diff"] <= 1e-6
+    for k, g1 in grads1.items():
+        g = grads[k]
+        if g.dim():
+            ok &= not bool(g[B:].any())
+            g = g[:B]
+        scale = max(float(g1.abs().max()), 1e-12)
+        res[f"{k}_max_diff_rel"] = float((g - g1).abs().max()) / scale
+        ok &= res[f"{k}_max_diff_rel"] <= 1e-5
+    res["agree"] = bool(ok)
+    return res
+
+
+def steps_in_turns(runs: dict, k: int = 10) -> dict:
+    """Warm seconds a step of each ``runs[name]()`` (``k`` steps, ending
+    in the losses' fetch), in turns a, b, b, a: the median of two."""
+    names = list(runs)
+    secs = {name: [] for name in names}
+    for name in names + names[::-1]:
+        t0 = time.perf_counter()
+        runs[name]()
+        secs[name].append((time.perf_counter() - t0) / k)
+    return {f"seconds_per_step_warm_{name}": statistics.median(v) for name, v in secs.items()}
+
+
+def phase_sharded_fit(batch, work) -> dict:
+    """The fit of phase 5 sharded over the card listed twice, for the
+    flat backend and for `make_sharded_kernel_loss`, then the graft
+    entry's two functions; see the module docstring. Returns the launches
+    per kernel of each 20-step run."""
+    import __graft_entry_torch__ as graft
+    from versatiles_glyphs_tpu_torch.models.fitting import (
+        PARAM_KEYS, FontFitter, batch_loss_kernel, make_sharded_kernel_loss)
+    from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
+
+    dev = torch.device("cuda", 0)
+    devices = [dev, dev]
+    B = batch.curves0.shape[0]
+    sh = FontFitter(depth=FIT_DEPTH, backend="flat", devices=devices)
+    one = FontFitter(depth=FIT_DEPTH, backend="flat", device=dev)
+    padded = make_sharded_kernel_loss(devices, FIT_DEPTH, B)
+
+    def grads_of(loss, params):
+        return dict(zip(PARAM_KEYS, torch.autograd.grad(loss, [params[k] for k in PARAM_KEYS])))
+
+    def padded_steps(loss_fn):
+        def steps(params, opt, db, k):
+            losses = []
+            for _ in range(k):
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(params, db)
+                loss.backward()
+                opt.step()
+                losses.append(loss.detach())
+            return torch.stack(losses).cpu().numpy()
+        return steps
+
+    def one_padded(p, b):
+        return batch_loss_kernel(p, b, FIT_DEPTH)
+
+    launches = {}
+    failures = []
+    # name -> (sharded loss, one-device loss, k sharded steps, k one-device steps)
+    for name, (sharded_loss, one_loss, run, run_one) in {
+        "flat": (sh.loss, one.loss, lambda *a: sh.step_many(*a)[2],
+                 lambda *a: one.step_many(*a)[2]),
+        "padded": (padded, one_padded, padded_steps(padded), padded_steps(one_padded)),
+    }.items():
+        ps, os_, ss = sh.init(batch)
+        p1, o1, d1 = one.init(batch)
+        ls = sharded_loss(ps, ss)
+        l1 = one_loss(p1, d1)
+        cmp = one_device_agree(ls.detach(), grads_of(ls, ps), l1.detach(), grads_of(l1, p1), B)
+        emit({"phase": "sharded_fit", "loss": name, "step": "one_device", "glyphs": B,
+              "shards": len(ss), "glyphs_a_shard": [int(s["target"].shape[0]) for s in ss], **cmp})
+        if not cmp["agree"]:
+            failures.append(f"{name}: the sharded loss or gradients disagree with one device")
+
+        torch.cuda.synchronize()
+        sdf_cuda.reset_launches()
+        t0 = time.perf_counter()
+        losses = run(ps, os_, ss, FIT_STEPS)
+        secs = time.perf_counter() - t0
+        launches[name] = dict(sdf_cuda.LAUNCHES)
+        warm = steps_in_turns({
+            "one_device": lambda: run_one(p1, o1, d1, 10),
+            "sharded": lambda: run(ps, os_, ss, 10),
+        })
+        kernels = (("sdf_min_field_pts", "sdf_min_field_bwd") if name == "flat"
+                   else ("sdf_min_field_padded", "sdf_min_field_padded_bwd"))
+
+        # 10 sharded steps against 10 on one device, from the start.
+        pa, oa, sa = sh.init(batch)
+        pb, ob, db = one.init(batch)
+        la, lb = run(pa, oa, sa, 10), run_one(pb, ob, db, 10)
+        diff10 = {k: float((pa[k][:B] if pa[k].dim() else pa[k]).sub(pb[k]).detach().abs().max())
+                  for k in PARAM_KEYS}
+        loss10 = float(np.abs(la - lb).max() / np.abs(lb).max())
+
+        # 5 + 5 sharded steps through a checkpoint against 10.
+        p10, o10, s10 = sh.init(batch)
+        run(p10, o10, s10, 10)
+        pc, oc, sc = sh.init(batch)
+        run(pc, oc, sc, 5)
+        ckpt = os.path.join(work, f"checkpoint_sharded_{name}")
+        FontFitter.save_checkpoint(ckpt, pc, oc)
+        pd, od, sd = sh.init(batch)
+        pd, od = FontFitter.restore_checkpoint(ckpt, like=(pd, od))
+        run(pd, od, sd, 5)
+        delta = max(float((p10[k] - pd[k]).detach().abs().max()) for k in PARAM_KEYS)
+
+        rec = {"phase": "sharded_fit", "loss": name, "step": "descend", "steps": FIT_STEPS,
+               "devices": [str(d) for d in devices], "seconds": secs, **warm,
+               "loss_first": float(losses[0]), "loss_min": float(losses.min()),
+               "loss_last": float(losses[-1]), "launches": launches[name],
+               "launches_a_step": {k: launches[name][k] / FIT_STEPS for k in kernels},
+               "ten_steps_vs_one_device": {"loss_max_rel_diff": loss10,
+                                           "param_max_abs_diff": diff10},
+               "max_abs_diff_5_5_vs_10": delta}
+        emit(rec)
+        if not (np.isfinite(losses).all() and losses.min() < losses[0]):
+            failures.append(f"{name}: the sharded fit did not descend: {losses.tolist()}")
+        if not all(launches[name][k] == 2 * FIT_STEPS for k in kernels):
+            failures.append(f"{name}: {launches[name]} launches for {FIT_STEPS} steps on 2 shards")
+        if loss10 > 1e-5 or max(diff10.values()) > 1e-3:
+            failures.append(f"{name}: 10 sharded steps differ from 10 on one device: "
+                            f"{loss10}, {diff10}")
+        if delta != 0.0:
+            failures.append(f"{name}: 5 + 5 resumed sharded steps differ from 10 by {delta}")
+
+    # The graft entry: entry() on the card, then the dry run over the
+    # card listed twice.
+    sdf_cuda.reset_launches()
+    fn, args = graft.entry()
+    out = fn(*args).cpu()
+    torch.cuda.synchronize()
+    entry_launches = sdf_cuda.LAUNCHES["sdf_tiles_pts"]
+    deltas, words, anchors, meta = (a.cpu() for a in args)
+    plain = sdf_torch.render_tiles_pts(
+        sdf_torch.dequantize(sdf_torch.reconstruct_delta(deltas, anchors)), words,
+        sdf_torch.derive_tmeta(meta, 256, 256), 256)
+    entry_equal = torch.equal(out, plain)
+    sdf_cuda.reset_launches()
+    t0 = time.perf_counter()
+    dry = graft.dryrun_multichip(2)
+    dry_s = time.perf_counter() - t0
+    dry_launches = dict(sdf_cuda.LAUNCHES)
+    emit({"phase": "sharded_fit", "step": "graft_entry", "entry_launches": entry_launches,
+          "entry_shape": list(out.shape), "entry_bytes_equal_plain": entry_equal,
+          "entry_nonzero_bytes": int((out > 0).sum()), "dryrun": dry, "dryrun_seconds": dry_s,
+          "dryrun_launches": dry_launches})
+    if entry_launches != 1 or not entry_equal or not out.any():
+        failures.append(f"entry(): {entry_launches} launches, bytes equal {entry_equal}")
+    if not (dry_launches["sdf_min_field_pts"] == dry_launches["sdf_min_field_bwd"] == 2
+            and dry_launches["sdf_tiles_pts"] >= 2):
+        failures.append(f"dryrun_multichip(2): launches {dry_launches}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 def main() -> None:
     # Both checks come before any output: without a card, or outside a
     # checkout of the repo, the script prints no result.
@@ -1422,6 +1607,7 @@ def main() -> None:
         flat_launches = timed("flat_renders", phase_flat_renders, font_list)
         fit_launches = timed("fit", phase_fit, batch, work)
         pad_launches = timed("padded_fit", phase_padded_fit, batch)
+        sharded_launches = timed("sharded_fit", phase_sharded_fit, batch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     tool_launches, roof_ops_per_s = timed("tools", phase_tools)
@@ -1453,6 +1639,11 @@ def main() -> None:
                 "share_of_bound": bound["bound_ms"] / ms,
                 "share_of_alu_roof": bound["f32_ops"] / (ms * 1e-3) / roof_ops_per_s, **more}
 
+    def sharded(loss, name):
+        # Phase 6's 20 sharded steps: the launches and the launches a step.
+        n = sharded_launches[loss][name]
+        return {"launches_sharded": n, "launches_sharded_step": n / FIT_STEPS}
+
     from versatiles_glyphs_tpu_torch.tools.work import share_of_issue_rate
 
     jax_ops = "versatiles_glyphs_tpu/ops/"
@@ -1463,21 +1654,24 @@ def main() -> None:
             ms_synth_heavy=k["ms_synth_heavy"]),
         row("sdf_min_field_pts", jax_ops + "sdf_pallas.py:339", fit_launches["sdf_min_field_pts"],
             kf["min_err"], kf["min_ms"], kf["min_plain_ms"], kf["min_bound"],
-            graph_ms=kf["min_graph_ms"]),
+            graph_ms=kf["min_graph_ms"], **sharded("flat", "sdf_min_field_pts")),
         row("sdf_min_field_bwd", jax_ops + "sdf_grad.py:492", fit_launches["sdf_min_field_bwd"],
             kf["bwd_err"], kf["bwd_ms"], kf["bwd_plain_ms"], kf["bwd_bound"],
             graph_ms=kf["bwd_graph_ms"], ms_synth_heavy=kf["bwd_ms_fit_heavy"],
             graph_ms_synth_heavy=kf["bwd_graph_ms_fit_heavy"],
             ms_one_lane_wins_all=kf["bwd_ms_one_wins"],
-            graph_ms_one_lane_wins_all=kf["bwd_graph_ms_one_wins"]),
+            graph_ms_one_lane_wins_all=kf["bwd_graph_ms_one_wins"],
+            **sharded("flat", "sdf_min_field_bwd")),
         row("sdf_min_field_padded", jax_ops + "sdf_grad.py:111",
             pad_launches["sdf_min_field_padded"], kp["pad_err"], kp["pad_ms"],
-            kp["pad_plain_ms"], kp["pad_bound"], graph_ms=kp["pad_graph_ms"]),
+            kp["pad_plain_ms"], kp["pad_bound"], graph_ms=kp["pad_graph_ms"],
+            **sharded("padded", "sdf_min_field_padded")),
         row("sdf_min_field_padded_bwd", jax_ops + "sdf_grad.py:169",
             pad_launches["sdf_min_field_padded_bwd"], kp["pad_bwd_err"], kp["pad_bwd_ms"],
             kp["pad_bwd_plain_ms"], kp["pad_bwd_bound"], graph_ms=kp["pad_bwd_graph_ms"],
             ms_synth_heavy=kp["pad_bwd_ms_heavy"],
-            ms_one_segment_wins_all=kp["pad_bwd_ms_one_wins"]),
+            ms_one_segment_wins_all=kp["pad_bwd_ms_one_wins"],
+            **sharded("padded", "sdf_min_field_padded_bwd")),
         row("sdf_tiles_flat", jax_ops + "legacy.py:147", flat_launches["sdf_tiles_flat"],
             kl["sdf_tiles_flat_err"], kl["sdf_tiles_flat_ms"], kl["sdf_tiles_flat_plain_ms"],
             kl["sdf_tiles_flat_bound"], graph_ms=kl["sdf_tiles_flat_graph_ms"],

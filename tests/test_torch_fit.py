@@ -79,6 +79,8 @@ for backend in ("jnp", "pallas"):
 np.savez(out + "/carry.npz", **res)
 main(["fit", font, "--codepoints", "65-68", "--steps", "10", "--depth", "2",
       "-o", out + "/cli", "--render", "--render-backend", "tpu"], stdout=io.StringIO())
+main(["fit", font, "--codepoints", "65-68", "--steps", "10", "--depth", "2", "--mesh", "2",
+      "-o", out + "/cli_mesh", "--render", "--render-backend", "tpu"], stdout=io.StringIO())
 """
 
 
@@ -93,11 +95,13 @@ def synth_font(tmp_path_factory):
 def jax_runs(tmp_path_factory, synth_font):
     """The JAX package's trajectories: 5 and 10 Adam steps of both
     backends from the perturbed synth batch, and its ``fit --render``
-    CLI on the synth font (10 steps, the ``tpu`` renderer's CPU twin)."""
+    CLI on the synth font (10 steps, the ``tpu`` renderer's CPU twin),
+    on one device and over a mesh of two virtual CPU devices."""
     tmp = tmp_path_factory.mktemp("jax_fit")
     b = _batch()
     np.savez(tmp / "batch.npz", **{k: v for k, v in vars(b).items() if v is not None})
-    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2 --xla_cpu_max_isa=AVX",
                VG_JAX_CACHE_DIR=str(tmp / "jax_cache"))
     proc = subprocess.run(
         [sys.executable, "-c", _JAX_SIDE, str(tmp / "batch.npz"), synth_font, str(tmp)],
@@ -433,10 +437,67 @@ def test_fit_cli_resume(tmp_path, synth_font, backend):
     assert not np.array_equal(a["curves"], np.load(tmp_path / "a" / "fitted.npz")["curves"])
 
 
-def test_fit_cli_refuses_mesh(tmp_path, synth_font):
-    with pytest.raises(ValueError, match="--mesh 2"):
-        torch_main(["fit", synth_font, "--mesh", "2", "--device", "cpu", "-o", str(tmp_path)],
-                   stdout=io.StringIO())
+def test_fit_cli_mesh_matches_jax(tmp_path, jax_runs, synth_font):
+    """``fit --mesh 2 --render`` of the port (torch backend, two CPU
+    stand-ins) against the JAX CLI's ``fit --mesh 2`` (jnp backend, two
+    virtual CPU devices): ``fitted.npz`` has the real batch's rows and
+    agrees within `test_fit_cli_matches_jax`'s tolerance (0.01 px, losses
+    within 1e-3 relative), with the same history steps and atlas files."""
+    _, cli = jax_runs
+    want_dir = cli.parent / "cli_mesh"
+    out = tmp_path / "port"
+    torch_main(["fit", synth_font, "--codepoints", CPS, "--steps", "10", "--depth", "2",
+                "--mesh", "2", "-o", str(out), "--device", "cpu", "--render",
+                "--render-backend", "torch"], stdout=io.StringIO())
+    want, got = np.load(want_dir / "fitted.npz"), np.load(out / "fitted.npz")
+    assert sorted(got.files) == sorted(want.files)
+    for k in want.files:
+        assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype, k
+    assert got["curves"].shape[0] == 4
+    for k in ("codepoints", "curve_mask"):
+        np.testing.assert_array_equal(got[k], want[k])
+    for k in ("curves", "translate", "log_gain"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=0.01, err_msg=k)
+    hj = json.loads((want_dir / "history.json").read_text())
+    hp = json.loads((out / "history.json").read_text())
+    assert [h["step"] for h in hp] == [h["step"] for h in hj] == list(range(10))
+    np.testing.assert_allclose([h["loss"] for h in hp], [h["loss"] for h in hj], rtol=1e-3)
+    assert sorted(_tree(out / "glyphs")) == sorted(_tree(want_dir / "glyphs"))
+
+
+@pytest.mark.parametrize("backend", ["torch", "flat"])
+def test_fit_cli_mesh_resume_and_render(tmp_path, synth_font, backend):
+    """After ``fit --mesh 2``: two 5-step runs, the second resumed from
+    the first's checkpoint, land exactly where one 10-step run does
+    (3 glyphs for the flat backend, so a fourth is padded and sliced off
+    ``fitted.npz``); ``--render`` of the resumed run is the atlas of its
+    ``fitted.npz``, byte for byte; resuming over one device is refused
+    where the padding differs."""
+    cps = "65-67" if backend == "flat" else CPS
+    base = ["fit", synth_font, "--codepoints", cps, "--depth", "2", "--device", "cpu",
+            "--backend", backend, "--mesh", "2"]
+    torch_main(base + ["--steps", "10", "-o", str(tmp_path / "one")], stdout=io.StringIO())
+    torch_main(base + ["--steps", "5", "-o", str(tmp_path / "a")], stdout=io.StringIO())
+    torch_main(base + ["--steps", "5", "-o", str(tmp_path / "b"), "--render",
+                       "--render-backend", "torch",
+                       "--resume", str(tmp_path / "a" / "checkpoint")], stdout=io.StringIO())
+    a, b = np.load(tmp_path / "one" / "fitted.npz"), np.load(tmp_path / "b" / "fitted.npz")
+    assert b["curves"].shape[0] == len(b["codepoints"]) == (3 if backend == "flat" else 4)
+    for k in ("curves", "translate", "log_gain"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+    entry = FontFileEntry(open(synth_font, "rb").read())
+    batch = fitting.make_fit_batch(entry, range(65, 65 + len(b["codepoints"])), depth=DEPTH)
+    name = next(n for n in os.listdir(tmp_path / "b" / "glyphs")
+                if os.path.isdir(tmp_path / "b" / "glyphs" / n))
+    render_fitted_pbfs(dict(b), batch, entry, DEPTH, str(tmp_path / "again"), name,
+                       renderer=Renderer("torch"))
+    assert _tree(tmp_path / "again") == _tree(tmp_path / "b" / "glyphs")
+    if backend == "flat":
+        with pytest.raises(ValueError, match="same number of devices"):
+            torch_main(base[:-2] + ["--steps", "1", "-o", str(tmp_path / "c"),
+                                    "--resume", str(tmp_path / "a" / "checkpoint")],
+                       stdout=io.StringIO())
 
 
 def test_fit_path_never_loads_jax(tmp_path):

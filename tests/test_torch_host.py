@@ -29,6 +29,7 @@ import versatiles_glyphs_tpu.font.names as jx_names
 import versatiles_glyphs_tpu.font.wrapper as jx_wrapper
 import versatiles_glyphs_tpu.models.render_fitted as jx_fitted
 import versatiles_glyphs_tpu.ops.flatten as jx_flatten
+import versatiles_glyphs_tpu.ops.geometry as jx_geometry
 import versatiles_glyphs_tpu.ops.sdf_ref as jx_ref
 import versatiles_glyphs_tpu.parallel.mesh as jx_mesh
 import versatiles_glyphs_tpu.proto.native as jx_native
@@ -36,6 +37,7 @@ import versatiles_glyphs_tpu.proto.pbf as jx_pbf
 import versatiles_glyphs_tpu.render.driver as jx_driver
 import versatiles_glyphs_tpu.render.metrics as jx_metrics
 import versatiles_glyphs_tpu.utils.arena as jx_arena
+import versatiles_glyphs_tpu.utils.bitmap_art as jx_art
 import versatiles_glyphs_tpu.utils.output_dir as jx_output_dir
 import versatiles_glyphs_tpu.utils.progress as jx_progress
 import versatiles_glyphs_tpu.writer as jx_writer
@@ -51,6 +53,7 @@ import versatiles_glyphs_tpu_torch.font.names as pt_names
 import versatiles_glyphs_tpu_torch.font.wrapper as pt_wrapper
 import versatiles_glyphs_tpu_torch.models.render_fitted as pt_fitted
 import versatiles_glyphs_tpu_torch.ops.flatten as pt_flatten
+import versatiles_glyphs_tpu_torch.ops.geometry as pt_geometry
 import versatiles_glyphs_tpu_torch.ops.sdf_ref as pt_ref
 import versatiles_glyphs_tpu_torch.parallel.mesh as pt_mesh
 import versatiles_glyphs_tpu_torch.proto.native as pt_native
@@ -58,6 +61,7 @@ import versatiles_glyphs_tpu_torch.proto.pbf as pt_pbf
 import versatiles_glyphs_tpu_torch.render.driver as pt_driver
 import versatiles_glyphs_tpu_torch.render.metrics as pt_metrics
 import versatiles_glyphs_tpu_torch.utils.arena as pt_arena
+import versatiles_glyphs_tpu_torch.utils.bitmap_art as pt_art
 import versatiles_glyphs_tpu_torch.utils.output_dir as pt_output_dir
 import versatiles_glyphs_tpu_torch.utils.progress as pt_progress
 import versatiles_glyphs_tpu_torch.writer as pt_writer
@@ -375,6 +379,67 @@ def test_pad_to_multiple(shape, multiple, axis):
     want = jx_mesh.pad_to_multiple(arr, multiple, axis)
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
+
+
+def _same_code(ca, cb, what):
+    """Two code objects compiled to the same bytes: instructions,
+    constants (nested code objects by the same rule) and names."""
+    assert ca.co_code == cb.co_code and ca.co_names == cb.co_names, what
+    assert ca.co_varnames == cb.co_varnames and len(ca.co_consts) == len(cb.co_consts), what
+    for x, y in zip(ca.co_consts, cb.co_consts):
+        if isinstance(x, types.CodeType):
+            _same_code(x, y, what)
+        else:
+            assert type(x) is type(y) and x == y, what
+
+
+GEOMETRY = sorted(jx_geometry.__all__)
+
+
+@pytest.mark.parametrize("name", GEOMETRY)
+def test_geometry_copy(name):
+    """`ops.geometry` is a copy: each public name compiles to the same
+    bytes, and gives the same bits on seeded rings, points and boxes."""
+    assert sorted(pt_geometry.__all__) == GEOMETRY
+    a, b = getattr(pt_geometry, name), getattr(jx_geometry, name)
+    if name == "EMPTY_BBOX":
+        _same(a, b, name)
+        return
+    _same_code(a.__code__, b.__code__, name)
+    rng = np.random.default_rng(len(name))
+    ring = _rings(len(name))[0]
+    pts = rng.uniform(0, 1000, (7, 2))
+    box = np.sort(rng.uniform(-40, 40, (2, 2)), axis=0) + 0.5
+    args = {
+        "midpoint": (pts[:3], pts[3:6]),
+        "squared_distance": (pts[:3], pts[3:6]),
+        "project_point_on_segment": (pts[:3], np.vstack([pts[3:5], pts[3]]), pts[4:7]),
+        "segment_squared_distance_to_point": (pts[:3], pts[3:6], pts[4:7]),
+        "cross_product": (pts[:3], pts[3:6], pts[4:7]),
+        "ring_winding_number": (ring, [500.0, 350.0]),
+        "rings_contain_point": (_rings(5), [500.0, 350.0]),
+        "bbox_of": (pts,),
+        "bbox_include": (box, pts[:2]),
+        "bbox_is_empty": (box,),
+        "bbox_round": (box,),
+    }[name]
+    _same(a(*args), b(*args), name)
+
+
+@pytest.mark.parametrize("art", ["bitmap_as_digit_art", "bitmap_as_ascii_art"])
+def test_bitmap_art_copy(art):
+    """`utils.bitmap_art` is a copy: the same bytes compiled, and the
+    same lines for an exact SDF bitmap and for every byte value."""
+    a, b = getattr(pt_art, art), getattr(jx_art, art)
+    _same_code(a.__code__, b.__code__, art)
+    assert [n for n in dir(pt_art) if not n.startswith("__")] == \
+        [n for n in dir(jx_art) if not n.startswith("__")]
+    p = pt_metrics.prepare_glyph(65, _rings(3), 1000, 600)
+    bitmap = pt_ref.render_sdf_exact(p.segments, p.width, p.height, p.x0, p.y0)
+    lines = a(bitmap, p.width)
+    assert len(lines) == p.height and lines == b(bitmap, p.width)
+    every = np.arange(256, dtype=np.uint8)
+    assert a(every, 16) == b(every, 16)
 
 
 @pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])

@@ -1,7 +1,7 @@
 """The port stands alone: it imports nothing of the JAX package.
 
-(a) No ``.py`` of `versatiles_glyphs_tpu_torch`, and not ``chip_smoke.py``,
-holds an import of `versatiles_glyphs_tpu` or of `jax` (an ``ast`` walk,
+(a) No ``.py`` of `versatiles_glyphs_tpu_torch`, and neither
+``chip_smoke.py`` nor ``__graft_entry_torch__.py``, holds an import of `versatiles_glyphs_tpu` or of `jax` (an ``ast`` walk,
 so imports inside functions count and comments do not).
 
 (b) In a fresh interpreter whose import system refuses
@@ -31,7 +31,7 @@ REFUSED = ("versatiles_glyphs_tpu", "jax", "jaxlib")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "__graft_entry_torch__.py")]
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -55,7 +55,8 @@ def test_the_walk_sees_the_port():
     files = _port_files()
     names = {os.path.relpath(f, ROOT) for f in files}
     assert len(files) > 40
-    for rel in ("chip_smoke.py", "versatiles_glyphs_tpu_torch/proto/native.py",
+    for rel in ("chip_smoke.py", "__graft_entry_torch__.py",
+                "versatiles_glyphs_tpu_torch/proto/native.py",
                 "versatiles_glyphs_tpu_torch/font/entry.py",
                 "versatiles_glyphs_tpu_torch/tools/roofline.py"):
         assert rel in names

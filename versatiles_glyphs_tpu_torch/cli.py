@@ -4,8 +4,9 @@ The same commands and flags as `versatiles_glyphs_tpu.cli`, except
 ``--renderer {auto,cuda,torch,exact,zeros}`` and, for ``fit``,
 ``--backend {torch,flat}`` (the JAX ``jnp``/``pallas``) and
 ``--device`` (default: the first CUDA device; the CPU only by name).
-``fit --mesh`` above 1 is refused until the port runs on several
-devices. ``--renderer auto`` (the default) is the card and raises
+``fit --mesh N`` shards the batch over the first N devices of
+``--device``'s kind (`parallel.mesh.local_devices`; on the CPU, N
+stand-ins of the one CPU device). ``--renderer auto`` (the default) is the card and raises
 without one; ``torch``, ``exact`` and ``zeros`` run on the CPU by name.
 stdout carries the payload (tar stream, debug CSV); status goes to
 stderr.
@@ -170,15 +171,12 @@ def cmd_fit(args, stdout) -> None:
     ``history.json``; ``--render`` adds the fitted atlas under
     ``glyphs/``."""
     import numpy as np
+    import torch
 
     from .font.entry import FontFileEntry
     from .models.fitting import FontFitter, make_fit_batch
+    from .parallel.mesh import local_devices
 
-    if args.mesh > 1:
-        raise ValueError(
-            f"--mesh {args.mesh}: the port fits on one device for now "
-            "(multi-device fitting comes with the torch.distributed slice)"
-        )
     with open(args.font, "rb") as f:
         entry = FontFileEntry(f.read())
     target_entry = entry
@@ -186,15 +184,17 @@ def cmd_fit(args, stdout) -> None:
         with open(args.target_font, "rb") as f:
             target_entry = FontFileEntry(f.read())
 
+    devices = local_devices(args.mesh, torch.device(args.device).type) if args.mesh else None
     fitter = FontFitter(
         depth=args.depth, learning_rate=args.lr, sharpness=args.sharpness,
-        backend=args.backend, device=args.device,
+        backend=args.backend, device=None if devices else args.device, devices=devices,
     )
     batch = make_fit_batch(entry, _parse_codepoints(args.codepoints), depth=args.depth,
                            target_entry=target_entry)
+    where = f"{len(devices)} devices ({devices[0]})" if devices else str(fitter.device)
     print(
         f"Fitting {batch.curves0.shape[0]} glyphs ({batch.curves0.shape[1]} curves max, "
-        f"depth {args.depth}) for {args.steps} steps on {fitter.device}",
+        f"depth {args.depth}) for {args.steps} steps on {where}",
         file=sys.stderr,
     )
     params, opt, dev_batch = fitter.init(batch)
@@ -219,7 +219,11 @@ def cmd_fit(args, stdout) -> None:
 
     out = os.path.abspath(args.output)
     os.makedirs(out, exist_ok=True)
+    # A sharded fit pads the batch to a multiple of the device count:
+    # the real rows come first, and only they are kept.
+    B_real = batch.curves0.shape[0]
     host = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    host["curves"], host["translate"] = host["curves"][:B_real], host["translate"][:B_real]
     np.savez(
         os.path.join(out, "fitted.npz"),
         curves=host["curves"],
@@ -291,7 +295,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default: the first CUDA device; 'cpu' runs "
                    "the kernels' plain versions)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard the batch over this many devices (only 0 or 1 for now)")
+                   help="shard the batch over this many devices of --device's kind")
     p.add_argument("--render", action="store_true",
                    help="after fitting, render the fitted outlines into "
                    "{output}/glyphs/ (readable by `debug`)")

@@ -10,9 +10,13 @@ unit (see `parallel.mesh`).
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 from ..constants import GLYPH_BLOCK_SIZE
 from ..proto.pbf import encode_glyphs
-from .entry import FontFileEntry
+
+if TYPE_CHECKING:  # the parser needs fontTools; a block only holds entries
+    from .entry import FontFileEntry
 
 
 class GlyphBlock:

@@ -17,7 +17,6 @@ from __future__ import annotations
 import os
 
 from ..utils.progress import progress_bar
-from .entry import FontFileEntry
 from .index_files import build_font_families_json, build_index_json
 from .names import name_to_id
 from .wrapper import FontWrapper
@@ -35,6 +34,8 @@ class FontManager:
     # -- ingestion -------------------------------------------------------
 
     def add_path(self, path: str) -> None:
+        from .entry import FontFileEntry  # fontTools, needed only to read a file
+
         with open(path, "rb") as f:
             data = f.read()
         try:

@@ -8,9 +8,13 @@ wins.
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 from ..constants import GLYPH_BLOCK_SIZE
 from .block import GlyphBlock
-from .entry import FontFileEntry, FontMetadata
+
+if TYPE_CHECKING:  # the parser needs fontTools, imported where a file is read
+    from .entry import FontFileEntry, FontMetadata
 
 
 class FontWrapper:
@@ -21,6 +25,8 @@ class FontWrapper:
         self.files.append(file)
 
     def add_paths(self, sources) -> None:
+        from .entry import FontFileEntry
+
         for path in sources:
             with open(path, "rb") as f:
                 data = f.read()

@@ -22,6 +22,25 @@ padded min-field kernel pair). As there, no backend of `FontFitter`
 uses it; the ``flat`` backend's device batch carries the ``meta`` it
 needs.
 
+Sharded fitting (the JAX package's mesh path, ``fit --mesh``): one
+process over a list of local devices (`parallel.mesh.local_devices`),
+with no mesh object. `FontFitter(devices=...)` pads the batch of the
+``flat`` backend to a multiple of the device count (padded glyphs have
+all-false masks and ``w·h = 0`` metas, so they add exactly 0 to the loss
+and to every gradient) and gives each device an equal slice of it, with
+its own flat plan. `make_sharded_flat_loss` and
+`make_sharded_kernel_loss` run the kernel pairs once a shard; the loss
+is the sum of the shards' sums, each brought back to the first device,
+over the real glyph count. The parameters stay whole on the first
+device, with one optimizer there: each shard reads its rows with
+``.to(device)``, and autograd sums ``log_gain``'s gradient over the
+shards at that copy, which is the all-reduce the JAX package's ``psum``
+gives. They are kept whole because they are small (~1-2 MB at 1,700
+glyphs) and so keep the one-device shapes of `save_checkpoint`,
+`value_and_grad`, `params_from_numpy`, `adam_state_from_optax` and the
+CLI's ``fitted.npz``; a checkpoint of a sharded fit holds its padded
+rows, so a resume needs the same device count.
+
 `torch.optim.Adam` takes optax's place and `torch.save` orbax's;
 `params_from_numpy` and `adam_state_from_optax` carry a JAX run's
 parameters and Adam state across. `make_fit_batch` reads a font file
@@ -31,6 +50,7 @@ fontTools, JAX, optax or orbax.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 
@@ -110,15 +130,34 @@ def adam_state_from_optax(opt_state, opt: torch.optim.Adam) -> dict:
     return sd
 
 
-def batch_loss(params, batch: dict, depth: int, sharpness) -> torch.Tensor:
-    """Mean over glyphs of the masked SDF loss, the pair-tensor model
-    broadcast over the batch (the JAX package vmaps it)."""
+def _glyph_losses(field, params, batch) -> torch.Tensor:
+    """The masked SDF loss of each glyph [B] from its signed field."""
+    return sdf_loss(field * torch.exp(params["log_gain"]), batch["target"], batch["pix_mask"])
+
+
+def _pair_losses(params, batch: dict, depth: int, sharpness) -> torch.Tensor:
     field = glyph_field(
         params["curves"], batch["curve_mask"], params["translate"],
         batch["px"], batch["py"], depth=depth, sharpness=sharpness,
     )
-    losses = sdf_loss(field * torch.exp(params["log_gain"]), batch["target"], batch["pix_mask"])
-    return torch.mean(losses)
+    return _glyph_losses(field, params, batch)
+
+
+def batch_loss(params, batch: dict, depth: int, sharpness) -> torch.Tensor:
+    """Mean over glyphs of the masked SDF loss, the pair-tensor model
+    broadcast over the batch (the JAX package vmaps it)."""
+    return torch.mean(_pair_losses(params, batch, depth, sharpness))
+
+
+def _padded_losses(params, batch: dict, depth: int) -> torch.Tensor:
+    from ..ops.sdf_grad import signed_field_padded
+    from .glyph_model import curves_to_segments
+
+    curves = params["curves"] + params["translate"][:, None, None, :]
+    segs = curves_to_segments(curves, depth)
+    seg_mask = torch.repeat_interleave(batch["curve_mask"], 2**depth, dim=-1)
+    field = signed_field_padded(segs, seg_mask, batch["meta"], batch["target"].shape[1])
+    return _glyph_losses(field, params, batch)
 
 
 def batch_loss_kernel(params, batch: dict, depth: int) -> torch.Tensor:
@@ -126,17 +165,8 @@ def batch_loss_kernel(params, batch: dict, depth: int) -> torch.Tensor:
     (`ops.sdf_grad.signed_field_padded`) instead of the pair tensor;
     hard min only. ``batch`` needs ``curve_mask``, ``meta`` [B, 4] i32,
     ``target`` and ``pix_mask``."""
-    from ..ops.sdf_grad import signed_field_padded
-    from .glyph_model import curves_to_segments
-
-    curves = params["curves"] + params["translate"][:, None, None, :]
-    segs = curves_to_segments(curves, depth)
-    seg_mask = torch.repeat_interleave(batch["curve_mask"], 2**depth, dim=-1)
-    P = batch["target"].shape[1]
-    field = signed_field_padded(segs, seg_mask, batch["meta"], P)
     # Per-glyph masked mean, then the batch mean, as in `batch_loss`.
-    losses = sdf_loss(field * torch.exp(params["log_gain"]), batch["target"], batch["pix_mask"])
-    return torch.mean(losses)
+    return torch.mean(_padded_losses(params, batch, depth))
 
 
 @dataclass
@@ -255,23 +285,80 @@ def make_flat_kernel_loss(plan: FlatKernelPlan, depth: int):
     `FontFitter.init` has them): the kernels launch without their
     wrappers' per-step checks, each of which would synchronize the
     host."""
-    from ..ops.sdf_grad import signed_field_flat
-
     TP = plan.TP
 
     def loss_fn(params, batch):
-        flat = flat_chain_points(params["curves"], params["translate"], depth, batch["chunk_map"])
-        field = signed_field_flat(flat, batch["plan_words"], batch["plan_tmeta"], TP, checked=True)
-        B = params["curves"].shape[0]
-        fb = field.index_select(0, batch["row_map"].reshape(-1)).reshape(B, -1)
-        losses = sdf_loss(fb * torch.exp(params["log_gain"]), batch["target"], batch["pix_mask"])
-        return torch.mean(losses)
+        return torch.mean(_flat_losses(params, batch, depth, TP))
 
     return loss_fn
 
 
+def _flat_losses(params, batch: dict, depth: int, TP: int) -> torch.Tensor:
+    from ..ops.sdf_grad import signed_field_flat
+
+    flat = flat_chain_points(params["curves"], params["translate"], depth, batch["chunk_map"])
+    field = signed_field_flat(flat, batch["plan_words"], batch["plan_tmeta"], TP, checked=True)
+    B = params["curves"].shape[0]
+    fb = field.index_select(0, batch["row_map"].reshape(-1)).reshape(B, -1)
+    return _glyph_losses(fb, params, batch)
+
+
+def _sharded_loss(devices, B_real: int, shard_sum):
+    """``loss_fn(params, shards)`` over a list of devices: shard d owns
+    the parameter rows ``[d·Bl, (d+1)·Bl)`` (``Bl`` the shard's glyph
+    count) and its batch ``shards[d]`` on ``devices[d]``;
+    ``shard_sum(params_d, shard)`` is its sum of per-glyph losses. The
+    parameters live on ``devices[0]``, where the shards' sums are added
+    and divided by ``B_real``."""
+    home = devices[0]
+
+    def loss_fn(params, shards):
+        total = None
+        for d, (dev, shard) in enumerate(zip(devices, shards, strict=True)):
+            Bl = shard["target"].shape[0]
+            rows = slice(d * Bl, (d + 1) * Bl)
+            part = shard_sum(
+                {
+                    "curves": params["curves"][rows].to(dev),
+                    "translate": params["translate"][rows].to(dev),
+                    "log_gain": params["log_gain"].to(dev),
+                },
+                shard,
+            ).to(home)
+            total = part if total is None else total + part
+        return total / B_real
+
+    return loss_fn
+
+
+def make_sharded_flat_loss(devices, plans: list, depth: int, B_real: int):
+    """Sharded twin of `make_flat_kernel_loss` (the JAX package's
+    `make_sharded_flat_loss`): the flat kernel pair runs once a shard,
+    on the shard's own plan ``plans[d]`` (its arrays in ``shards[d]``,
+    checked by `ops.sdf_cuda.check_flat_plan`), at the shard's own size.
+    The JAX package pads the plans to one shape (`_unify_plans`) so that
+    one traced function serves every shard; here each shard launches at
+    its own size, as the render's bins do, so nothing is padded. (Its
+    padding lanes are dead and its extra tile rows skip rows: it changes
+    no value.) Returns ``loss_fn(params, shards)``, see `FontFitter`."""
+    if len(plans) != len(devices):
+        raise ValueError(f"{len(plans)} plans for {len(devices)} devices")
+    TP = plans[0].TP
+    return _sharded_loss(devices, B_real, lambda p, s: _flat_losses(p, s, depth, TP).sum())
+
+
+def make_sharded_kernel_loss(devices, depth: int, B_real: int):
+    """Sharded twin of `batch_loss_kernel` (the JAX package's
+    `make_sharded_kernel_loss`): the padded kernel pair runs once a
+    shard on its glyphs. ``shards[d]`` needs ``curve_mask``, ``meta``,
+    ``target`` and ``pix_mask`` (a sharded ``flat`` fitter's shards have
+    them). Returns ``loss_fn(params, shards)``."""
+    return _sharded_loss(devices, B_real, lambda p, s: _padded_losses(p, s, depth).sum())
+
+
 class FontFitter:
-    """Owns the loss, the optimizer and the train step on one device."""
+    """Owns the loss, the optimizer and the train step, on one device or
+    sharded over a list of devices."""
 
     # Steps per `fit` chunk: the losses are fetched once per chunk.
     CHUNK = 10
@@ -283,18 +370,32 @@ class FontFitter:
         sharpness: float | None = None,
         backend: str = "torch",
         device=None,
+        devices=None,
     ):
         """``backend="torch"`` autodiffs the pair-tensor model;
         ``"flat"`` runs forward and backward through the min-field
         kernels (hard min only). ``device``: a torch device or its name;
         None or ``"cuda"`` is the first CUDA device and raises without
-        one. The CPU runs only when asked for by name."""
+        one. The CPU runs only when asked for by name. ``devices`` (the
+        JAX package's ``mesh``): a list of devices to shard the batch
+        over (`parallel.mesh.local_devices`), even of one; the
+        parameters and the optimizer live on the first, and `init`
+        returns a list of per-shard batches in place of one."""
         if backend not in ("torch", "flat"):
             raise ValueError(f"unknown fitting backend {backend!r}")
         if backend == "flat" and sharpness is not None:
             raise ValueError("backend='flat' supports hard-min only")
-        self.device = cuda_device() if device in (None, "cuda") else torch.device(device)
-        if self.device.type == "cuda" and (
+        if devices is not None:
+            if device is not None:
+                raise ValueError("pass device or devices, not both")
+            if not devices:
+                raise ValueError("devices must list at least one device")
+            self.devices = [torch.device(d) for d in devices]
+            self.device = self.devices[0]
+        else:
+            self.devices = None
+            self.device = cuda_device() if device in (None, "cuda") else torch.device(device)
+        if any(d.type == "cuda" for d in self.devices or [self.device]) and (
             torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"
         ):
@@ -311,11 +412,10 @@ class FontFitter:
 
     # -- state ----------------------------------------------------------
 
-    def init(self, batch: FitBatch):
-        """Initial (params, optimizer, device batch)."""
-        dev = self.device
-        if self.backend == "flat" and batch.meta is None:
-            raise ValueError("backend='flat' needs FitBatch.meta")
+    def _device_batch(self, batch: FitBatch, dev):
+        """The batch's arrays on ``dev`` and, for the flat backend, its
+        plan (checked once here: the loss launches the kernels without
+        checks)."""
         dev_batch = {
             "curve_mask": torch.as_tensor(batch.curve_mask, device=dev),
             "px": torch.as_tensor(batch.px, dtype=torch.float32, device=dev),
@@ -323,24 +423,77 @@ class FontFitter:
             "pix_mask": torch.as_tensor(batch.pix_mask, dtype=torch.float32, device=dev),
             "target": torch.as_tensor(batch.target, dtype=torch.float32, device=dev),
         }
-        if self.backend == "flat":
-            from ..ops.sdf_cuda import check_flat_plan
+        if self.backend != "flat":
+            return dev_batch, None
+        from ..ops.sdf_cuda import check_flat_plan
 
-            plan = build_flat_plan(batch.curve_mask, batch.meta, self.depth, batch.target.shape[1])
-            self._loss = make_flat_kernel_loss(plan, self.depth)
-            dev_batch["meta"] = torch.as_tensor(batch.meta, dtype=torch.int32, device=dev)
-            dev_batch["plan_tmeta"] = torch.as_tensor(plan.tmeta.T.copy(), device=dev)
-            dev_batch["plan_words"] = torch.as_tensor(plan.mask_words, device=dev)
-            dev_batch["row_map"] = torch.as_tensor(plan.row_map, dtype=torch.int64, device=dev)
-            dev_batch["chunk_map"] = torch.as_tensor(plan.chunk_map, dtype=torch.int64, device=dev)
-            # Once, here: the loss launches the kernels without checks.
-            check_flat_plan(plan.N, dev_batch["plan_words"], dev_batch["plan_tmeta"], plan.TP)
+        plan = build_flat_plan(batch.curve_mask, batch.meta, self.depth, batch.target.shape[1])
+        dev_batch["meta"] = torch.as_tensor(batch.meta, dtype=torch.int32, device=dev)
+        dev_batch["plan_tmeta"] = torch.as_tensor(plan.tmeta.T.copy(), device=dev)
+        dev_batch["plan_words"] = torch.as_tensor(plan.mask_words, device=dev)
+        dev_batch["row_map"] = torch.as_tensor(plan.row_map, dtype=torch.int64, device=dev)
+        dev_batch["chunk_map"] = torch.as_tensor(plan.chunk_map, dtype=torch.int64, device=dev)
+        check_flat_plan(plan.N, dev_batch["plan_words"], dev_batch["plan_tmeta"], plan.TP)
+        return dev_batch, plan
+
+    def init(self, batch: FitBatch):
+        """Initial (params, optimizer, device batch); with ``devices``,
+        the device batch is the list of per-shard batches and the
+        parameters have the padded batch's rows."""
+        if self.backend == "flat" and batch.meta is None:
+            raise ValueError("backend='flat' needs FitBatch.meta")
+        if self.devices is not None:
+            batch, dev_batch = self._shard(batch)
         else:
-            depth, sharpness = self.depth, self.sharpness
-            self._loss = lambda p, b: batch_loss(p, b, depth, sharpness)
-        params = init_params(batch.curves0, dev)
+            dev_batch, plan = self._device_batch(batch, self.device)
+            if plan is not None:
+                self._loss = make_flat_kernel_loss(plan, self.depth)
+            else:
+                depth, sharpness = self.depth, self.sharpness
+                self._loss = lambda p, b: batch_loss(p, b, depth, sharpness)
+        params = init_params(batch.curves0, self.device)
         opt = torch.optim.Adam([params[k] for k in PARAM_KEYS], lr=self.learning_rate)
         return params, opt, dev_batch
+
+    def _shard(self, batch: FitBatch):
+        """(the batch as sharded, the per-shard device batches), and the
+        sharded loss. The flat backend pads the batch to a multiple of
+        the device count, as the JAX package pads its ``pallas`` mesh
+        path; the torch backend needs a batch that divides evenly, as the
+        JAX package's ``device_put`` onto the mesh does."""
+        from ..parallel.mesh import pad_to_multiple
+
+        def each_array(b, fn):
+            return dataclasses.replace(b, **{
+                f.name: fn(getattr(b, f.name))
+                for f in dataclasses.fields(b) if getattr(b, f.name) is not None
+            })
+
+        devices = self.devices
+        D = len(devices)
+        B_real = batch.curves0.shape[0]
+        if self.backend == "flat":
+            batch = each_array(batch, lambda a: pad_to_multiple(a, D))
+        elif B_real % D:
+            raise ValueError(
+                f"the torch backend shards {B_real} glyphs over {D} devices: the batch "
+                "must divide evenly (the flat backend pads it)"
+            )
+        Bl = batch.curves0.shape[0] // D
+        shards, plans = [], []
+        for d, dev in enumerate(devices):
+            part = each_array(batch, lambda a: a[d * Bl : (d + 1) * Bl])
+            shard, plan = self._device_batch(part, dev)
+            shards.append(shard)
+            plans.append(plan)
+        if self.backend == "flat":
+            self._loss = make_sharded_flat_loss(devices, plans, self.depth, B_real)
+        else:
+            # The JAX package leaves this backend to XLA's auto-sharding.
+            depth, sharpness = self.depth, self.sharpness
+            self._loss = _sharded_loss(
+                devices, B_real, lambda p, s: _pair_losses(p, s, depth, sharpness).sum())
+        return batch, shards
 
     def loss(self, params, dev_batch) -> torch.Tensor:
         return self._loss(params, dev_batch)
@@ -405,6 +558,13 @@ class FontFitter:
         `init`) in place and return them."""
         params, opt = like
         state = torch.load(path, map_location="cpu", weights_only=True)
+        for k in PARAM_KEYS:
+            if state["params"][k].shape != params[k].shape:
+                raise ValueError(
+                    f"checkpoint {k} has shape {tuple(state['params'][k].shape)}, the fit "
+                    f"{tuple(params[k].shape)}: a sharded fit's checkpoint holds its padded "
+                    "rows, so resume it over the same number of devices"
+                )
         with torch.no_grad():
             for k in PARAM_KEYS:
                 params[k].copy_(state["params"][k])

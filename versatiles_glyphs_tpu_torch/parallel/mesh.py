@@ -1,9 +1,9 @@
-"""The devices and processes a render is spread over (counterpart of
-`versatiles_glyphs_tpu.parallel.mesh`).
+"""The devices and processes a render or a fit is spread over
+(counterpart of `versatiles_glyphs_tpu.parallel.mesh`).
 
 The reference's one axis of parallelism is rayon over the flat
 (font, block) task list (`reference/src/font/manager.rs:102-121`). Here
-it takes two forms:
+it takes three forms:
 
 - in one process, a batch is dealt over the local CUDA devices
   (`data_devices`): the render session splits it into longest-first
@@ -11,6 +11,12 @@ it takes two forms:
   on its own device and streams. There is no mesh object and no
   ``shard_map``: a bin launches at its own size, so nothing is stacked
   to a common shape;
+- in one process, a fit is sharded over a list of local devices
+  (`local_devices`, the counterpart of ``make_mesh(jax.devices()[:n])``):
+  `models.fitting.FontFitter` gives each device an equal slice of the
+  glyph batch and moves each shard's parameters there with ``.to``,
+  which does the work of the JAX package's `batch_sharding` and
+  `replicated` placements;
 - across processes (`initialize_multihost`, `torch.distributed`), each
   process renders and writes its own disjoint share of the task list
   (`partition_tasks`), and only process 0 writes the index files. No
@@ -21,6 +27,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..device import cuda_device
 
 
 def pad_to_multiple(arr: np.ndarray, multiple: int, axis: int = 0) -> np.ndarray:
@@ -46,6 +54,22 @@ def data_devices(min_devices: int = 2, device_type: str = "cuda") -> list | None
     if n < min_devices:
         return None
     return [torch.device("cuda", i) for i in range(n)]
+
+
+def local_devices(n: int, device_type: str = "cuda") -> list:
+    """The devices of a fit sharded ``n`` ways (counterpart of
+    ``make_mesh(jax.devices()[:n])``): the first ``n`` CUDA devices, or
+    every visible one where there are fewer, as that slice gives; raises
+    without a CUDA device. ``"cpu"``: the one CPU device listed ``n``
+    times, stand-ins for XLA's virtual CPU devices."""
+    if n < 1:
+        raise ValueError(f"a device list needs n >= 1, got {n}")
+    if device_type == "cpu":
+        return [torch.device("cpu")] * n
+    if device_type != "cuda":
+        raise ValueError(f"unsupported device type {device_type!r}")
+    cuda_device()  # raises without one
+    return [torch.device("cuda", i) for i in range(min(n, torch.cuda.device_count()))]
 
 
 def initialize_multihost(coordinator: str | None = None, **kw) -> None:

@@ -214,24 +214,39 @@ class _SynthMetadata:
 
 class SynthEntry:
     """The part of `font.entry.FontFileEntry` that
-    `models.render_fitted.fitted_preps` and `render_fitted_pbfs` read
-    (glyph names, advances, units per EM, metadata), for the font
-    `build_ttf_curved(n_glyphs, first_cp, seed, quads)`, without
-    fontTools."""
+    `models.render_fitted.fitted_preps`, `render_fitted_pbfs`, the
+    manager (`font.wrapper.FontWrapper`, `font.manager.FontManager`) and
+    `render.driver.Renderer.prep_glyph` / `prep_block` read (glyph names
+    and keys, outlines as flattened rings, advances, units per EM,
+    metadata), for the font `build_ttf_curved(n_glyphs, first_cp, seed,
+    quads)`, without fontTools. It has no table of prep cores, so the
+    renderer preps each glyph from its rings: the preps of
+    `curved_preps`."""
 
     units_per_em = UPEM
+    prep_cores = None
+    _cores_and_mode = (None, "name")
 
     def __init__(self, n_glyphs: int, first_cp: int = 32, seed: int = 0, quads: int = 8):
         self.first_cp = first_cp
-        self._advances = [adv for adv, _ in curved_outlines(n_glyphs, seed, quads)]
+        self._outlines = curved_outlines(n_glyphs, seed, quads)
         self.metadata = _SynthMetadata(range(first_cp, first_cp + n_glyphs))
 
     def glyph_name(self, codepoint: int):
         k = codepoint - self.first_cp
-        return f"g{k}" if 0 <= k < len(self._advances) else None
+        return f"g{k}" if 0 <= k < len(self._outlines) else None
+
+    glyph_key = glyph_name
 
     def hor_advance(self, name: str) -> int:
-        return self._advances[int(name[1:])]
+        return self._outlines[int(name[1:])][0]
+
+    def outline_rings(self, name: str):
+        """Flattened closed rings (font units, float64), as
+        `curved_preps` flattens them."""
+        acc = RingAccumulator()
+        _draw(self._outlines[int(name[1:])][1], acc.move_to, acc.quad_to, acc.close_path)
+        return acc.finish()
 
 
 def _ring_prep(cp: int, w: int, h: int, ring):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's atlas render path, its outline-fitting
-path on one device and sharded, the renders over the flat segment
-layout, the padded-layout fitting loss, the graft entry and the two
-measurement tools once on one GPU.
+path on one device (graphed) and sharded, the renders over the flat
+segment layout, the padded-layout render and fitting loss, the graft
+entry and the two measurement tools once on one GPU.
 
     python3 chip_smoke.py
 
@@ -83,15 +83,32 @@ JSON lines:
    equal the one-device tree byte for byte, one launch a group. Then
    both fonts whole through each segment-layout render kernel (one
    launch each a font), held against the exact renderer to the same
-   bound.
+   bound. Then both fonts through the ``padded`` renderer (the JAX
+   ``jax``: `render.batch.pack_block` and
+   `ops.sdf_torch.render_bitmaps_padded`, torch ops on the card, no
+   kernel): against the exact renderer to the same bound, seconds a
+   font (first and the median of three warm), glyphs/s and
+   `torch.cuda.max_memory_allocated`; each font's largest block at chunk
+   budgets of 2^24 to 2^30 pairs (bytes equal at each, CUDA events, peak
+   memory); the heavy font's last block against the same renderer on
+   the CPU, byte for byte.
 5. fit    — a self-fit of the text font's 1,700 glyphs at depth 3 from
    a perturbed start (`utils.synth_font.synth_fit_batch`): 20 Adam steps
-   of the ``flat`` backend with the counts reset just before (each
-   fitting kernel launches once a step, the loss descends); 5 + 5 steps
-   through a checkpoint against 10 (Δ = 0); the ``torch`` and ``flat``
-   backends' loss and gradients on the first 256-codepoint block; the
-   fitted atlas through the ``cuda`` renderer (f32 wire) against the
-   exact one; seconds per step, warm. Then 20 Adam steps of the
+   of the ``flat`` backend through `FontFitter.step_many`, which
+   captures a CUDA graph of the forward and backward (`StepGraph`) and
+   replays it a step, with the counts reset just before (kernels 2 and
+   3 launch once in each of the graph's warm-up runs, are recorded once
+   into the graph, and are counted once a replay: 10 more steps count
+   10 each; the loss descends; peak memory); 10 graphed steps against
+   10 eager `step` calls, bit for bit in parameters and losses, for the
+   ``flat`` backend at full size and the ``torch`` backend on the first
+   256-codepoint block (the pair-tensor loss captured too), with each
+   one's peak memory; the warm step graphed against eager in turns;
+   5 + 5 steps through a checkpoint against 10 (Δ = 0), into a fresh
+   init and back into the same tensors (the graph kept); the ``torch``
+   and ``flat`` backends' loss and gradients on the first 256-codepoint
+   block; the fitted atlas through the ``cuda`` renderer (f32 wire)
+   against the exact one; seconds per step, warm. Then 20 Adam steps of the
    padded-layout loss `models.fitting.batch_loss_kernel` from the same
    start (each padded kernel launches once a step, the loss descends),
    and its loss and gradients against the ``torch`` backend's on the
@@ -104,7 +121,9 @@ JSON lines:
    loss descends, kernels 2 and 3 launch twice a step); 10 steps against
    10 on one device (losses within 1e-5 relative, parameters within 1e-3
    px); 5 + 5 steps through a checkpoint against 10 (Δ = 0); seconds a
-   step warm, sharded and on one device in turns. The same for
+   step warm, sharded and on one device in turns (the one-device flat
+   step is the graphed `step_many`, its graph captured before the
+   turns; the sharded step loops). The same for
    `make_sharded_kernel_loss` against `batch_loss_kernel` (kernels 4 and
    5 twice a step). Then the graft entry (`__graft_entry_torch__.py`):
    `entry()` (kernel 1 once, its bytes equal to
@@ -1229,6 +1248,98 @@ def phase_flat_renders(font_list) -> dict:
     return launches
 
 
+def phase_padded_render(font_list, work) -> None:
+    """Both fonts through the ``padded`` renderer (the JAX ``jax``) on the
+    card: the tree against the exact renderer's contract, seconds a
+    font, glyphs/s and peak memory; each font's largest block at four
+    chunk budgets (the same bytes at each); the heavy font's last block
+    against the CPU padded path, byte for byte."""
+    from versatiles_glyphs_tpu_torch.ops import sdf_cuda
+    from versatiles_glyphs_tpu_torch.ops.sdf_torch import _chunk_elems, render_bitmaps_padded
+    from versatiles_glyphs_tpu_torch.render.batch import pack_block
+    from versatiles_glyphs_tpu_torch.render.driver import Renderer
+
+    dev = torch.device("cuda", 0)
+    pad_r, exact_r = Renderer("padded"), Renderer("exact")
+    if pad_r.device != dev:
+        raise AssertionError(f"Renderer('padded') is on {pad_r.device}")
+    for name, preps in font_list:
+        got_dir = os.path.join(work, "padded")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sdf_cuda.reset_launches()
+        secs, _ = render_font(name, preps, pad_r, got_dir)
+        peak = torch.cuda.max_memory_allocated()
+        kernel_launches = sum(sdf_cuda.LAUNCHES.values())
+        warm = []
+        for _ in range(3):
+            warm.append(render_font(name, preps, pad_r, os.path.join(work, "padded_warm"))[0])
+            shutil.rmtree(os.path.join(work, "padded_warm"))
+        want_dir = os.path.join(work, "exact")
+        render_font(name, preps, exact_r, want_dir)
+        files, n_glyphs, n_pix, n_diff, max_d = compare_trees(name, got_dir, want_dir)
+        frac = n_diff / max(n_pix, 1)
+        rows = debug_rows(name, got_dir)
+
+        # The largest block at four chunk budgets (pairs of the [glyphs,
+        # P, S] temporaries): its time by CUDA events and its peak memory.
+        blocks: dict[int, list] = {}
+        for p in preps:
+            if not p.empty:
+                blocks.setdefault(p.codepoint >> 8, []).append(p)
+        segs, meta, P = max((pack_block(bp) for bp in blocks.values()),
+                            key=lambda t: t[0].shape[0] * t[0].shape[2] * t[2])
+        segs_d, meta_d = torch.from_numpy(segs).to(dev), torch.from_numpy(meta).to(dev)
+        G, _, S = segs.shape
+        budgets, ref = {}, None
+        for log2 in (24, 26, 28, 30):
+            chunk = max(1, (1 << log2) // (P * S))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            got = render_bitmaps_padded(segs_d, meta_d, P, chunk)
+            ref = got if ref is None else ref
+            budgets[f"2^{log2}"] = {
+                "glyphs_a_chunk": min(chunk, G), "bytes_equal": bool(torch.equal(got, ref)),
+                "ms": time_ms(lambda: render_bitmaps_padded(segs_d, meta_d, P, chunk), 2),
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        rec = {"phase": "padded_render", "font": name, "glyphs": len(preps), "blocks": files,
+               "pairs": int(sum(len(bp) * P * S for bp in blocks.values())),
+               "seconds": secs, "glyphs_per_s": len(preps) / secs,
+               "seconds_warm": statistics.median(warm), "seconds_warm_each": warm,
+               "glyphs_per_s_warm": len(preps) / statistics.median(warm),
+               "max_memory_allocated_bytes": peak, "chunk_budget_pairs": _chunk_elems(dev),
+               "kernel_launches": kernel_launches, "pixels": n_pix, "pixels_off_by_1": n_diff,
+               "frac_off": frac, "max_abs_diff": max_d,
+               "largest_block": {"glyphs": G, "S": S, "P": P, "budgets": budgets}}
+        failures = []
+        if max_d > 1 or frac > 0.05:
+            failures.append(f"max |Δ| {max_d} on {frac:.4%} of pixels")
+        if rows != debug_rows(name, want_dir) or not rows:
+            failures.append("debug rows differ from the exact renderer's")
+        if not all(b["bytes_equal"] for b in budgets.values()):
+            failures.append("chunk budgets give different bytes")
+        if name == font_list[-1][0]:
+            # Its last block on the CPU, byte for byte.
+            last = max(blocks)
+            cpu_dir = os.path.join(work, "padded_cpu")
+            t0 = time.perf_counter()
+            render_font(name, [p for p in preps if p.codepoint >> 8 == last],
+                        Renderer("padded", device="cpu"), cpu_dir)
+            rng = f"{last * 256}-{last * 256 + 255}.pbf"
+            with open(os.path.join(got_dir, name, rng), "rb") as f1, \
+                    open(os.path.join(cpu_dir, name, rng), "rb") as f2:
+                same = f1.read() == f2.read()
+            rec["cpu_block"] = {"block": rng, "glyphs": len(blocks[last]), "bytes_equal": same,
+                                "cpu_seconds": time.perf_counter() - t0}
+            if not same:
+                failures.append(f"{rng}: the card's and the CPU's padded bytes differ")
+        emit(rec)
+        if failures:
+            raise AssertionError(f"{name} via the padded renderer: " + "; ".join(failures))
+        for sub in ("padded", "exact", "padded_cpu"):
+            shutil.rmtree(os.path.join(work, sub), ignore_errors=True)
+
+
 def grads_agree(gt, gf, loss_t, loss_f, name: str = "flat") -> dict:
     """The JAX package's check between its jnp and kernel backends (the
     kernel side's loss is reported as ``loss_<name>``): the
@@ -1257,7 +1368,7 @@ def grads_agree(gt, gf, loss_t, loss_f, name: str = "flat") -> dict:
 def phase_fit(batch, work) -> dict:
     import dataclasses
 
-    from versatiles_glyphs_tpu_torch.models.fitting import FontFitter, build_flat_plan
+    from versatiles_glyphs_tpu_torch.models.fitting import FontFitter, StepGraph, build_flat_plan
     from versatiles_glyphs_tpu_torch.models.render_fitted import render_fitted_pbfs
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda
     from versatiles_glyphs_tpu_torch.render.driver import Renderer
@@ -1272,47 +1383,114 @@ def phase_fit(batch, work) -> dict:
           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "f32_matmul_precision": torch.get_float32_matmul_precision()})
 
+    # step_many on the card: the first call captures the CUDA graph of the
+    # forward and backward (StepGraph.WARMUP real runs on a side stream,
+    # then a capture that runs nothing), every step replays it.
     fitter = FontFitter(depth=FIT_DEPTH, backend="flat", device=dev)
     params, opt, db = fitter.init(batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     sdf_cuda.reset_launches()
     t0 = time.perf_counter()
     params, opt, losses = fitter.step_many(params, opt, db, FIT_STEPS)
     secs = time.perf_counter() - t0
     launches = dict(sdf_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    captured = {k: v for k, v in fitter._graph.launches.items() if v}
+    sdf_cuda.reset_launches()
     t0 = time.perf_counter()
     params, opt, more = fitter.step_many(params, opt, db, 10)
     warm = (time.perf_counter() - t0) / 10
+    replayed = dict(sdf_cuda.LAUNCHES)
     rec = {"phase": "fit", "step": "descend", "steps": FIT_STEPS, "seconds": secs,
            "seconds_per_step_warm": warm, "loss_first": float(losses[0]),
            "loss_min": float(losses.min()), "loss_last": float(losses[-1]),
-           "loss_after_30": float(more[-1]), "launches": launches}
+           "loss_after_30": float(more[-1]), "launches": launches,
+           "graph_warmup_runs": StepGraph.WARMUP, "launches_captured": captured,
+           "launches_10_replays": {k: v for k, v in replayed.items() if v},
+           "max_memory_allocated_bytes": peak}
     emit(rec)
     if not (np.isfinite(losses).all() and losses.min() < losses[0]):
         raise AssertionError(f"the fit did not descend: {losses.tolist()}")
-    if not (launches["sdf_min_field_pts"] == launches["sdf_min_field_bwd"] == FIT_STEPS):
-        raise AssertionError(f"{launches} kernel launches for {FIT_STEPS} steps")
+    fit_kernels = ("sdf_min_field_pts", "sdf_min_field_bwd")
+    if captured != dict.fromkeys(fit_kernels, 1):
+        raise AssertionError(f"the step's graph recorded {captured}")
+    if not all(launches[k] == FIT_STEPS + StepGraph.WARMUP and replayed[k] == 10
+               for k in fit_kernels):
+        raise AssertionError(f"{launches} kernel launches for {FIT_STEPS} steps and "
+                             f"{StepGraph.WARMUP} warm-up runs; {replayed} for 10 replays")
 
-    # 5 + 5 steps through a checkpoint against 10 steps.
+    # Graphed steps against eager ones, bit for bit (parameters and
+    # losses), for the flat backend at full size and the torch backend on
+    # the first 256-codepoint block; each one's peak memory.
+    rows = batch.codepoints < 256
+    block = dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name)[rows] for f in dataclasses.fields(batch)})
+    ft = FontFitter(depth=FIT_DEPTH, backend="torch", device=dev)
+
+    def eager_steps(f, p, o, d, k):
+        return torch.stack([f.step(p, o, d)[2] for _ in range(k)]).cpu().numpy()
+
+    for name, f, b in (("flat", fitter, batch), ("torch", ft, block)):
+        pe, oe, de = f.init(b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        le = eager_steps(f, pe, oe, de, 10)
+        peak_e = torch.cuda.max_memory_allocated()
+        pg, og, dg = f.init(b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, lg = f.step_many(pg, og, dg, 10)
+        peak_g = torch.cuda.max_memory_allocated()
+        diff = {k: int((pe[k] != pg[k]).sum()) for k in pe}
+        equal = not any(diff.values()) and np.array_equal(le.view(np.int32), lg.view(np.int32))
+        emit({"phase": "fit", "step": "graphed_vs_eager", "backend": name,
+              "glyphs": int(b.curves0.shape[0]), "steps": 10, "bit_equal": equal,
+              "params_differing_elements": diff, "loss_last": float(lg[-1]),
+              "max_memory_allocated_bytes_eager": peak_e,
+              "max_memory_allocated_bytes_graphed": peak_g})
+        if not equal:
+            raise AssertionError(f"{name}: 10 graphed steps differ from 10 eager steps: {diff}")
+
+    # The warm flat step, graphed against eager, in turns (e, g, g, e, ...),
+    # after one step that captures the graph of these tensors again.
+    fitter.step_many(params, opt, db, 1)
+    turns = {"eager": [], "graphed": []}
+    runs = {"eager": lambda: eager_steps(fitter, params, opt, db, 10),
+            "graphed": lambda: fitter.step_many(params, opt, db, 10)}
+    for name in ("eager", "graphed", "graphed", "eager") * 4:
+        t0 = time.perf_counter()
+        runs[name]()
+        turns[name].append((time.perf_counter() - t0) / 10)
+    emit({"phase": "fit", "step": "warm_in_turns", "steps_a_turn": 10,
+          **{f"seconds_per_step_warm_{k}": statistics.median(v) for k, v in turns.items()},
+          **{f"seconds_per_step_warm_{k}_each": v for k, v in turns.items()}})
+
+    # 5 + 5 steps through a checkpoint against 10 steps: into a fresh
+    # init (a new graph), and back into the same tensors (the same graph).
     p10, o10, d10 = fitter.init(batch)
     fitter.step_many(p10, o10, d10, 10)
     pa, oa, da = fitter.init(batch)
     fitter.step_many(pa, oa, da, 5)
     ckpt = os.path.join(work, "checkpoint")
     FontFitter.save_checkpoint(ckpt, pa, oa)
+    graph = fitter._graph
+    fitter.step_many(pa, oa, da, 3)
+    FontFitter.restore_checkpoint(ckpt, like=(pa, oa))
+    fitter.step_many(pa, oa, da, 5)
+    kept = fitter._graph is graph
     pb, ob, db_ = fitter.init(batch)
     pb, ob = FontFitter.restore_checkpoint(ckpt, like=(pb, ob))
     fitter.step_many(pb, ob, db_, 5)
     delta = max(float((p10[k] - pb[k]).detach().abs().max()) for k in p10)
-    emit({"phase": "fit", "step": "resume", "max_abs_diff_5_5_vs_10": delta})
-    if delta != 0.0:
-        raise AssertionError(f"5 + 5 resumed steps differ from 10 by {delta}")
+    delta_kept = max(float((p10[k] - pa[k]).detach().abs().max()) for k in p10)
+    emit({"phase": "fit", "step": "resume", "max_abs_diff_5_5_vs_10": delta,
+          "max_abs_diff_5_5_vs_10_same_graph": delta_kept, "graph_kept_by_restore": kept})
+    if delta != 0.0 or delta_kept != 0.0 or not kept:
+        raise AssertionError(f"5 + 5 resumed steps differ from 10 by {delta} / {delta_kept} "
+                             f"(graph kept: {kept})")
 
     # The torch and flat backends on the first 256-codepoint block.
-    rows = batch.codepoints < 256
-    block = dataclasses.replace(batch, **{
-        f.name: getattr(batch, f.name)[rows] for f in dataclasses.fields(batch)})
-    ft = FontFitter(depth=FIT_DEPTH, backend="torch", device=dev)
     ff = FontFitter(depth=FIT_DEPTH, backend="flat", device=dev)
     pt, _, dt = ft.init(block)
     pf, _, df = ff.init(block)
@@ -1498,6 +1676,9 @@ def phase_sharded_fit(batch, work) -> dict:
         losses = run(ps, os_, ss, FIT_STEPS)
         secs = time.perf_counter() - t0
         launches[name] = dict(sdf_cuda.LAUNCHES)
+        # One step first, so that the one-device fitter's graph is captured
+        # before the turns time it.
+        run_one(p1, o1, d1, 1)
         warm = steps_in_turns({
             "one_device": lambda: run_one(p1, o1, d1, 10),
             "sharded": lambda: run(ps, os_, ss, 10),
@@ -1605,6 +1786,7 @@ def main() -> None:
     try:
         launches = timed("slice", phase_slice, font_list, work)
         flat_launches = timed("flat_renders", phase_flat_renders, font_list)
+        timed("padded_render", phase_padded_render, font_list, work)
         fit_launches = timed("fit", phase_fit, batch, work)
         pad_launches = timed("padded_fit", phase_padded_fit, batch)
         sharded_launches = timed("sharded_fit", phase_sharded_fit, batch, work)

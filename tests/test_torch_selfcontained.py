@@ -6,9 +6,10 @@ so imports inside functions count and comments do not).
 
 (b) In a fresh interpreter whose import system refuses
 `versatiles_glyphs_tpu`, `jax` and `jaxlib`, the port's ``merge``
-(``--renderer torch``) and ``fit --device cpu --render`` on a synthesized
-TTF write the trees they write with nothing refused; the ``merge`` tree
-is also the JAX CLI's, byte for byte (tolerance: none; the fit's
+(``--renderer torch``, and ``--renderer padded --device cpu``) and
+``fit --device cpu --render`` on a synthesized TTF write the trees they
+write with nothing refused; the ``torch`` ``merge`` tree is also the
+JAX CLI's, byte for byte (tolerance: none; the fit's
 agreement with the JAX CLI has its tolerance in ``test_torch_fit.py``).
 """
 
@@ -151,6 +152,20 @@ def test_merge_with_the_jax_package_unimportable(tmp_path, font, monkeypatch):
              stdout=io.BytesIO())
     got = _tree(tmp_path / "blocked")
     assert got == _tree(tmp_path / "open") == _tree(tmp_path / "jax")
+    assert sorted(got) == ["font_families.json", "index.json", "synth_curved_regular/0-255.pbf",
+                           "synth_curved_regular/256-511.pbf"]
+
+
+def test_merge_padded_with_the_jax_package_unimportable(tmp_path, font):
+    """``--renderer padded --device cpu`` (the JAX ``jax`` renderer's
+    port) with JAX refused writes the tree it writes in this process;
+    `tests/test_torch_render_padded.py` holds that tree against the JAX
+    CLI's."""
+    args = ["merge", font, "--renderer", "padded", "--device", "cpu"]
+    _run_blocked(args + ["-o", str(tmp_path / "blocked")])
+    torch_main(args + ["-o", str(tmp_path / "open")], stdout=io.BytesIO())
+    got = _tree(tmp_path / "blocked")
+    assert got == _tree(tmp_path / "open")
     assert sorted(got) == ["font_families.json", "index.json", "synth_curved_regular/0-255.pbf",
                            "synth_curved_regular/256-511.pbf"]
 

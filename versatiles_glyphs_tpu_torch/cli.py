@@ -1,9 +1,14 @@
 """Command-line interface of the port: recurse / merge / debug / fit.
 
 The same commands and flags as `versatiles_glyphs_tpu.cli`, except
-``--renderer {auto,cuda,torch,exact,zeros}`` and, for ``fit``,
-``--backend {torch,flat}`` (the JAX ``jnp``/``pallas``) and
+``--renderer {auto,cuda,torch,padded,exact,zeros}`` (``padded`` is the
+JAX ``jax``: the padded-layout render, on ``--device``) and, for
+``fit``, ``--backend {torch,flat}`` (the JAX ``jnp``/``pallas``) and
 ``--device`` (default: the first CUDA device; the CPU only by name).
+``recurse|merge --device`` is the ``padded`` renderer's device and is
+refused with the other renderers, whose devices are fixed;
+``fit --render --render-backend padded`` renders on the fit's
+``--device``.
 ``fit --mesh N`` shards the batch over the first N devices of
 ``--device``'s kind (`parallel.mesh.local_devices`; on the CPU, N
 stand-ins of the one CPU device). ``--renderer auto`` (the default) is the card and raises
@@ -39,7 +44,14 @@ def _add_output_flags(p: argparse.ArgumentParser) -> None:
         choices=BACKENDS,
         default="auto",
         help="SDF backend (default: the CUDA kernel, which needs a GPU; on the "
-        "CPU by name: torch, the kernel's plain version, or exact, f64)",
+        "CPU by name: torch, the kernel's plain version, or exact, f64; padded: "
+        "the JAX package's 'jax' renderer, the padded-layout render, on --device)",
+    )
+    p.add_argument(
+        "--device",
+        default=None,
+        help="torch device of --renderer padded (default: the first CUDA "
+        "device; 'cpu' by name); the other renderers' devices are fixed",
     )
     p.add_argument(
         "--transport",
@@ -59,7 +71,8 @@ def _run_pipeline(args, manager: FontManager, stdout) -> None:
         print(f"Rendering glyphs to directory: {out_dir!r}", file=sys.stderr)
         writer = Writer.new_file(os.path.abspath(out_dir))
 
-    renderer = Renderer("zeros" if args.dummy else args.renderer, transport=args.transport)
+    renderer = Renderer("zeros" if args.dummy else args.renderer, transport=args.transport,
+                        device=args.device)
     manager.render_glyphs(writer, renderer)
     if not args.no_index:
         manager.write_index_json(writer)
@@ -246,7 +259,8 @@ def cmd_fit(args, stdout) -> None:
         written = render_fitted_pbfs(
             host, batch, entry, args.depth, glyph_dir,
             name_to_id(entry.metadata.generate_name()),
-            renderer=Renderer(args.render_backend),
+            renderer=Renderer(args.render_backend,
+                              device=args.device if args.render_backend == "padded" else None),
         )
         print(f"Rendered {len(written)} fitted glyph block(s) to {glyph_dir!r}", file=sys.stderr)
 

@@ -41,6 +41,15 @@ glyphs) and so keep the one-device shapes of `save_checkpoint`,
 CLI's ``fitted.npz``; a checkpoint of a sharded fit holds its padded
 rows, so a resume needs the same device count.
 
+One dispatch for k steps (the JAX package's `_step_k`, a `lax.scan`
+under one jit): on one CUDA device `FontFitter.step_many` replays a CUDA
+graph of the step's forward and backward (`StepGraph`), captured once
+for each (params, device batch), and runs Adam outside it. The graphed
+steps are bit-equal to `FontFitter.step`: the same kernels on the same
+shapes, only their enqueue changes. On the CPU (which has no graphs)
+and on a sharded fitter (one graph cannot span devices) `step_many`
+loops over `step`.
+
 `torch.optim.Adam` takes optax's place and `torch.save` orbax's;
 `params_from_numpy` and `adam_state_from_optax` carry a JAX run's
 parameters and Adam state across. `make_fit_batch` reads a font file
@@ -356,6 +365,77 @@ def make_sharded_kernel_loss(devices, depth: int, B_real: int):
     return _sharded_loss(devices, B_real, lambda p, s: _padded_losses(p, s, depth).sum())
 
 
+def _graph_key(params, dev_batch) -> tuple:
+    """Identity and storage of every tensor a `StepGraph` reads."""
+    tensors = [params[k] for k in PARAM_KEYS] + [dev_batch[k] for k in sorted(dev_batch)]
+    return tuple((id(t), t.data_ptr()) for t in tensors)
+
+
+class StepGraph:
+    """The forward and backward of one fit step at fixed ``params`` and
+    ``dev_batch`` tensors: the loss and `torch.autograd.grad` of it into
+    static buffers (``loss``, ``grads`` in `PARAM_KEYS` order), captured
+    into a CUDA graph (the `torch.cuda.graph` recipe: warm-up runs on a
+    side stream, then one capture) when ``capture``, else run anew at
+    each `replay` (the same decomposition without a graph).
+
+    A replay runs on the current stream and reads the parameters' values
+    at that point of the stream, so an optimizer step between two
+    replays is seen by the second. The graph's private memory pool keeps
+    the forward's and the backward's temporaries between replays. A
+    capture that fails raises (a host sync in the loss, say); nothing
+    falls back to the eager step."""
+
+    WARMUP = 3  # forward-backward runs on the side stream before the capture
+
+    def __init__(self, loss_fn, params, dev_batch, capture: bool = True):
+        self.key = _graph_key(params, dev_batch)
+        self._keyed = (params, dev_batch)  # alive with the graph, so the key stays theirs
+        # Leaves of the graph's own on the parameters' storage: a replay
+        # reads the parameters' current values, and no autograd node that
+        # another stream made (the gradient accumulator of a graph the
+        # caller still holds) enters the capture.
+        leaves = {k: params[k].detach().requires_grad_() for k in PARAM_KEYS}
+
+        def fwd_bwd():
+            loss = loss_fn(leaves, dev_batch)
+            return loss.detach(), torch.autograd.grad(loss, list(leaves.values()))
+
+        self._fwd_bwd = fwd_bwd
+        self.graph = None
+        self.launches: dict = {}  # kernel launches recorded by the capture
+        self.loss, self.grads = None, None
+        if capture:
+            self._capture(params["curves"].device)
+
+    def _capture(self, dev: torch.device) -> None:
+        from ..ops import sdf_cuda
+
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    self._fwd_bwd()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with sdf_cuda.capturing() as self.launches, torch.cuda.graph(graph, stream=side):
+                self.loss, self.grads = self._fwd_bwd()
+        self.graph = graph
+
+    def replay(self):
+        """(loss, grads) at the parameters' current values, in the static
+        buffers of a captured graph."""
+        if self.graph is None:
+            self.loss, self.grads = self._fwd_bwd()
+        else:
+            from ..ops import sdf_cuda
+
+            self.graph.replay()
+            sdf_cuda.count_replay(self.launches)
+        return self.loss, self.grads
+
+
 class FontFitter:
     """Owns the loss, the optimizer and the train step, on one device or
     sharded over a list of devices."""
@@ -409,6 +489,7 @@ class FontFitter:
         self.sharpness = sharpness
         self.backend = backend
         self._loss = None  # built by init()
+        self._graph: StepGraph | None = None  # `step_many`'s, for one (params, batch)
 
     # -- state ----------------------------------------------------------
 
@@ -442,6 +523,7 @@ class FontFitter:
         parameters have the padded batch's rows."""
         if self.backend == "flat" and batch.meta is None:
             raise ValueError("backend='flat' needs FitBatch.meta")
+        self._graph = None  # the old graph's memory goes before the new batch's
         if self.devices is not None:
             batch, dev_batch = self._shard(batch)
         else:
@@ -515,9 +597,43 @@ class FontFitter:
 
     def step_many(self, params, opt, dev_batch, k: int):
         """``k`` steps; the losses come back to the host once, as a
-        numpy array [k]."""
-        losses = [self.step(params, opt, dev_batch)[2] for _ in range(k)]
-        return params, opt, torch.stack(losses).cpu().numpy()
+        numpy array [k]. On one CUDA device each step replays the CUDA
+        graph of the forward and backward (`StepGraph`, captured at the
+        first call for these tensors) and runs Adam outside it, bit-equal
+        to `step`; on the CPU and over several devices it loops over
+        `step`."""
+        if self.devices is None and self.device.type == "cuda":
+            losses = self._graphed_steps(params, opt, dev_batch, k)
+        else:
+            losses = torch.stack([self.step(params, opt, dev_batch)[2] for _ in range(k)])
+        return params, opt, losses.cpu().numpy()
+
+    def _step_graph(self, params, dev_batch) -> StepGraph:
+        """The cached `StepGraph` of these tensors, captured anew (and the
+        old one dropped first) when they are others. `init` drops it;
+        `restore_checkpoint` copies in place and keeps it. On the CPU the
+        graph is the decomposition without a capture."""
+        if self._graph is None or self._graph.key != _graph_key(params, dev_batch):
+            self._graph = None
+            self._graph = StepGraph(self._loss, params, dev_batch,
+                                    capture=self.device.type == "cuda")
+        return self._graph
+
+    def _graphed_steps(self, params, opt, dev_batch, k: int) -> torch.Tensor:
+        """``k`` steps through `_step_graph`: replay, each parameter's
+        ``.grad`` set to its static gradient, Adam, the static loss
+        copied out. Returns the losses [k] on the device."""
+        graph = self._step_graph(params, dev_batch)
+        losses = torch.empty(k, dtype=torch.float32, device=self.device)
+        for i in range(k):
+            loss, grads = graph.replay()
+            for key, g in zip(PARAM_KEYS, grads):
+                params[key].grad = g
+            opt.step()
+            losses[i].copy_(loss)
+        # The static buffers stay the graph's: later steps start from none.
+        opt.zero_grad(set_to_none=True)
+        return losses
 
     def fit(self, batch: FitBatch, steps: int = 200, log_every: int = 0):
         params, opt, dev_batch = self.init(batch)

@@ -51,10 +51,14 @@ device. The TPU prepass's chunk-row restructuring has no counterpart:
 the kernels read the flat point chain and the mask bits directly.
 
 ``LAUNCHES[name]`` counts each kernel's launches since `reset_launches`.
+A launch recorded into a CUDA graph runs at each replay: `capturing`
+takes a capture's launches back out of the counts (nothing ran) and
+`count_replay` adds them once a replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -168,6 +172,27 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around a CUDA graph capture: yields a dict that, on exit, holds
+    the launches each kernel recorded into the graph, which are taken
+    back out of `LAUNCHES` (a capture runs nothing)."""
+    before = dict(LAUNCHES)
+    recorded: dict = {}
+    try:
+        yield recorded
+    finally:
+        recorded.update({name: LAUNCHES[name] - before[name] for name in KERNELS})
+        LAUNCHES.update(before)
+
+
+def count_replay(recorded: dict) -> None:
+    """Count one replay of a graph whose capture recorded ``recorded``
+    (`capturing`): a replay runs every launch the capture recorded."""
+    for name, n in recorded.items():
+        LAUNCHES[name] += n
 
 
 def _launch(name: str, device: torch.device, *args) -> None:

@@ -7,7 +7,10 @@ and of the measurement scripts: the render tile kernel over the point
 chain (also the plain version of its split variant, the same function),
 the fitting min field and its backward reduction over the point chain,
 the padded-layout min field and its backward, the two renders over the
-flat segment layout, and the synthetic ALU roof.
+flat segment layout, and the synthetic ALU roof; and the padded-layout
+render of the JAX ``--renderer jax`` (`sdf_jax.render_bitmaps_jax`,
+jnp code that XLA compiles, with no kernel: its torch ops here are its
+port on any device).
 They keep the op order of the JAX package's kernels and twins
 (`ops.sdf_jax`, `ops.sdf_grad._pair_terms`), so the render bytes and the
 min fields are bit-identical to the JAX package's on the same arrays;
@@ -451,14 +454,17 @@ def render_grid_flat(
 # -- the padded per-glyph layout (TPU kernels 4 and 5, `ops.sdf_grad`) --
 
 
-def _padded_centers(meta: torch.Tensor, P: int):
-    """Pixel centers (px, py) [B, P] of the first P flat pixels of each
-    glyph, meta [B, ≥4] (x0, y0, w, h): integer div and mod, which give
-    the TPU kernel's f32-division rows for every index below 2²³."""
+def pixel_coords(meta: torch.Tensor, P: int):
+    """Pixel centers (px, py) [B, P] f32 of the first P flat pixels of
+    each glyph, and whether each is below w·h (counterpart of
+    `sdf_jax.pixel_coords`, over a batch). meta [B, ≥4] i32 (x0, y0, w,
+    h): index i is bitmap position (i mod w, i div w), render row
+    ``h - 1 - row``; integer div and mod, which give the TPU kernels'
+    f32-division rows for every index below 2²³."""
     rows = torch.zeros((8, meta.shape[0]), dtype=torch.int32, device=meta.device)
     rows[:4] = meta[:, :4].T
-    px, py, _ = _pixel_centers(rows, P)
-    return px, py
+    px, py, i = _pixel_centers(rows, P)
+    return px, py, i < rows[2][:, None] * rows[3][:, None]
 
 
 def min_field_padded(segs: torch.Tensor, mask: torch.Tensor, meta: torch.Tensor, P: int):
@@ -484,7 +490,7 @@ def min_field_padded(segs: torch.Tensor, mask: torch.Tensor, meta: torch.Tensor,
     C = max(1, _chunk_elems(dev) // (P * S))
     lane = torch.arange(S, dtype=torch.int32, device=dev)
     for b0 in range(0, B, C):
-        px, py = _padded_centers(meta[b0 : b0 + C], P)
+        px, py, _ = pixel_coords(meta[b0 : b0 + C], P)
         sg = segs[b0 : b0 + C].permute(2, 0, 1)[:, :, None, :]  # [4, C, 1, S]
         ok = (mask[b0 : b0 + C] != 0)[:, None, :]
         d2, wn = _pair_d2_wn(px[:, :, None], py[:, :, None], *sg, ok)
@@ -503,7 +509,7 @@ def _padded_bwd_terms(segs, meta, am, ct_d2):
     is no segment), tc and q recomputed in the forward's op order."""
     B, S = segs.shape[:2]
     P = am.shape[1]
-    px, py = _padded_centers(meta.to(torch.int32), P)
+    px, py, _ = pixel_coords(meta.to(torch.int32), P)
     live = (am >= 0) & (am < S)
     a = torch.where(live, am, 0).long()
     vx, vy, wx, wy = segs.gather(1, a[:, :, None].expand(B, P, 4)).unbind(-1)
@@ -569,3 +575,78 @@ def min_field_padded_bwd_ordered(
     for p in range(P):
         dsegs[glyphs, a[:, p]] += terms[:, p]
     return dsegs
+
+
+# -- the padded-layout render (`sdf_jax.render_bitmaps_jax`) ------------
+
+# Component rows of the packed segment tensor [G, 8, S] that
+# `render.batch.pack_segments` fills (`sdf_jax`'s row indices; row 7 is
+# spare).
+VX, VY, DX, DY, L2INV, DYINV, WY = range(7)
+
+
+def padded_field(segs: torch.Tensor, meta: torch.Tensor, P: int):
+    """The min of d² and the winding number of each glyph's first P
+    pixels over its packed segments: `sdf_jax._field_one` for a batch of
+    glyphs, in its op order, up to the square root.
+
+    segs [G, 8, S] f32 component rows (`VX` … `WY`, the divisions done
+    on the host in f64), meta [G, ≥5] i32 (x0, y0, w, h, nseg). Each op
+    is elementwise over (glyph, pixel, segment), a float min or an int32
+    sum over the segments, so a batch of any size gives each glyph's
+    bits. Returns (d2 [G, P] f32, masked segments `_BIG`; wn [G, P]
+    i32)."""
+    meta = meta.to(torch.int32)
+    px, py, _ = pixel_coords(meta, P)
+    pxc = px[:, :, None]
+    pyc = py[:, :, None]
+    vx, vy, dx, dy, l2inv, dyinv, wy = (
+        segs[:, k, None, :] for k in (VX, VY, DX, DY, L2INV, DYINV, WY))
+    S = segs.shape[2]
+    seg_ok = (torch.arange(S, dtype=torch.int32, device=segs.device)
+              < meta[:, 4, None])[:, None, :]
+
+    ex = pxc - vx
+    ey = pyc - vy
+    num = ex * dx + ey * dy
+    tc = torch.clamp(num * l2inv, 0.0, 1.0)
+    del num
+    qx = ex - tc * dx
+    qy = ey - tc * dy
+    del ex, tc
+    d2 = torch.where(seg_ok, qx * qx + qy * qy, _BIG)
+    del qx, qy
+    dmin2 = torch.amin(d2, dim=2)
+    del d2
+
+    up = (vy <= pyc) & (wy > pyc)
+    dn = (vy > pyc) & (wy <= pyc)
+    cx = vx + (ey * dyinv) * dx
+    sign = up.to(torch.int32) - dn.to(torch.int32)
+    hit = (cx <= pxc) & seg_ok & (up | dn)
+    del cx, ey
+    wn = torch.sum(torch.where(hit, sign, 0), dim=2, dtype=torch.int32)
+    return dmin2, wn
+
+
+def render_bitmaps_padded(
+    segs: torch.Tensor, meta: torch.Tensor, P: int, chunk: int | None = None
+) -> torch.Tensor:
+    """Quantized uint8 bitmaps [G, P] of a packed glyph batch
+    (`render.batch.pack_block`): the port of
+    `sdf_jax.render_bitmaps_jax(..., sequential=True)`, byte for byte,
+    on the tensors' device. Pixels past w·h are computed from their
+    out-of-range coordinates, as there.
+
+    The JAX function maps glyph by glyph; this runs ``chunk`` glyphs at
+    a time (None: as many as keep each [glyphs, P, S] f32 temporary
+    within `_chunk_elems` pairs), which gives the same bytes at any
+    chunk size (see `padded_field`)."""
+    G, _, S = segs.shape
+    out = torch.empty((G, P), dtype=torch.uint8, device=segs.device)
+    if chunk is None:
+        chunk = max(1, _chunk_elems(segs.device) // max(P * S, 1))
+    for g0 in range(0, G, chunk):
+        dmin2, wn = padded_field(segs[g0 : g0 + chunk], meta[g0 : g0 + chunk], P)
+        out[g0 : g0 + chunk] = _sdf_bytes(dmin2, wn).to(torch.uint8)
+    return out

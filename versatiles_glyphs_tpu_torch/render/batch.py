@@ -6,6 +6,8 @@ for array, including the lane slack (`WINDOW_LANES`) and the shape
 buckets, so the wire that crosses between the two packages is one
 format. Their arena buffers have keys of their own (``torch_`` prefix),
 so the two packages never hand out one buffer to each other.
+`pack_segments` and `pack_block` pack the padded per-glyph layout of
+the ``padded`` backend (the JAX ``jax`` renderer's).
 
 `wire_to_device` turns a pack tuple into tensors on an explicit device
 with blocking copies; the render session makes them on a `DeviceLane`'s
@@ -20,6 +22,7 @@ import contextlib
 import numpy as np
 import torch
 
+from ..ops.sdf_torch import DX, DY, DYINV, L2INV, VX, VY, WY
 from ..utils.arena import get_array
 
 SC = 128  # lanes of one chunk row of the TPU kernel's layout
@@ -42,6 +45,56 @@ def bucket(value: int, buckets) -> int:
             return b
     step = buckets[-1]
     return ((value + step - 1) // step) * step
+
+
+def pack_segments(seg_list: list[np.ndarray], S_pad: int | None = None) -> np.ndarray:
+    """Pack per-glyph (S_i, 4) float64 segment soups into the padded
+    [G, 8, S_pad] float32 component layout of `ops.sdf_torch.
+    render_bitmaps_padded` (rows `VX` … `WY`). The differences and the
+    two reciprocals are taken in f64 and then rounded to f32, as the JAX
+    packer does, so the rows are its rows bit for bit."""
+    G = len(seg_list)
+    max_s = max((s.shape[0] for s in seg_list), default=0)
+    if S_pad is None:
+        S_pad = bucket(max(max_s, 1), S_BUCKETS)
+    out = np.zeros((G, 8, S_pad), dtype=np.float32)
+    for g, segs in enumerate(seg_list):
+        n = segs.shape[0]
+        if n == 0:
+            continue
+        vx = segs[:, 0]
+        vy = segs[:, 1]
+        wx = segs[:, 2]
+        wy = segs[:, 3]
+        dx = wx - vx
+        dy = wy - vy
+        l2 = dx * dx + dy * dy
+        with np.errstate(divide="ignore"):
+            l2inv = np.where(l2 > 0.0, 1.0 / l2, 0.0)
+            dyinv = np.where(dy != 0.0, 1.0 / dy, 0.0)
+        out[g, VX, :n] = vx
+        out[g, VY, :n] = vy
+        out[g, DX, :n] = dx
+        out[g, DY, :n] = dy
+        out[g, L2INV, :n] = l2inv
+        out[g, DYINV, :n] = dyinv
+        out[g, WY, :n] = wy
+    return out
+
+
+def pack_block(preps, P_pad: int | None = None, S_pad: int | None = None):
+    """Pack non-empty `GlyphPrep`s into the padded layout: (segs [G, 8,
+    S_pad] f32 from `pack_segments`, meta [G, 8] i32 rows x0, y0, w, h,
+    nseg, 0, 0, 0, P_pad the pixel bucket of the largest bitmap)."""
+    G = len(preps)
+    segs = pack_segments([p.segments for p in preps], S_pad=S_pad)
+    max_p = max((p.width * p.height for p in preps), default=0)
+    if P_pad is None:
+        P_pad = bucket(max(max_p, 1), P_BUCKETS)
+    meta = np.zeros((G, 8), dtype=np.int32)
+    for g, p in enumerate(preps):
+        meta[g, :5] = (p.x0, p.y0, p.width, p.height, p.segments.shape[0])
+    return segs, meta, P_pad
 
 
 def _group_meta(preps):

@@ -8,6 +8,10 @@ Backends:
                 (`Renderer.start_session`); raises when there is none.
 - ``"torch"`` — the same session and wire on the CPU, through the
                 kernel's plain PyTorch version.
+- ``"padded"`` — the padded-layout render of the JAX ``"jax"`` backend
+                (`batch.pack_block`, `ops.sdf_torch.render_bitmaps_padded`,
+                the same bytes) on the first CUDA device, raising when
+                there is none, or on the device the caller names.
 - ``"exact"`` — the float64 native/NumPy renderer (`proto.native`,
                 `ops.sdf_ref`), on the CPU.
 - ``"zeros"`` — empty bitmaps of the right size (``--dummy``).
@@ -38,7 +42,7 @@ def reset_wire_stats() -> None:
     WIRE_STATS.update(upload_bytes=0, fetch_bytes=0, groups=0)
 
 
-BACKENDS = ("auto", "cuda", "torch", "exact", "zeros")
+BACKENDS = ("auto", "cuda", "torch", "padded", "exact", "zeros")
 TRANSPORTS = ("auto", "i8", "i16", "f32")
 
 _SURROGATE_LO, _SURROGATE_HI = 0xD800, 0xDFFF
@@ -57,13 +61,19 @@ class Renderer:
     _LANES_SOFT = 600_000
     _TILES_SOFT = 4096
 
-    def __init__(self, backend: str = "auto", transport: str = "auto"):
+    def __init__(self, backend: str = "auto", transport: str = "auto", device=None):
+        """``device``: the ``padded`` backend's torch device or its name
+        (None or ``"cuda"``: the first CUDA device, which raises without
+        one); the other backends have fixed devices and refuse one."""
         if backend == "auto":
             backend = "cuda"
         if backend not in BACKENDS:
             raise ValueError(f"unknown renderer backend {backend!r}")
         if transport not in TRANSPORTS:
             raise ValueError(f"unknown point transport {transport!r}")
+        if device is not None and backend != "padded":
+            raise ValueError(f"the {backend!r} renderer runs on a fixed device: "
+                             "a device is chosen only for 'padded'")
         self.backend = backend
         # "i8" (default): i8 lane deltas of the q16 chain plus a sparse
         # anchor table; "i16": the q16 chain (same decoded points, so the
@@ -74,6 +84,8 @@ class Renderer:
             self.device = cuda_device()
         elif backend == "torch":
             self.device = torch.device("cpu")
+        elif backend == "padded":
+            self.device = cuda_device() if device in (None, "cuda") else torch.device(device)
 
     # -- per-glyph host prep --------------------------------------------
 
@@ -325,7 +337,10 @@ class RenderSession:
     is dealt by `Renderer._render_devices`; with fewer, it goes as the
     one-device groups on the first device.
 
-    The ``exact`` and ``zeros`` backends render inside `add`.
+    The ``padded``, ``exact`` and ``zeros`` backends render inside `add`;
+    ``padded`` packs and renders each call's preps as one batch on its
+    device, as the JAX ``jax`` backend does, and never falls back to
+    another device or backend.
 
     `close` waits for every copy and kernel in flight and drops every
     pending group. `results` calls it when it ends, is left early or
@@ -348,7 +363,9 @@ class RenderSession:
         self._closed = False
         self._lanes: list = []
         self._several = False
-        if renderer.device is not None:
+        # The wire backends render in device groups; the rest in `add`.
+        self._wire = renderer.backend in ("cuda", "torch")
+        if self._wire:
             from ..parallel import mesh
             from .batch import device_lanes
 
@@ -378,7 +395,7 @@ class RenderSession:
         if self._closed:
             raise RuntimeError("render session is closed")
         r = self.r
-        if r.device is not None:
+        if self._wire:
             q16 = r.transport in ("i8", "i16")
             for p in preps:
                 item = (self._n, p)
@@ -393,6 +410,17 @@ class RenderSession:
             return
         if r.backend == "zeros":
             self._eager.extend(np.zeros(p.width * p.height, dtype=np.uint8) for p in preps)
+            self.tick(len(preps))
+            return
+        if r.backend == "padded":
+            from ..ops.sdf_torch import render_bitmaps_padded
+            from .batch import pack_block
+
+            segs, meta, P = pack_block(preps)
+            out = render_bitmaps_padded(
+                torch.from_numpy(segs).to(r.device), torch.from_numpy(meta).to(r.device), P
+            ).cpu().numpy()
+            self._eager.extend(out[g, : p.width * p.height].copy() for g, p in enumerate(preps))
             self.tick(len(preps))
             return
         from ..proto import native
@@ -433,7 +461,7 @@ class RenderSession:
         if self._closed:
             raise RuntimeError("render session is closed")
         try:
-            if self.r.device is None:
+            if not self._wire:
                 yield from self._eager
                 return
             if self._several and self._n >= 2 * len(self._lanes):

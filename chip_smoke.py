@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's atlas render path, its outline-fitting
-path on one device (graphed) and sharded, the renders over the flat
+path on one device and sharded (both graphed), the renders over the flat
 segment layout, the padded-layout render and fitting loss, the graft
-entry and the two measurement tools once on one GPU.
+entry, the two measurement tools and the profiling tool once on one GPU.
 
     python3 chip_smoke.py
 
@@ -117,17 +117,25 @@ JSON lines:
    twice (`FontFitter(devices=[cuda:0, cuda:0])`, 850 glyphs a shard,
    each with its own flat plan): one loss and gradient against the
    one-device fitter (loss within 1e-6 relative, gradients within
-   1e-5·max|g|); 20 Adam steps with the counts reset just before (the
-   loss descends, kernels 2 and 3 launch twice a step); 10 steps against
-   10 on one device (losses within 1e-5 relative, parameters within 1e-3
-   px); 5 + 5 steps through a checkpoint against 10 (Δ = 0); seconds a
-   step warm, sharded and on one device in turns (the one-device flat
-   step is the graphed `step_many`, its graph captured before the
-   turns; the sharded step loops). The same for
-   `make_sharded_kernel_loss` against `batch_loss_kernel` (kernels 4 and
-   5 twice a step). Then the graft entry (`__graft_entry_torch__.py`):
-   `entry()` (kernel 1 once, its bytes equal to
-   `sdf_torch.render_tiles_pts` on the same wire) and
+   1e-5·max|g|); 20 Adam steps through `step_many`, which captures one
+   CUDA graph a shard (`ShardedStepGraph`), with the counts reset just
+   before (the loss descends; kernels 2 and 3 launch 2 × (20 + 3):
+   each shard's 3 warm-up runs, then one launch a shard a replay) and
+   10 more (exactly 2 a step); one replay of a fresh graph against the
+   one-device fitter (the same tolerances; each shard's capture
+   recorded kernels 2 and 3 once); 10 steps against 10 on one device
+   (losses within 1e-5 relative, parameters within 1e-3 px); 5 + 5
+   steps through a checkpoint against 10 (Δ = 0), into a fresh init
+   and back into the same tensors (the graph kept); seconds a step
+   warm in 8 turns each: graphed sharded, eager sharded and the graphed
+   one-device step (its graph captured before the turns). The same for
+   `make_sharded_kernel_loss` against `batch_loss_kernel` (eager;
+   kernels 4 and 5 twice a step). Then 10 graphed sharded steps
+   against 10 eager sharded `step` calls, bit for bit in parameters and
+   losses, with each one's peak memory: the ``flat`` backend at full
+   size and the ``torch`` backend on block 0. Then the graft entry
+   (`__graft_entry_torch__.py`): `entry()` (kernel 1 once, its bytes
+   equal to `sdf_torch.render_tiles_pts` on the same wire) and
    `dryrun_multichip(2)` (finite losses, kernels 2 and 3 once a shard,
    the render over the card listed twice equal to the one-device
    render).
@@ -135,6 +143,12 @@ JSON lines:
    font, with the launch counts reset just before: the tile kernel
    against the measured ALU and copy roofs and against its split
    variant.
+8. profile — `tools.profile.main(["--quick"])`: the render group's
+   stages (host clock and CUDA events), the manager over two copies
+   of the text font against the device-only render, cProfile's top
+   frames, and 10 warm steps each of the graphed one-device, graphed
+   sharded, eager sharded and padded fit steps under `torch.profiler`
+   (device-busy share, device time and events a step).
 
 The slice and the fit enter below the font parser, so that they need no
 fontTools: their outlines are synthesized (the same outlines as a TTF
@@ -973,6 +987,42 @@ def phase_tools() -> dict:
     return launches, 1e12 * roof["alu_roof"]["f32_Tops_per_s"]
 
 
+def phase_profile() -> None:
+    """`tools.profile --quick` through its entry point: the render's
+    stages, the manager against the device-only render, cProfile's
+    frames and the four fit steps under `torch.profiler`. Raises unless
+    every part reported what it measures: the device times of the
+    render's stages, a finite paired ratio, top frames, device events in
+    every fit step and the port's kernels launched as many times a step
+    as each step runs them."""
+    from versatiles_glyphs_tpu_torch.tools import profile
+
+    t0 = time.perf_counter()
+    res = profile.main(["--quick"])
+    fit = res["fit"]
+    emit({"phase": "profile", "seconds": time.perf_counter() - t0,
+          "e2e_paired_ratio": res["e2e"]["paired_ratio"],
+          **{f"{k}_{v}": fit[k][v] for k in fit
+             for v in ("wall_ms_a_step", "device_busy_share", "device_busy_ms_a_step",
+                       "device_busy_ms_over_unprofiled_wall", "device_events_a_step",
+                       "kernel_launches_a_step")}})
+    # The port's kernels a step of each fit variant (counted by their
+    # wrappers; a graph's once a replay).
+    flat, padded = ("sdf_min_field_pts", "sdf_min_field_bwd"), (
+        "sdf_min_field_padded", "sdf_min_field_padded_bwd")
+    want = {"graphed_one_device": dict.fromkeys(flat, 1.0),
+            "graphed_sharded": dict.fromkeys(flat, 2.0),
+            "eager_sharded": dict.fromkeys(flat, 2.0),
+            "padded_eager": dict.fromkeys(padded, 1.0)}
+    bad = [r["stage"] for r in res["render"] if r["device_ms_median"] is None]
+    bad += [k for k, r in fit.items()
+            if not r["device_events_a_step"] or r["kernel_launches_a_step"] != want[k]]
+    if not np.isfinite(res["e2e"]["paired_ratio"]).all() or not res["cpuprof"]["top_frames"]:
+        bad.append("e2e/cpuprof")
+    if bad:
+        raise AssertionError(f"tools.profile: nothing or the wrong launches measured for {bad}")
+
+
 def render_font(name, preps, renderer, out_dir):
     """The atlas pipeline below the font parser: blocks of 256
     codepoints through one render session, the fused native PBF encode
@@ -1607,24 +1657,58 @@ def one_device_agree(loss, grads, loss1, grads1, B: int) -> dict:
 
 def steps_in_turns(runs: dict, k: int = 10) -> dict:
     """Warm seconds a step of each ``runs[name]()`` (``k`` steps, ending
-    in the losses' fetch), in turns a, b, b, a: the median of two."""
+    in the losses' fetch), in turns a, b, c, c, b, a, four times: the
+    median, and every turn's."""
     names = list(runs)
     secs = {name: [] for name in names}
-    for name in names + names[::-1]:
-        t0 = time.perf_counter()
-        runs[name]()
-        secs[name].append((time.perf_counter() - t0) / k)
-    return {f"seconds_per_step_warm_{name}": statistics.median(v) for name, v in secs.items()}
+    for _ in range(4):
+        for name in names + names[::-1]:
+            t0 = time.perf_counter()
+            runs[name]()
+            secs[name].append((time.perf_counter() - t0) / k)
+    return {**{f"seconds_per_step_warm_{n}": statistics.median(v) for n, v in secs.items()},
+            **{f"seconds_per_step_warm_{n}_each": v for n, v in secs.items()}}
+
+
+def sharded_graphed_vs_eager(fitter, batch, name: str) -> dict:
+    """10 steps of a sharded fitter through `step_many` (the graph a
+    shard, captured in the first call) against 10 eager `step` calls,
+    each from a fresh `init`: bit-equality of the parameters and the
+    losses, and each one's peak memory from `init` on, above what was
+    allocated before it."""
+    def fresh():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated(), *fitter.init(batch)
+
+    held, pe, oe, se = fresh()
+    le = torch.stack([fitter.step(pe, oe, se)[2] for _ in range(10)]).cpu().numpy()
+    peak_e = torch.cuda.max_memory_allocated() - held
+    held, pg, og, sg = fresh()
+    lg = fitter.step_many(pg, og, sg, 10)[2]
+    peak_g = torch.cuda.max_memory_allocated() - held
+    diff = {k: int((pe[k] != pg[k]).sum()) for k in pe}
+    return {"phase": "sharded_fit", "backend": name, "step": "graphed_vs_eager",
+            "glyphs": int(batch.curves0.shape[0]), "shards": len(sg), "steps": 10,
+            "bit_equal": not any(diff.values()) and np.array_equal(le.view(np.int32),
+                                                                   lg.view(np.int32)),
+            "params_differing_elements": diff, "loss_last": float(lg[-1]),
+            "peak_memory_above_start_bytes_eager": peak_e,
+            "peak_memory_above_start_bytes_graphed": peak_g}
 
 
 def phase_sharded_fit(batch, work) -> dict:
     """The fit of phase 5 sharded over the card listed twice, for the
-    flat backend and for `make_sharded_kernel_loss`, then the graft
-    entry's two functions; see the module docstring. Returns the launches
-    per kernel of each 20-step run."""
+    flat backend (graphed, `ShardedStepGraph`) and for
+    `make_sharded_kernel_loss`, the torch backend's graphed sharded step
+    on block 0, then the graft entry's two functions; see the module
+    docstring. Returns the launches per kernel of each loss's 20-step
+    run and of the 10 steps after it."""
+    import dataclasses
+
     import __graft_entry_torch__ as graft
     from versatiles_glyphs_tpu_torch.models.fitting import (
-        PARAM_KEYS, FontFitter, batch_loss_kernel, make_sharded_kernel_loss)
+        PARAM_KEYS, FontFitter, StepGraph, batch_loss_kernel, make_sharded_kernel_loss)
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
 
     dev = torch.device("cuda", 0)
@@ -1637,7 +1721,7 @@ def phase_sharded_fit(batch, work) -> dict:
     def grads_of(loss, params):
         return dict(zip(PARAM_KEYS, torch.autograd.grad(loss, [params[k] for k in PARAM_KEYS])))
 
-    def padded_steps(loss_fn):
+    def eager_steps(loss_fn):
         def steps(params, opt, db, k):
             losses = []
             for _ in range(k):
@@ -1654,37 +1738,60 @@ def phase_sharded_fit(batch, work) -> dict:
 
     launches = {}
     failures = []
-    # name -> (sharded loss, one-device loss, k sharded steps, k one-device steps)
-    for name, (sharded_loss, one_loss, run, run_one) in {
+    # name -> (sharded loss, one-device loss, k sharded steps, k one-device
+    # steps, k eager sharded steps where the sharded steps are graphed)
+    for name, (sharded_loss, one_loss, run, run_one, run_eager) in {
         "flat": (sh.loss, one.loss, lambda *a: sh.step_many(*a)[2],
-                 lambda *a: one.step_many(*a)[2]),
-        "padded": (padded, one_padded, padded_steps(padded), padded_steps(one_padded)),
+                 lambda *a: one.step_many(*a)[2], eager_steps(sh.loss)),
+        "padded": (padded, one_padded, eager_steps(padded), eager_steps(one_padded), None),
     }.items():
         ps, os_, ss = sh.init(batch)
         p1, o1, d1 = one.init(batch)
         ls = sharded_loss(ps, ss)
         l1 = one_loss(p1, d1)
-        cmp = one_device_agree(ls.detach(), grads_of(ls, ps), l1.detach(), grads_of(l1, p1), B)
+        g1 = grads_of(l1, p1)
+        cmp = one_device_agree(ls.detach(), grads_of(ls, ps), l1.detach(), g1, B)
         emit({"phase": "sharded_fit", "loss": name, "step": "one_device", "glyphs": B,
               "shards": len(ss), "glyphs_a_shard": [int(s["target"].shape[0]) for s in ss], **cmp})
         if not cmp["agree"]:
             failures.append(f"{name}: the sharded loss or gradients disagree with one device")
 
+        # 20 steps (for the flat loss the first captures a graph a shard:
+        # WARMUP runs a shard, then a replay a shard and step), then 10.
         torch.cuda.synchronize()
         sdf_cuda.reset_launches()
         t0 = time.perf_counter()
         losses = run(ps, os_, ss, FIT_STEPS)
         secs = time.perf_counter() - t0
-        launches[name] = dict(sdf_cuda.LAUNCHES)
+        first = dict(sdf_cuda.LAUNCHES)
+        sdf_cuda.reset_launches()
+        run(ps, os_, ss, 10)
+        launches[name] = {"steps_20": first, "steps_10": dict(sdf_cuda.LAUNCHES)}
         # One step first, so that the one-device fitter's graph is captured
         # before the turns time it.
         run_one(p1, o1, d1, 1)
-        warm = steps_in_turns({
-            "one_device": lambda: run_one(p1, o1, d1, 10),
-            "sharded": lambda: run(ps, os_, ss, 10),
-        })
+        turns = {"one_device": lambda: run_one(p1, o1, d1, 10),
+                 "sharded": lambda: run(ps, os_, ss, 10)}
+        if run_eager is not None:
+            turns["sharded_eager"] = lambda: run_eager(ps, os_, ss, 10)
+        warm = steps_in_turns(turns)
         kernels = (("sdf_min_field_pts", "sdf_min_field_bwd") if name == "flat"
                    else ("sdf_min_field_padded", "sdf_min_field_padded_bwd"))
+        warmup = StepGraph.WARMUP if name == "flat" else 0
+
+        graphed = {}
+        if name == "flat":
+            # The graph a shard of a fresh init, replayed once, against one
+            # device at the same parameters; what each capture recorded.
+            pg, _, sg = sh.init(batch)
+            graph = sh._step_graph(pg, sg)
+            lg, gg = graph.replay()
+            graphed = one_device_agree(lg, dict(zip(PARAM_KEYS, gg)), l1.detach(), g1, B)
+            graphed["launches_captured_a_shard"] = [
+                {k: v for k, v in g.launches.items() if v} for g in graph.shards]
+            if not graphed["agree"] or graphed["launches_captured_a_shard"] != [
+                    dict.fromkeys(kernels, 1)] * len(devices):
+                failures.append(f"graphed sharded step against one device: {graphed}")
 
         # 10 sharded steps against 10 on one device, from the start.
         pa, oa, sa = sh.init(batch)
@@ -1694,36 +1801,63 @@ def phase_sharded_fit(batch, work) -> dict:
                   for k in PARAM_KEYS}
         loss10 = float(np.abs(la - lb).max() / np.abs(lb).max())
 
-        # 5 + 5 sharded steps through a checkpoint against 10.
+        # 5 + 5 sharded steps through a checkpoint against 10: into a
+        # fresh init, and back into the same tensors (the graph kept).
         p10, o10, s10 = sh.init(batch)
         run(p10, o10, s10, 10)
         pc, oc, sc = sh.init(batch)
         run(pc, oc, sc, 5)
         ckpt = os.path.join(work, f"checkpoint_sharded_{name}")
         FontFitter.save_checkpoint(ckpt, pc, oc)
+        kept_graph = sh._graph
+        run(pc, oc, sc, 3)
+        FontFitter.restore_checkpoint(ckpt, like=(pc, oc))
+        run(pc, oc, sc, 5)
+        kept = sh._graph is kept_graph
         pd, od, sd = sh.init(batch)
         pd, od = FontFitter.restore_checkpoint(ckpt, like=(pd, od))
         run(pd, od, sd, 5)
         delta = max(float((p10[k] - pd[k]).detach().abs().max()) for k in PARAM_KEYS)
+        delta_kept = max(float((p10[k] - pc[k]).detach().abs().max()) for k in PARAM_KEYS)
 
         rec = {"phase": "sharded_fit", "loss": name, "step": "descend", "steps": FIT_STEPS,
                "devices": [str(d) for d in devices], "seconds": secs, **warm,
                "loss_first": float(losses[0]), "loss_min": float(losses.min()),
-               "loss_last": float(losses[-1]), "launches": launches[name],
-               "launches_a_step": {k: launches[name][k] / FIT_STEPS for k in kernels},
+               "loss_last": float(losses[-1]), "launches": first,
+               "launches_10_steps": launches[name]["steps_10"], "graph_warmup_runs": warmup,
+               "graphed_replay_vs_one_device": graphed,
                "ten_steps_vs_one_device": {"loss_max_rel_diff": loss10,
                                            "param_max_abs_diff": diff10},
-               "max_abs_diff_5_5_vs_10": delta}
+               "max_abs_diff_5_5_vs_10": delta,
+               "max_abs_diff_5_5_vs_10_same_tensors": delta_kept}
         emit(rec)
         if not (np.isfinite(losses).all() and losses.min() < losses[0]):
             failures.append(f"{name}: the sharded fit did not descend: {losses.tolist()}")
-        if not all(launches[name][k] == 2 * FIT_STEPS for k in kernels):
-            failures.append(f"{name}: {launches[name]} launches for {FIT_STEPS} steps on 2 shards")
+        if not all(first[k] == 2 * (FIT_STEPS + warmup)
+                   and launches[name]["steps_10"][k] == 2 * 10 for k in kernels):
+            failures.append(f"{name}: {launches[name]} launches for {FIT_STEPS} then 10 steps "
+                            f"on 2 shards ({warmup} warm-up runs a shard)")
         if loss10 > 1e-5 or max(diff10.values()) > 1e-3:
             failures.append(f"{name}: 10 sharded steps differ from 10 on one device: "
                             f"{loss10}, {diff10}")
-        if delta != 0.0:
-            failures.append(f"{name}: 5 + 5 resumed sharded steps differ from 10 by {delta}")
+        if delta != 0.0 or delta_kept != 0.0:
+            failures.append(f"{name}: 5 + 5 resumed sharded steps differ from 10 by {delta} / "
+                            f"{delta_kept}")
+        if name == "flat" and not kept:
+            failures.append("restore_checkpoint dropped the sharded graph")
+
+    # Graphed sharded steps against eager sharded ones, bit for bit: the
+    # flat backend at full size, the torch backend on block 0.
+    rows = batch.codepoints < 256
+    block = dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name)[rows] for f in dataclasses.fields(batch)})
+    st = FontFitter(depth=FIT_DEPTH, backend="torch", devices=devices)
+    for name, fitter, b in (("flat", sh, batch), ("torch", st, block)):
+        rec = sharded_graphed_vs_eager(fitter, b, name)
+        emit(rec)
+        if not rec["bit_equal"]:
+            failures.append(f"{name}: 10 graphed sharded steps differ from 10 eager ones: "
+                            f"{rec['params_differing_elements']}")
 
     # The graft entry: entry() on the card, then the dry run over the
     # card listed twice.
@@ -1793,6 +1927,7 @@ def main() -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     tool_launches, roof_ops_per_s = timed("tools", phase_tools)
+    timed("profile", phase_profile)
     # The roof is the best rate the roof kernel reached in this run,
     # in the tool or in phase 3.
     roof_ops_per_s = max(roof_ops_per_s, kt["alu_roof"]["f32_ops"] / (kt["alu_roof"]["ms"] * 1e-3))
@@ -1822,9 +1957,11 @@ def main() -> None:
                 "share_of_alu_roof": bound["f32_ops"] / (ms * 1e-3) / roof_ops_per_s, **more}
 
     def sharded(loss, name):
-        # Phase 6's 20 sharded steps: the launches and the launches a step.
-        n = sharded_launches[loss][name]
-        return {"launches_sharded": n, "launches_sharded_step": n / FIT_STEPS}
+        # Phase 6's sharded steps: the launches of the first 20 (graph
+        # warm-up runs included) and a step of the 10 after.
+        n = sharded_launches[loss]
+        return {"launches_sharded": n["steps_20"][name],
+                "launches_sharded_step": n["steps_10"][name] / 10}
 
     from versatiles_glyphs_tpu_torch.tools.work import share_of_issue_rate
 

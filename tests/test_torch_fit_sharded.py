@@ -68,6 +68,13 @@ for name, s in (("torch", None), ("torch_soft", 2.0)):
     f = jf.FontFitter(mesh=mesh, depth=2, backend="jnp", sharpness=s)
     p, _, d = f.init(load(even))
     put(name, *jax.value_and_grad(jf.batch_loss)(p, d, 2, s))
+# k = 3 steps in one dispatch (`_step_k` over the mesh), from the start.
+for name, backend, path in (("flat", "pallas", odd), ("torch", "jnp", even)):
+    f = jf.FontFitter(mesh=mesh, depth=2, backend=backend)
+    p, o, d = f.init(load(path))
+    p, o, losses = f.step_many(p, o, d, 3)
+    res[name + "_k3_losses"] = np.asarray(losses)
+    res.update({f"{name}_k3_{k}": np.asarray(v) for k, v in p.items()})
 try:
     jf.FontFitter(mesh=mesh, depth=2, backend="jnp").init(load(odd))
     res["uneven"] = np.asarray("accepted")
@@ -294,3 +301,29 @@ def test_fit_over_other_device_counts(n):
     assert params["curves"].shape[0] == -(-5 // n) * n
     np.testing.assert_allclose(params["curves"].detach().numpy()[:5],
                                p1["curves"].detach().numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name,make", [("flat", _odd_batch), ("torch", _even_batch)])
+def test_sharded_graph_steps_match_jax_step_many(jax_mesh, name, make):
+    """3 steps through the sharded step's graph decomposition
+    (`models.fitting.ShardedStepGraph` without the capture, which
+    `step_many` replays on CUDA devices) against the JAX mesh fitter's
+    `step_many` (`_step_k` over `shard_map`, one dispatch) from the same
+    start: losses within 1e-5 relative and parameters (the first B_real
+    rows) within 1e-5 px, the tolerance of
+    `test_sharded_steps_match_one_device` (optax and `torch.optim.Adam`
+    round the same update differently in f32)."""
+    b = make()
+    B = b.curves0.shape[0]
+    fitter = fitting.FontFitter(depth=DEPTH, backend=name, devices=CPU2)
+    p, o, s = fitter.init(b)
+    losses = fitter._graphed_steps(p, o, s, 3).numpy()
+    assert isinstance(fitter._graph, fitting.ShardedStepGraph)
+    np.testing.assert_allclose(losses, jax_mesh[f"{name}_k3_losses"], rtol=1e-5)
+    for k in fitting.PARAM_KEYS:
+        got, want = p[k].detach().numpy(), jax_mesh[f"{name}_k3_{k}"]
+        if got.ndim:
+            got, want = got[:B], want[:B]
+        start = b.curves0[:B] if k == "curves" else 0.0
+        assert np.abs(want - start).max() > 1e-3, k  # it moved
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5, err_msg=k)

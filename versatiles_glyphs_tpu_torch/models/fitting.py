@@ -29,26 +29,30 @@ with no mesh object. `FontFitter(devices=...)` pads the batch of the
 all-false masks and ``w·h = 0`` metas, so they add exactly 0 to the loss
 and to every gradient) and gives each device an equal slice of it, with
 its own flat plan. `make_sharded_flat_loss` and
-`make_sharded_kernel_loss` run the kernel pairs once a shard; the loss
-is the sum of the shards' sums, each brought back to the first device,
-over the real glyph count. The parameters stay whole on the first
-device, with one optimizer there: each shard reads its rows with
-``.to(device)``, and autograd sums ``log_gain``'s gradient over the
-shards at that copy, which is the all-reduce the JAX package's ``psum``
-gives. They are kept whole because they are small (~1-2 MB at 1,700
-glyphs) and so keep the one-device shapes of `save_checkpoint`,
-`value_and_grad`, `params_from_numpy`, `adam_state_from_optax` and the
-CLI's ``fitted.npz``; a checkpoint of a sharded fit holds its padded
-rows, so a resume needs the same device count.
+`make_sharded_kernel_loss` (each a `ShardedLoss`) run the kernel pairs
+once a shard; the loss is the sum of the shards' sums, each brought
+back to the first device, over the real glyph count. The parameters
+stay whole on the first device, with one optimizer there: each shard
+reads its rows with ``.to(device)``, and autograd sums ``log_gain``'s
+gradient over the shards at that copy, which is the all-reduce the JAX
+package's ``psum`` gives. They are kept whole because they are small
+(~1-2 MB at 1,700 glyphs) and so keep the one-device shapes of
+`save_checkpoint`, `value_and_grad`, `params_from_numpy`,
+`adam_state_from_optax` and the CLI's ``fitted.npz``; a checkpoint of a
+sharded fit holds its padded rows, so a resume needs the same device
+count.
 
 One dispatch for k steps (the JAX package's `_step_k`, a `lax.scan`
 under one jit): on one CUDA device `FontFitter.step_many` replays a CUDA
 graph of the step's forward and backward (`StepGraph`), captured once
-for each (params, device batch), and runs Adam outside it. The graphed
-steps are bit-equal to `FontFitter.step`: the same kernels on the same
-shapes, only their enqueue changes. On the CPU (which has no graphs)
-and on a sharded fitter (one graph cannot span devices) `step_many`
-loops over `step`.
+for each (params, device batch), and runs Adam outside it. Sharded over
+CUDA devices (the `_step_k` over `shard_map`) it replays one such graph
+a shard, each on the shard's device (`ShardedStepGraph`: one graph
+cannot span devices), with the rows copied in and the sums and
+gradients gathered on the first device outside them. The graphed steps
+are bit-equal to `FontFitter.step`: the same kernels on the same shapes
+and the same sums in the same order, only their enqueue changes. On the
+CPU (which has no graphs) `step_many` loops over `step`.
 
 `torch.optim.Adam` takes optax's place and `torch.save` orbax's;
 `params_from_numpy` and `adam_state_from_optax` carry a JAX run's
@@ -312,21 +316,32 @@ def _flat_losses(params, batch: dict, depth: int, TP: int) -> torch.Tensor:
     return _glyph_losses(fb, params, batch)
 
 
-def _sharded_loss(devices, B_real: int, shard_sum):
-    """``loss_fn(params, shards)`` over a list of devices: shard d owns
-    the parameter rows ``[d·Bl, (d+1)·Bl)`` (``Bl`` the shard's glyph
-    count) and its batch ``shards[d]`` on ``devices[d]``;
-    ``shard_sum(params_d, shard)`` is its sum of per-glyph losses. The
-    parameters live on ``devices[0]``, where the shards' sums are added
-    and divided by ``B_real``."""
-    home = devices[0]
+class ShardedLoss:
+    """``loss(params, shards)`` over a list of devices: shard d owns the
+    parameter rows ``[d·Bl, (d+1)·Bl)`` (``Bl`` the shard's glyph count)
+    and its batch ``shards[d]`` on ``devices[d]``; ``shard_sum(params_d,
+    shard)``, with ``params_d`` already on the shard's device, is its sum
+    of per-glyph losses. The parameters live on ``devices[0]``, where the
+    shards' sums are added in shard order and divided by ``B_real``.
+    `ShardedStepGraph` captures ``shard_sum`` a shard."""
 
-    def loss_fn(params, shards):
+    def __init__(self, devices, B_real: int, shard_sum):
+        self.devices = list(devices)
+        self.B_real = B_real
+        self.shard_sum = shard_sum
+
+    @staticmethod
+    def rows(d: int, shard: dict) -> slice:
+        """The parameter rows of shard ``d``."""
+        Bl = shard["target"].shape[0]
+        return slice(d * Bl, (d + 1) * Bl)
+
+    def __call__(self, params, shards):
+        home = self.devices[0]
         total = None
-        for d, (dev, shard) in enumerate(zip(devices, shards, strict=True)):
-            Bl = shard["target"].shape[0]
-            rows = slice(d * Bl, (d + 1) * Bl)
-            part = shard_sum(
+        for d, (dev, shard) in enumerate(zip(self.devices, shards, strict=True)):
+            rows = self.rows(d, shard)
+            part = self.shard_sum(
                 {
                     "curves": params["curves"][rows].to(dev),
                     "translate": params["translate"][rows].to(dev),
@@ -335,9 +350,7 @@ def _sharded_loss(devices, B_real: int, shard_sum):
                 shard,
             ).to(home)
             total = part if total is None else total + part
-        return total / B_real
-
-    return loss_fn
+        return total / self.B_real
 
 
 def make_sharded_flat_loss(devices, plans: list, depth: int, B_real: int):
@@ -353,7 +366,7 @@ def make_sharded_flat_loss(devices, plans: list, depth: int, B_real: int):
     if len(plans) != len(devices):
         raise ValueError(f"{len(plans)} plans for {len(devices)} devices")
     TP = plans[0].TP
-    return _sharded_loss(devices, B_real, lambda p, s: _flat_losses(p, s, depth, TP).sum())
+    return ShardedLoss(devices, B_real, lambda p, s: _flat_losses(p, s, depth, TP).sum())
 
 
 def make_sharded_kernel_loss(devices, depth: int, B_real: int):
@@ -362,12 +375,15 @@ def make_sharded_kernel_loss(devices, depth: int, B_real: int):
     shard on its glyphs. ``shards[d]`` needs ``curve_mask``, ``meta``,
     ``target`` and ``pix_mask`` (a sharded ``flat`` fitter's shards have
     them). Returns ``loss_fn(params, shards)``."""
-    return _sharded_loss(devices, B_real, lambda p, s: _padded_losses(p, s, depth).sum())
+    return ShardedLoss(devices, B_real, lambda p, s: _padded_losses(p, s, depth).sum())
 
 
 def _graph_key(params, dev_batch) -> tuple:
-    """Identity and storage of every tensor a `StepGraph` reads."""
-    tensors = [params[k] for k in PARAM_KEYS] + [dev_batch[k] for k in sorted(dev_batch)]
+    """Identity and storage of every tensor a `StepGraph` or a
+    `ShardedStepGraph` reads: the parameters and the device batch, or
+    each shard's batch of a list of them."""
+    shards = dev_batch if isinstance(dev_batch, list) else [dev_batch]
+    tensors = [params[k] for k in PARAM_KEYS] + [s[k] for s in shards for k in sorted(s)]
     return tuple((id(t), t.data_ptr()) for t in tensors)
 
 
@@ -379,18 +395,27 @@ class StepGraph:
     side stream, then one capture) when ``capture``, else run anew at
     each `replay` (the same decomposition without a graph).
 
-    A replay runs on the current stream and reads the parameters' values
-    at that point of the stream, so an optimizer step between two
-    replays is seen by the second. The graph's private memory pool keeps
-    the forward's and the backward's temporaries between replays. A
-    capture that fails raises (a host sync in the loss, say); nothing
-    falls back to the eager step."""
+    A replay runs on the current stream of the parameters' device and
+    reads the parameters' values at that point of the stream, so an
+    optimizer step between two replays is seen by the second. The
+    graph's private memory pool keeps the forward's and the backward's
+    temporaries between replays. A capture that fails raises (a host
+    sync in the loss, say); nothing falls back to the eager step.
+
+    ``cotangent`` (default: 1) is the gradient of what the loss feeds
+    into, as `ShardedStepGraph` hands each shard's sum its share of the
+    mean. ``pools``: graphs that take a dict here share one memory pool
+    a device (made at the first capture on it); they must replay in the
+    order they were captured, one after the other."""
 
     WARMUP = 3  # forward-backward runs on the side stream before the capture
 
-    def __init__(self, loss_fn, params, dev_batch, capture: bool = True):
+    def __init__(self, loss_fn, params, dev_batch, capture: bool = True, cotangent=None,
+                 pools: dict | None = None):
         self.key = _graph_key(params, dev_batch)
         self._keyed = (params, dev_batch)  # alive with the graph, so the key stays theirs
+        self.device = params["curves"].device
+        self._pools = pools
         # Leaves of the graph's own on the parameters' storage: a replay
         # reads the parameters' current values, and no autograd node that
         # another stream made (the gradient accumulator of a graph the
@@ -399,18 +424,23 @@ class StepGraph:
 
         def fwd_bwd():
             loss = loss_fn(leaves, dev_batch)
-            return loss.detach(), torch.autograd.grad(loss, list(leaves.values()))
+            return loss.detach(), torch.autograd.grad(loss, list(leaves.values()), cotangent)
 
         self._fwd_bwd = fwd_bwd
         self.graph = None
         self.launches: dict = {}  # kernel launches recorded by the capture
         self.loss, self.grads = None, None
         if capture:
-            self._capture(params["curves"].device)
+            self._capture(self.device)
 
     def _capture(self, dev: torch.device) -> None:
         from ..ops import sdf_cuda
 
+        pool = None
+        if self._pools is not None:
+            if dev not in self._pools:
+                self._pools[dev] = torch.cuda.graph_pool_handle()
+            pool = self._pools[dev]
         with torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -419,7 +449,8 @@ class StepGraph:
                     self._fwd_bwd()
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with sdf_cuda.capturing() as self.launches, torch.cuda.graph(graph, stream=side):
+            with (sdf_cuda.capturing() as self.launches,
+                  torch.cuda.graph(graph, pool=pool, stream=side)):
                 self.loss, self.grads = self._fwd_bwd()
         self.graph = graph
 
@@ -431,9 +462,85 @@ class StepGraph:
         else:
             from ..ops import sdf_cuda
 
-            self.graph.replay()
+            with torch.cuda.device(self.device):
+                self.graph.replay()
             sdf_cuda.count_replay(self.launches)
         return self.loss, self.grads
+
+
+class ShardedStepGraph:
+    """The forward and backward of one sharded fit step (the JAX
+    package's `_step_k` body over `shard_map`) at fixed ``params`` and
+    ``shards`` tensors: a `StepGraph` a shard, each captured on its own
+    device, of the shard's sum (``loss.shard_sum``) and its gradient
+    under the cotangent ``1/B_real`` that the eager `ShardedLoss` hands
+    each shard. Graphs of shards on one device share a memory pool (they
+    replay one after the other on its current stream).
+
+    A shard's leaves are tensors of its own on its device: shard 0's are
+    ``detach()`` aliases of its parameter rows on the first device, the
+    others' are buffers that `replay` fills with their rows before their
+    graphs run. So one card listed twice runs the copies in and out
+    that two cards do, device-local. `replay` then brings the shards'
+    sums to the first device, adds them in shard order and divides by
+    ``B_real`` (the eager loss's arithmetic), and gathers the gradients
+    there: the rows of ``curves`` and ``translate`` side by side,
+    ``log_gain``'s sum over the shards in the order that autograd adds
+    them in the eager step (the last shard's first: the engine runs the
+    newest nodes first). Every copy is queued on the current streams of
+    both of its devices, so it follows what wrote its source and
+    precedes what reads its destination. Bit-equal to the eager sharded
+    `FontFitter.step`'s loss and gradients."""
+
+    def __init__(self, loss: ShardedLoss, params, shards, capture: bool = True):
+        self.key = _graph_key(params, shards)
+        self._keyed = (params, shards)  # alive with the graph, so the key stays theirs
+        self.home = loss.devices[0]
+        self.B_real = loss.B_real
+        self._own: list = []  # (rows, leaves) of the shards that copy their rows in
+        self.shards: list[StepGraph] = []
+        pools: dict = {}
+        for d, (dev, shard) in enumerate(zip(loss.devices, shards, strict=True)):
+            rows = loss.rows(d, shard)
+            inputs = self._rows_of(rows)
+            if d:
+                inputs = {k: v.to(dev, copy=True) for k, v in inputs.items()}
+                self._own.append((rows, inputs))
+            cot = torch.ones((), dtype=torch.float32, device=dev) / loss.B_real
+            self.shards.append(StepGraph(loss.shard_sum, inputs, shard, capture, cot, pools))
+        self._grads = {k: torch.empty_like(params[k]) for k in ("curves", "translate")}
+
+    def _rows_of(self, rows: slice) -> dict:
+        params = self._keyed[0]
+        return {"curves": params["curves"].detach()[rows],
+                "translate": params["translate"].detach()[rows],
+                "log_gain": params["log_gain"].detach()}
+
+    def replay(self):
+        """(loss, grads in `PARAM_KEYS` order) on the first device at the
+        parameters' current values."""
+        with torch.no_grad():
+            for rows, leaves in self._own:
+                for k, v in self._rows_of(rows).items():
+                    leaves[k].copy_(v)
+        outs = [g.replay() for g in self.shards]
+        home = self.home
+        total = None
+        for part, _ in outs:
+            part = part.to(home)
+            total = part if total is None else total + part
+        loss = total / self.B_real
+        grads = []
+        for i, k in enumerate(PARAM_KEYS):
+            if k == "log_gain":
+                g = None
+                for _, gs in reversed(outs):
+                    gd = gs[i].to(home)
+                    g = gd if g is None else g + gd
+            else:
+                g = torch.cat([gs[i].to(home) for _, gs in outs], out=self._grads[k])
+            grads.append(g)
+        return loss, tuple(grads)
 
 
 class FontFitter:
@@ -489,7 +596,8 @@ class FontFitter:
         self.sharpness = sharpness
         self.backend = backend
         self._loss = None  # built by init()
-        self._graph: StepGraph | None = None  # `step_many`'s, for one (params, batch)
+        # `step_many`'s graph, for one (params, batch)
+        self._graph: StepGraph | ShardedStepGraph | None = None
 
     # -- state ----------------------------------------------------------
 
@@ -573,7 +681,7 @@ class FontFitter:
         else:
             # The JAX package leaves this backend to XLA's auto-sharding.
             depth, sharpness = self.depth, self.sharpness
-            self._loss = _sharded_loss(
+            self._loss = ShardedLoss(
                 devices, B_real, lambda p, s: _pair_losses(p, s, depth, sharpness).sum())
         return batch, shards
 
@@ -597,26 +705,28 @@ class FontFitter:
 
     def step_many(self, params, opt, dev_batch, k: int):
         """``k`` steps; the losses come back to the host once, as a
-        numpy array [k]. On one CUDA device each step replays the CUDA
-        graph of the forward and backward (`StepGraph`, captured at the
-        first call for these tensors) and runs Adam outside it, bit-equal
-        to `step`; on the CPU and over several devices it loops over
+        numpy array [k]. On CUDA devices each step replays the CUDA
+        graph of the forward and backward (`StepGraph` on one device, a
+        `ShardedStepGraph` of one graph a shard over ``devices``,
+        captured at the first call for these tensors) and runs Adam
+        outside it, bit-equal to `step`; on the CPU it loops over
         `step`."""
-        if self.devices is None and self.device.type == "cuda":
+        if self.device.type == "cuda":
             losses = self._graphed_steps(params, opt, dev_batch, k)
         else:
             losses = torch.stack([self.step(params, opt, dev_batch)[2] for _ in range(k)])
         return params, opt, losses.cpu().numpy()
 
-    def _step_graph(self, params, dev_batch) -> StepGraph:
-        """The cached `StepGraph` of these tensors, captured anew (and the
-        old one dropped first) when they are others. `init` drops it;
+    def _step_graph(self, params, dev_batch) -> StepGraph | ShardedStepGraph:
+        """The cached `StepGraph` (or, over ``devices``,
+        `ShardedStepGraph`) of these tensors, captured anew (and the old
+        one dropped first) when they are others. `init` drops it;
         `restore_checkpoint` copies in place and keeps it. On the CPU the
         graph is the decomposition without a capture."""
         if self._graph is None or self._graph.key != _graph_key(params, dev_batch):
             self._graph = None
-            self._graph = StepGraph(self._loss, params, dev_batch,
-                                    capture=self.device.type == "cuda")
+            graph = StepGraph if self.devices is None else ShardedStepGraph
+            self._graph = graph(self._loss, params, dev_batch, capture=self.device.type == "cuda")
         return self._graph
 
     def _graphed_steps(self, params, opt, dev_batch, k: int) -> torch.Tensor:

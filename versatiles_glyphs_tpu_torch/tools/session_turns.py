@@ -168,11 +168,13 @@ def read_tree(root: str) -> dict:
     return out
 
 
-def busy_share(fn) -> dict:
-    """``fn()`` (which returns its seconds) under `torch.profiler`: its
-    seconds, the union of the device events' intervals over them, and
-    the copies' summed times each way (None where no device event was
-    seen, as on the CPU)."""
+def device_events(fn) -> tuple:
+    """(``fn()``'s result, its device events as (name, start µs, end
+    µs)): ``fn`` run under `torch.profiler`, tracing the card where there
+    is one (on the CPU the list is empty). The kernels, copies and sets
+    the card ran; not the user annotations that the profiler puts on the
+    device's timeline (``Optimizer.step#Adam.step`` spans all of
+    Adam's kernels and the gaps between them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -180,19 +182,35 @@ def busy_share(fn) -> dict:
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
-        secs = fn()
-    spans, copy_us = [], {"HtoD": 0.0, "DtoH": 0.0}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        for way in copy_us:
-            if "Memcpy" in e.name and way in e.name:
-                copy_us[way] += e.time_range.end - e.time_range.start
+        got = fn()
+    return got, [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+
+
+def union_us(spans) -> float:
+    """The length of the union of (start, end) intervals: the time in
+    which the device ran at least one event."""
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
+    return busy
+
+
+def busy_share(fn) -> dict:
+    """``fn()`` (which returns its seconds) under `torch.profiler`: its
+    seconds, the union of the device events' intervals over them, and
+    the copies' summed times each way (None where no device event was
+    seen, as on the CPU)."""
+    secs, events = device_events(fn)
+    copy_us = {"HtoD": 0.0, "DtoH": 0.0}
+    for name, a, b in events:
+        for way in copy_us:
+            if "Memcpy" in name and way in name:
+                copy_us[way] += b - a
+    spans = [(a, b) for _, a, b in events]
+    busy = union_us(spans)
     seen = bool(spans)
     return {"seconds_profiled": secs, "device_events": len(spans),
             "device_busy_ms": busy / 1e3 if seen else None,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's atlas render path, its outline-fitting
-path on one device and sharded (both graphed), the renders over the flat
-segment layout, the padded-layout render and fitting loss, the graft
-entry, the two measurement tools and the profiling tool once on one GPU.
+"""Drive the PyTorch/CUDA port's atlas render path, its CLI on font files
+it writes itself, its outline-fitting path on one device and sharded
+(both graphed), the renders over the flat segment layout, the
+padded-layout render and fitting loss, the graft entry, the two
+measurement tools and the profiling tool once on one GPU.
 
     python3 chip_smoke.py
 
@@ -92,6 +93,25 @@ JSON lines:
    budgets of 2^24 to 2^30 pairs (bytes equal at each, CUDA events, peak
    memory); the heavy font's last block against the same renderer on
    the CPU, byte for byte.
+4b. cli   — the port's CLI as a user runs it, on font files the port
+   writes without fontTools (`utils.synth_font.build_ttf_curved`: the
+   text and heavy fonts, and eight text fonts of their own families and
+   seeds). Each command runs as ``python -m versatiles_glyphs_tpu_torch``
+   in an interpreter whose import system refuses fontTools, JAX and the
+   JAX package: ``merge`` of each font (``--renderer auto``, kernel 1 on
+   the i8 wire) against the same CLI's ``--renderer exact`` tree (files
+   equal, integer metrics equal, bitmaps within 1 on at most 5 % of
+   pixels) with ``debug``'s rows of both trees equal (``debug`` runs in
+   this process); ``recurse --tar`` over the eight fonts (eight
+   fontstacks, ``index.json`` and ``font_families.json``; every entry
+   equal to the directory run's file); ``fit --backend flat --render``
+   of the text font's 1,700 glyphs toward the first of the eight
+   fonts' bitmaps (``--target-font``), 20 steps (the loss descends;
+   ``debug`` reads the fitted atlas). Then the same merges and fit in this process through
+   `cli.main`, with the counts reset: seconds a font, first and the
+   median of three warm (kernel 1 twice a text font, its two groups),
+   the host seconds of `make_fit_batch`, seconds a step through the
+   CLI, kernels 2 and 3 counted as in phase 5 (23 in 20 steps).
 5. fit    — a self-fit of the text font's 1,700 glyphs at depth 3 from
    a perturbed start (`utils.synth_font.synth_fit_batch`): 20 Adam steps
    of the ``flat`` backend through `FontFitter.step_many`, which
@@ -150,11 +170,11 @@ JSON lines:
    sharded, eager sharded and padded fit steps under `torch.profiler`
    (device-busy share, device time and events a step).
 
-The slice and the fit enter below the font parser, so that they need no
-fontTools: their outlines are synthesized (the same outlines as a TTF
-through the CLIs are held against the JAX package by the CPU tests).
+Phases 4-8 enter below the font parser with synthesized outlines (the
+same outlines as phase 4b's font files, whose parse the CPU tests hold
+against the JAX package); phase 4b enters through the CLI.
 Then a ``{"kernels": [...]}`` line (the nine kernels, each with its
-launches on its path, its time by CUDA events over back-to-back launches
+launches on its path, kernel 1's in phases 4 and 4b, its time by CUDA events over back-to-back launches
 and replayed from a CUDA graph, its plain version's time and its bound:
 the larger of its f32 operations over 67 TFLOP/s and its bytes over
 3.35 TB/s, counted from this run's inputs by `tools.work`; the ALU roof
@@ -1002,6 +1022,9 @@ def phase_profile() -> None:
     fit = res["fit"]
     emit({"phase": "profile", "seconds": time.perf_counter() - t0,
           "e2e_paired_ratio": res["e2e"]["paired_ratio"],
+          "e2e_file_paired_ratio": res["e2e_file"]["paired_ratio"],
+          "e2e_file_s_a_font": res["e2e_file"]["e2e_s_a_font"],
+          "cpuprof_file_wall_s_a_font": res["cpuprof_file"]["wall_s_a_font"],
           **{f"{k}_{v}": fit[k][v] for k in fit
              for v in ("wall_ms_a_step", "device_busy_share", "device_busy_ms_a_step",
                        "device_busy_ms_over_unprofiled_wall", "device_events_a_step",
@@ -1017,8 +1040,10 @@ def phase_profile() -> None:
     bad = [r["stage"] for r in res["render"] if r["device_ms_median"] is None]
     bad += [k for k, r in fit.items()
             if not r["device_events_a_step"] or r["kernel_launches_a_step"] != want[k]]
-    if not np.isfinite(res["e2e"]["paired_ratio"]).all() or not res["cpuprof"]["top_frames"]:
-        bad.append("e2e/cpuprof")
+    for src in ("", "_file"):
+        if not (np.isfinite(res["e2e" + src]["paired_ratio"]).all()
+                and res["cpuprof" + src]["top_frames"]):
+            bad.append("e2e/cpuprof" + src)
     if bad:
         raise AssertionError(f"tools.profile: nothing or the wrong launches measured for {bad}")
 
@@ -1247,6 +1272,252 @@ def phase_slice(font_list, work) -> int:
         for sub in ("cuda", "cuda_warm", "cuda_prof", "cuda_two", "exact", "torch"):
             shutil.rmtree(os.path.join(work, sub), ignore_errors=True)
     return launches
+
+
+# The `cli` phase's fonts, written by `utils.synth_font.build_ttf_curved`:
+# name -> (glyphs, first codepoint, seed, quads, family); the text and
+# heavy fonts are phase 4's, and `recurse` reads eight text fonts of their
+# own families and seeds.
+CLI_FONTS = {"text": (1700, 32, 0, 8, "Synth Curved"), "heavy": (1150, 0x600, 1, 24, "Synth Curved")}
+CLI_FAMILIES = ("Synth Alpha", "Synth Bravo", "Synth Charlie", "Synth Delta", "Synth Echo",
+                "Synth Foxtrot", "Synth Golf", "Synth Hotel")
+CLI_REFUSED = ("fontTools", "jax", "jaxlib", "versatiles_glyphs_tpu")
+# ``python -m versatiles_glyphs_tpu_torch ARGS`` in an interpreter whose
+# import system refuses CLI_REFUSED: the CLI must read and write fonts,
+# and render and fit, with none of them.
+CLI_WRAPPER = (
+    "import importlib.abc, runpy, sys\n"
+    f"REFUSED = {CLI_REFUSED!r}\n"
+    "class Refuse(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in REFUSED:\n"
+    "            raise ImportError('refused by chip_smoke: ' + name)\n"
+    "sys.meta_path.insert(0, Refuse())\n"
+    "sys.argv[0] = 'versatiles_glyphs_tpu_torch'\n"
+    "runpy.run_module('versatiles_glyphs_tpu_torch', run_name='__main__', alter_sys=True)\n"
+    "loaded = sorted(m for m in sys.modules if m.split('.')[0] in REFUSED)\n"
+    "if loaded:\n"
+    "    raise SystemExit(f'refused modules were loaded: {loaded}')\n"
+)
+
+
+def run_cli(argv, stdout_path=None) -> tuple[float, list]:
+    """Run the port's CLI in a fresh interpreter that refuses
+    `CLI_REFUSED`, its stdout into ``stdout_path`` (or nowhere): (its
+    wall seconds, [(seconds since the start, line)] of its stderr, each
+    line timed as it arrives). Raises on a non-zero exit, and leaves no
+    process behind."""
+    t0 = time.perf_counter()
+    lines = []
+    with open(stdout_path or os.devnull, "wb") as out:
+        proc = subprocess.Popen([sys.executable, "-c", CLI_WRAPPER, *argv], cwd=ROOT,
+                                stdout=out, stderr=subprocess.PIPE)
+        try:
+            for raw in proc.stderr:
+                lines.append((time.perf_counter() - t0, raw.decode(errors="replace").rstrip()))
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if rc != 0:
+        tail = "\n".join(line for _, line in lines[-20:])
+        raise AssertionError(f"cli {argv[0]}: exit {rc}: {tail}")
+    return time.perf_counter() - t0, lines
+
+
+def line_at(lines, prefix: str):
+    """When the first stderr line starting with ``prefix`` arrived."""
+    return next((t for t, line in lines if line.startswith(prefix)), None)
+
+
+def debug_text(stack_dir) -> str:
+    """The port's ``debug`` command's CSV of a rendered fontstack."""
+    import io
+
+    from versatiles_glyphs_tpu_torch import cli
+
+    out = io.StringIO()
+    cli.main(["debug", stack_dir], stdout=out)
+    return out.getvalue()
+
+
+def only_stack(out_dir) -> str:
+    stacks = [n for n in os.listdir(out_dir) if os.path.isdir(os.path.join(out_dir, n))]
+    if len(stacks) != 1:
+        raise AssertionError(f"{out_dir}: fontstacks {stacks}")
+    return stacks[0]
+
+
+def phase_cli(work) -> int:
+    """The port's CLI as a user runs it, on font files the port writes.
+    Returns kernel 1's launches in the in-process merges' first runs."""
+    import io
+    import tarfile
+
+    from versatiles_glyphs_tpu_torch import cli
+    from versatiles_glyphs_tpu_torch.models import fitting
+    from versatiles_glyphs_tpu_torch.ops import sdf_cuda
+    from versatiles_glyphs_tpu_torch.utils.synth_font import build_ttf_curved
+
+    d = os.path.join(work, "cli")
+    many = os.path.join(d, "many")
+    os.makedirs(many)
+    t0 = time.perf_counter()
+    paths = {}
+    for name, (n, first_cp, seed, quads, family) in CLI_FONTS.items():
+        paths[name] = os.path.join(d, f"{name}.ttf")
+        with open(paths[name], "wb") as f:
+            f.write(build_ttf_curved(n, first_cp, seed=seed, quads=quads, family=family))
+    for i, family in enumerate(CLI_FAMILIES):
+        with open(os.path.join(many, f"{i}.ttf"), "wb") as f:
+            f.write(build_ttf_curved(1700, 32, seed=10 + i, quads=8, family=family))
+    emit({"phase": "cli", "step": "write_fonts", "fonts": 2 + len(CLI_FAMILIES),
+          "seconds": time.perf_counter() - t0,
+          "bytes": {k: os.path.getsize(v) for k, v in paths.items()}})
+
+    # merge (--renderer auto: kernel 1 on the i8 wire) against the same
+    # CLI's exact f64 tree, and the debug rows of both.
+    for name, path in paths.items():
+        auto_dir, exact_dir = os.path.join(d, f"{name}_auto"), os.path.join(d, f"{name}_exact")
+        wall, lines = run_cli(["merge", path, "-o", auto_dir])
+        exact_wall, _ = run_cli(["merge", path, "-o", exact_dir, "--renderer", "exact"])
+        stack = only_stack(auto_dir)
+        if sorted(os.listdir(auto_dir)) != sorted(os.listdir(exact_dir)):
+            raise AssertionError(f"cli merge {name}: the trees list other files")
+        for fn in ("index.json", "font_families.json"):
+            with open(os.path.join(auto_dir, fn), "rb") as a, \
+                    open(os.path.join(exact_dir, fn), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"cli merge {name}: {fn} differs")
+        files, n_glyphs, n_pix, n_diff, max_d = compare_trees(stack, auto_dir, exact_dir)
+        frac = n_diff / max(n_pix, 1)
+        if max_d > 1 or frac > 0.05 or n_glyphs != CLI_FONTS[name][0]:
+            raise AssertionError(f"cli merge {name}: {n_glyphs} glyphs, max |Δ| {max_d} "
+                                 f"on {frac:.4%} of pixels")
+        rows, rows_exact = debug_text(os.path.join(auto_dir, stack)), debug_text(
+            os.path.join(exact_dir, stack))
+        if rows != rows_exact or len(rows.splitlines()) != n_glyphs + 1:
+            raise AssertionError(f"cli debug {name}: the rows of the two trees differ")
+        emit({"phase": "cli", "step": "merge", "font": name, "stack": stack, "blocks": files,
+              "glyphs": n_glyphs, "process_wall_s": wall, "exact_process_wall_s": exact_wall,
+              # The interpreter's start, its imports and the font's parse.
+              "seconds_to_rendering": line_at(lines, "Rendering glyphs"), "pixels": n_pix, "pixels_off_by_1": n_diff,
+              "frac_off": frac, "max_abs_diff": max_d, "debug_rows_equal": True})
+
+    # recurse over eight fonts: a tar stream, and a directory to hold it against.
+    tar_path, rdir = os.path.join(d, "many.tar"), os.path.join(d, "many_dir")
+    tar_wall, _ = run_cli(["recurse", many, "--tar"], stdout_path=tar_path)
+    dir_wall, _ = run_cli(["recurse", many, "-o", rdir])
+    stacks = sorted(f.lower().replace(" ", "_") + "_regular" for f in CLI_FAMILIES)
+    with tarfile.open(tar_path) as tar:
+        members = {m.name: tar.extractfile(m).read() for m in tar.getmembers() if m.isfile()}
+    top = sorted({m.split("/")[0] for m in members})
+    if top != sorted(stacks + ["font_families.json", "index.json"]):
+        raise AssertionError(f"cli recurse --tar: entries {top}")
+    pbfs = [m for m in members if m.endswith(".pbf")]
+    for m in members:
+        with open(os.path.join(rdir, m), "rb") as f:
+            if f.read() != members[m]:
+                raise AssertionError(f"cli recurse: {m} differs between the tar and the tree")
+    if sorted(pbfs) != sorted(os.path.join(s, fn) for s in stacks
+                              for fn in os.listdir(os.path.join(rdir, s))):
+        raise AssertionError("cli recurse: the tar and the tree hold other PBFs")
+    emit({"phase": "cli", "step": "recurse_tar", "fonts": len(CLI_FAMILIES),
+          "fontstacks": len(stacks), "pbfs": len(pbfs), "tar_bytes": os.path.getsize(tar_path),
+          "process_wall_s": tar_wall, "dir_process_wall_s": dir_wall,
+          "pbfs_equal_to_tree": True})
+
+    # fit of every glyph of the text font toward another font's bitmaps
+    # (`--target-font`: a self-fit starts at its own optimum, where
+    # Adam's first steps raise the loss), flat backend, with --render.
+    n_text, cp0 = CLI_FONTS["text"][:2]
+    fit_args = ["fit", paths["text"], "--target-font", os.path.join(many, "0.ttf"),
+                "--backend", "flat", "--codepoints", f"{cp0}-{cp0 + n_text - 1}",
+                "--steps", str(FIT_STEPS), "--render"]
+    fit_dir = os.path.join(d, "fit")
+    fit_wall, fit_lines = run_cli(fit_args + ["-o", fit_dir])
+    with open(os.path.join(fit_dir, "history.json")) as f:
+        losses = [h["loss"] for h in json.load(f)]
+    if len(losses) != FIT_STEPS or not np.isfinite(losses).all() or not min(losses[1:]) < losses[0]:
+        raise AssertionError(f"cli fit: losses {losses}")
+    gdir = os.path.join(fit_dir, "glyphs")
+    fit_rows = debug_text(os.path.join(gdir, only_stack(gdir)))
+    fitted = int(np.load(os.path.join(fit_dir, "fitted.npz"))["codepoints"].shape[0])
+    if len(fit_rows.splitlines()) != fitted + 1 or fitted != n_text:
+        raise AssertionError(f"cli fit: {len(fit_rows.splitlines()) - 1} debug rows, "
+                             f"{fitted} fitted glyphs")
+    emit({"phase": "cli", "step": "fit", "glyphs": fitted, "steps": FIT_STEPS,
+          "loss_first": losses[0], "loss_min": min(losses), "loss_last": losses[-1],
+          "process_wall_s": fit_wall, "debug_rows": fitted,
+          # Where the process's wall goes, by the arrival of its status lines.
+          "seconds_to_batch_made": line_at(fit_lines, "Fitting"),
+          "seconds_to_step_0": line_at(fit_lines, "step 0:"),
+          "seconds_to_last_step": line_at(fit_lines, f"step {FIT_STEPS - 1}:"),
+          "seconds_to_written": line_at(fit_lines, "Wrote fitted"),
+          "seconds_to_rendered": line_at(fit_lines, "Rendered")})
+
+    # The same merges and fit in this process, timed, with the counts reset.
+    first_launches = 0
+    for name, path in paths.items():
+        out = os.path.join(d, f"{name}_in_process")
+        secs, counts = [], []
+        for _ in range(4):
+            sdf_cuda.reset_launches()
+            t0 = time.perf_counter()
+            cli.main(["merge", path, "-o", out], stdout=io.BytesIO())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts.append(sdf_cuda.LAUNCHES["sdf_tiles_pts"])
+        if compare_bytes(CLI_FONTS[name][4].lower().replace(" ", "_") + "_regular", out,
+                         os.path.join(d, f"{name}_auto")):
+            raise AssertionError(f"cli merge {name}: in-process tree differs from the subprocess's")
+        if (name == "text" and counts != [2] * 4) or min(counts) < 1 or len(set(counts)) != 1:
+            raise AssertionError(f"cli merge {name}: kernel 1 launches {counts}")
+        first_launches += counts[0]
+        emit({"phase": "cli", "step": "merge_in_process", "font": name,
+              "glyphs": CLI_FONTS[name][0], "seconds_first": secs[0],
+              "seconds_warm": statistics.median(secs[1:]), "seconds_each": secs,
+              "launches_sdf_tiles_pts": counts})
+
+    host_s, step_s = [], []
+    real_batch, real_many = fitting.make_fit_batch, fitting.FontFitter.step_many
+
+    def batch_timed(*a, **kw):
+        t0 = time.perf_counter()
+        got = real_batch(*a, **kw)
+        host_s.append(time.perf_counter() - t0)
+        return got
+
+    def steps_timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        got = real_many(self, *a, **kw)
+        torch.cuda.synchronize()
+        step_s.append((time.perf_counter() - t0) / (a[3] if len(a) > 3 else kw["k"]))
+        return got
+
+    fitting.make_fit_batch, fitting.FontFitter.step_many = batch_timed, steps_timed
+    try:
+        sdf_cuda.reset_launches()
+        t0 = time.perf_counter()
+        cli.main(fit_args + ["-o", os.path.join(d, "fit_in_process")], stdout=io.StringIO())
+        fit_s = time.perf_counter() - t0
+    finally:
+        fitting.make_fit_batch, fitting.FontFitter.step_many = real_batch, real_many
+    launches = dict(sdf_cuda.LAUNCHES)
+    # Phase 5's count: 3 warm-up runs before the graph's capture, then
+    # one launch a replay; the fitted atlas launches kernel 1.
+    want = FIT_STEPS + 3
+    if not (launches["sdf_min_field_pts"] == launches["sdf_min_field_bwd"] == want
+            and launches["sdf_tiles_pts"] >= 1):
+        raise AssertionError(f"cli fit: launches {launches}")
+    emit({"phase": "cli", "step": "fit_in_process", "glyphs": n_text, "seconds": fit_s,
+          "make_fit_batch_host_s": host_s, "step_calls": len(step_s),
+          "step_ms_first": 1e3 * step_s[0],
+          "step_ms_warm": 1e3 * statistics.median(step_s[len(step_s) // 2:]),
+          "step_ms_each": [1e3 * x for x in step_s],
+          "launches": {k: v for k, v in launches.items() if v}})
+    return first_launches
 
 
 def phase_flat_renders(font_list) -> dict:
@@ -1921,6 +2192,7 @@ def main() -> None:
         launches = timed("slice", phase_slice, font_list, work)
         flat_launches = timed("flat_renders", phase_flat_renders, font_list)
         timed("padded_render", phase_padded_render, font_list, work)
+        launches += timed("cli", phase_cli, work)
         fit_launches = timed("fit", phase_fit, batch, work)
         pad_launches = timed("padded_fit", phase_padded_fit, batch)
         sharded_launches = timed("sharded_fit", phase_sharded_fit, batch, work)

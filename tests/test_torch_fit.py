@@ -23,11 +23,12 @@ import numpy as np
 import pytest
 import torch
 
-from versatiles_glyphs_tpu.font.entry import FontFileEntry
+from versatiles_glyphs_tpu.font.entry import FontFileEntry as JaxEntry
 from versatiles_glyphs_tpu.models import fitting as jfit
 from versatiles_glyphs_tpu.models import glyph_model as jgm
 from versatiles_glyphs_tpu.render.driver import Renderer as JaxRenderer
 from versatiles_glyphs_tpu_torch.cli import main as torch_main
+from versatiles_glyphs_tpu_torch.font.entry import FontFileEntry
 from versatiles_glyphs_tpu_torch.models import fitting, glyph_model
 from versatiles_glyphs_tpu_torch.models.render_fitted import render_fitted_pbfs
 from versatiles_glyphs_tpu_torch.render.driver import Renderer
@@ -329,9 +330,9 @@ def test_fitter_rejects_bad_config(monkeypatch):
 def test_synth_fit_batch_equals_make_fit_batch():
     """The fontTools-free batch equals the one built from the same
     outlines as a TTF, array for array, and so does the JAX package's."""
-    entry = FontFileEntry(build_ttf_curved(**FONT))
-    want = fitting.make_fit_batch(entry, range(65, 69), depth=DEPTH)
-    jax_batch = jfit.make_fit_batch(entry, list(range(65, 69)), depth=DEPTH)
+    data = build_ttf_curved(**FONT)
+    want = fitting.make_fit_batch(FontFileEntry(data), range(65, 69), depth=DEPTH)
+    jax_batch = jfit.make_fit_batch(JaxEntry(data), list(range(65, 69)), depth=DEPTH)
     got = synth_fit_batch(**FONT, depth=DEPTH)
     for f in ("curves0", "curve_mask", "px", "py", "pix_mask", "target", "meta", "codepoints"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
@@ -346,10 +347,12 @@ def test_synth_entry_matches_font_entry():
     synth = SynthEntry(**FONT)
     assert synth.units_per_em == entry.units_per_em
     for cp in range(60, 72):
-        name = entry.glyph_name(cp)
-        assert synth.glyph_name(cp) == name
-        if name is not None:
-            assert synth.hor_advance(name) == entry.hor_advance(name)
+        key = entry.glyph_key(cp)
+        assert synth.glyph_key(cp) == key
+        if key is not None:
+            assert synth.hor_advance(key) == entry.hor_advance(key)
+            for x, y in zip(synth.outline_rings(key), entry.outline_rings(key), strict=True):
+                np.testing.assert_array_equal(x, y)
     a, b = entry.metadata, synth.metadata
     assert (a.family, a.style, a.weight, a.width, list(a.codepoints), a.generate_name()) == (
         b.family, b.style, b.weight, b.width, b.codepoints, b.generate_name())

@@ -117,7 +117,7 @@ def test_curved_ttf_preps_equal_synth_preps():
     """`chip_smoke.py` renders `curved_preps` below the font parser; the
     same outlines as a TTF, parsed by the CLI's path, give the same
     preps (metrics and the wire's point chain)."""
-    from versatiles_glyphs_tpu.font.entry import FontFileEntry
+    from versatiles_glyphs_tpu_torch.font.entry import FontFileEntry
 
     entry = FontFileEntry(build_ttf_curved(40, 32, seed=9))
     parsed = Renderer("torch").prep_block([(32 + k, entry) for k in range(40)])

@@ -119,6 +119,22 @@ def test_e2e_and_cpuprof_on_the_cpu(tiny):
     assert 0 < len(prof["top_frames"]) <= profile.TOP_FRAMES
 
 
+def test_e2e_and_cpuprof_of_files_on_the_cpu(tiny):
+    """The same over two written TTF files read by `FontFileEntry` in
+    each run (its native prep cores): the same preps, far less prep time
+    than the per-glyph path, cProfile's frames of the run."""
+    rec = profile.e2e(tiny, 2, 1, "torch", "file")
+    assert rec["source"] == "file" and rec["glyphs_a_font"] == rec["preps_a_font"] == 20
+    assert len(rec["paired_ratio"]) == 1 and rec["paired_ratio"][0] > 0
+    assert "prep cores" in rec["prep"]
+    entries = profile.entry_maker(tiny, 2, "file")()
+    assert len(entries) == 2 and entries[0] is not entries[1]
+    assert entries[0].prep_cores is not None
+    prof = profile.cpuprof(tiny, 2, "torch", "file")
+    assert prof["source"] == "file" and prof["wall_s_a_font"] > 0
+    assert 0 < len(prof["top_frames"]) <= profile.TOP_FRAMES
+
+
 def test_profile_raises_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     sdf_cuda.reset_launches()

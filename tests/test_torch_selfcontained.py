@@ -1,11 +1,13 @@
-"""The port stands alone: it imports nothing of the JAX package.
+"""The port stands alone: it imports nothing of the JAX package, and
+it reads fonts without fontTools.
 
 (a) No ``.py`` of `versatiles_glyphs_tpu_torch`, and neither
 ``chip_smoke.py`` nor ``__graft_entry_torch__.py``, holds an import of `versatiles_glyphs_tpu` or of `jax` (an ``ast`` walk,
-so imports inside functions count and comments do not).
+so imports inside functions count and comments do not), and none
+imports fontTools outside a function body: no module loads it.
 
 (b) In a fresh interpreter whose import system refuses
-`versatiles_glyphs_tpu`, `jax` and `jaxlib`, the port's ``merge``
+`versatiles_glyphs_tpu`, `jax`, `jaxlib` and `fontTools`, the port's ``merge``
 (``--renderer torch``, and ``--renderer padded --device cpu``) and
 ``fit --device cpu --render`` on a synthesized TTF write the trees they
 write with nothing refused; the ``torch`` ``merge`` tree is also the
@@ -28,7 +30,10 @@ from versatiles_glyphs_tpu_torch.utils.synth_font import build_ttf_curved
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "versatiles_glyphs_tpu_torch")
-REFUSED = ("versatiles_glyphs_tpu", "jax", "jaxlib")
+NEVER = ("versatiles_glyphs_tpu", "jax", "jaxlib")
+# What (b)'s interpreter refuses: fontTools too, which the port imports
+# only for the fonts its own readers do not cover.
+REFUSED = NEVER + ("fontTools",)
 
 
 def _port_files():
@@ -66,7 +71,7 @@ def test_the_walk_sees_the_port():
     assert any(mod == "versatiles_glyphs_tpu.cli" for _, mod in found)
 
 
-@pytest.mark.parametrize("refused", REFUSED)
+@pytest.mark.parametrize("refused", NEVER)
 def test_no_file_of_the_port_imports(refused):
     bad = [
         f"{os.path.relpath(path, ROOT)}:{line}: {mod}"
@@ -91,9 +96,43 @@ def test_no_module_name_in_importlib_calls():
             name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
             arg = node.args[0]
             if name in ("import_module", "__import__") and isinstance(arg, ast.Constant) \
-                    and str(arg.value).split(".")[0] in REFUSED:
+                    and str(arg.value).split(".")[0] in NEVER:
                 bad.append(f"{os.path.relpath(path, ROOT)}:{node.lineno}")
     assert not bad, bad
+
+
+def _module_level_imports(path):
+    """(line, module) of the imports of a file that run when it loads:
+    those outside every function body."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    out = []
+
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                out.extend((child.lineno, a.name) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                out.append((child.lineno, child.module or ""))
+            walk(child)
+
+    walk(tree)
+    return out
+
+
+def test_no_module_of_the_port_loads_fonttools():
+    """fontTools is imported inside functions only (the fallback of
+    `font.entry`, `font.pens`, the x-mac codecs of `font.sfnt`), and the
+    walk sees the function-level ones."""
+    bad = [f"{os.path.relpath(path, ROOT)}:{line}: {mod}"
+           for path in _port_files() for line, mod in _module_level_imports(path)
+           if mod.split(".")[0] == "fontTools"]
+    assert not bad, bad
+    pens = os.path.join(PORT, "font", "pens.py")
+    assert any(mod.startswith("fontTools") for _, mod in _imports(pens))
+    assert not any(mod.startswith("fontTools") for _, mod in _module_level_imports(pens))
 
 
 def _tree(root):

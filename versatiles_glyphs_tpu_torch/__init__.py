@@ -4,8 +4,9 @@ paths on PyTorch and CUDA.
 A port of `versatiles_glyphs_tpu` (JAX/Pallas on a TPU) to PyTorch with
 hand-written CUDA kernels for NVIDIA Hopper (``sm_90a``). The JAX
 package stays the reference every module here is held against. This
-package imports `torch` and never `jax`; the fit path below the CLI
-also imports no optax, orbax or fontTools.
+package imports `torch` and never `jax`, and no optax or orbax; it
+reads fonts without fontTools (`font.sfnt` and the native parsers),
+which it imports only for the few fonts they do not cover.
 
 The package stands alone: it imports nothing of `versatiles_glyphs_tpu`.
 The host modules that are free of JAX there (f64 metrics and q16 chains,
@@ -30,8 +31,10 @@ Layers, from the entry points down to the device:
 - ``parallel.mesh``         — the local devices a batch is dealt over,
                               and the processes of a run
                               (`torch.distributed`) with their partition
-- ``font.{entry,wrapper,block,names,index_files}`` — the font parser
-                              (fontTools), font stacks, 256-codepoint
+- ``font.{sfnt,entry,pens,wrapper,block,names,index_files}`` — the
+                              font parser (sfnt directory, name table;
+                              fontTools pens only for its fallback),
+                              font stacks, 256-codepoint
                               blocks, names and the index files
 - ``models.fitting``        — `FontFitter` (`torch.optim.Adam`, torch
                               checkpoints), the flat plan, the Bernstein

@@ -391,7 +391,9 @@ struct GlyfCtx {
 // Parse one glyph (recursing through composites). `stack`/`depth` hold
 // the enclosing component transforms, outermost first. Returns false on
 // malformed/unsupported data (caller falls back to the Python pen).
-bool parse_glyph(const GlyfCtx& ctx, uint32_t gid, RingSink& sink,
+// `Sink` is RingSink (flattened rings) or SegSink (the segments).
+template <class Sink>
+bool parse_glyph(const GlyfCtx& ctx, uint32_t gid, Sink& sink,
                  const Affine* stack, int depth) {
   if (gid >= static_cast<uint32_t>(ctx.n_glyphs) || depth > 8) return false;
   uint32_t off = ctx.loca[gid], end = ctx.loca[gid + 1];
@@ -866,10 +868,11 @@ inline long subr_bias(long count) {
   return count < 1240 ? 107 : (count < 33900 ? 1131 : 32768);
 }
 
+template <class Sink>
 struct T2Ctx {
   const CffIndexView* gsubrs;
   const CffIndexView* lsubrs;
-  CubicSink* sink;
+  Sink* sink;
   double x = 0.0, y = 0.0;
   double stack[48];
   int sp = 0;
@@ -885,7 +888,8 @@ struct T2Ctx {
 
 // Interpret one Type 2 charstring (recursively through subrs). Returns
 // false on malformed/unsupported content. Sets *ended on endchar.
-bool run_t2(T2Ctx& c, const uint8_t* p, const uint8_t* pe, int depth,
+template <class Sink>
+bool run_t2(T2Ctx<Sink>& c, const uint8_t* p, const uint8_t* pe, int depth,
             bool* ended) {
   if (depth > 10) return false;
   while (p < pe) {
@@ -1336,7 +1340,7 @@ long vg_cff_rings(const uint8_t* cff, long cff_len, const uint32_t* gids,
       sink.ring_lens.clear();
       sink.cur.clear();
       sink.bad = false;
-      T2Ctx ctx;
+      T2Ctx<CubicSink> ctx;
       ctx.gsubrs = &font.gsubrs;
       if (font.is_cid) {
         int fd = font.fd_of(gids[i]);
@@ -1627,7 +1631,10 @@ bool parse_cmap_subtable(const uint8_t* p, long len, CmapUnion* u) {
     }
     return true;
   }
-  return false;  // formats 2/8/10/13/14: fontTools fallback
+  // Format 14 (variation sequences) maps no codepoint: fontTools keeps
+  // an empty cmap for it, ttf-parser's glyph_index never reads it.
+  if (format == 14) return true;
+  return false;  // formats 2/8/10/13: fontTools fallback
 }
 
 }  // namespace
@@ -1680,6 +1687,156 @@ long vg_hmtx_advances(const uint8_t* hmtx, long hmtx_len, long num_hmetrics,
     out_adv[g] = last;
   }
   return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Outline segments for the fit path: vg_glyf_curves / vg_cff_curves.
+//
+// The same glyf and Type 2 walks as the ring parsers (parse_glyph,
+// run_t2), into a sink that records each segment instead of flattening
+// it, in the order and with the f64 points (component transforms
+// applied, implied on-curve points computed after them) that a
+// fontTools pen receives: one record a moveTo, lineTo, quadratic,
+// cubic and closePath. A record holds its kind and 8 doubles: the
+// current point before it, then the segment's points (a line and a
+// move repeat their end point; a quadratic its control point), and
+// for a close the contour's start as its end. The caller builds the
+// cubic soup from them (font/entry.py, the rules of fontTools-based
+// CurvePen). A CFF glyph is closed at endchar only, as fontTools'
+// T2OutlineExtractor closes it.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+enum SegKind : int8_t { kMove = 0, kLine = 1, kQuad = 2, kCubic = 3, kClose = 4 };
+
+struct SegSink {
+  std::vector<int8_t> kinds;
+  std::vector<double> pts;  // 8 a record
+  double sx = 0.0, sy = 0.0, cx = 0.0, cy = 0.0;
+  bool open = false;
+  bool bad = false;  // a drawing op with no open contour
+
+  void rec(int8_t k, double ax, double ay, double bx, double by, double ex,
+           double ey) {
+    kinds.push_back(k);
+    const double r[8] = {cx, cy, ax, ay, bx, by, ex, ey};
+    pts.insert(pts.end(), r, r + 8);
+    cx = ex;
+    cy = ey;
+  }
+  void move_to(double x, double y) {
+    close_path();
+    sx = cx = x;
+    sy = cy = y;
+    rec(kMove, x, y, x, y, x, y);
+    open = true;
+  }
+  void line_to(double x, double y) {
+    if (!open) {
+      bad = true;
+      return;
+    }
+    rec(kLine, x, y, x, y, x, y);
+  }
+  void quad_to(double qx, double qy, double x, double y) {
+    if (!open) {
+      bad = true;
+      return;
+    }
+    rec(kQuad, qx, qy, qx, qy, x, y);
+  }
+  void cubic_to(double c1x, double c1y, double c2x, double c2y, double x,
+                double y) {
+    if (!open) {
+      bad = true;
+      return;
+    }
+    rec(kCubic, c1x, c1y, c2x, c2y, x, y);
+  }
+  void close_path() {
+    if (!open) return;
+    rec(kClose, sx, sy, sx, sy, sx, sy);
+    open = false;
+  }
+};
+
+// Concatenates per-glyph records in glyph order into the caller's
+// buffers; glyph_nrecs[i] = records of glyph i, -1 where it failed.
+// Returns 0, or 1 when a capacity was exceeded (out_count holds the
+// total needed).
+long gather_segs(const std::vector<SegSink>& outs,
+                 const std::vector<uint8_t>& ok, int8_t* kinds, double* pts,
+                 long cap, int32_t* glyph_nrecs, int64_t* out_count) {
+  long n = 0;
+  bool overflow = false;
+  for (size_t i = 0; i < outs.size(); ++i) {
+    if (!ok[i]) {
+      glyph_nrecs[i] = -1;
+      continue;
+    }
+    long m = static_cast<long>(outs[i].kinds.size());
+    if (!overflow && n + m <= cap) {
+      std::memcpy(kinds + n, outs[i].kinds.data(), m);
+      std::memcpy(pts + 8 * n, outs[i].pts.data(), 8 * m * sizeof(double));
+    } else {
+      overflow = true;
+    }
+    glyph_nrecs[i] = static_cast<int32_t>(m);
+    n += m;
+  }
+  *out_count = n;
+  return overflow ? 1 : 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+long vg_glyf_curves(const uint8_t* glyf, long glyf_len, const uint32_t* loca,
+                    long n_glyphs, const uint32_t* gids, long n_gids,
+                    int8_t* kinds, double* pts, long cap,
+                    int32_t* glyph_nrecs, int64_t* out_count) {
+  GlyfCtx ctx{glyf, glyf_len, loca, n_glyphs};
+  std::vector<SegSink> outs(n_gids);
+  std::vector<uint8_t> ok(n_gids, 0);
+  for (long i = 0; i < n_gids; ++i) {
+    SegSink& sink = outs[i];
+    if (!parse_glyph(ctx, gids[i], sink, nullptr, 0) || sink.bad) continue;
+    sink.close_path();
+    ok[i] = 1;
+  }
+  return gather_segs(outs, ok, kinds, pts, cap, glyph_nrecs, out_count);
+}
+
+long vg_cff_curves(const uint8_t* cff, long cff_len, const uint32_t* gids,
+                   long n_gids, int8_t* kinds, double* pts, long cap,
+                   int32_t* glyph_nrecs, int64_t* out_count) {
+  CffFont font;
+  bool font_ok = parse_cff_font(cff, cff_len, &font);
+  std::vector<SegSink> outs(n_gids);
+  std::vector<uint8_t> ok(n_gids, 0);
+  for (long i = 0; i < n_gids && font_ok; ++i) {
+    CffSlice cs = font.charstrings.get(gids[i]);
+    if (cs.p == nullptr) continue;
+    T2Ctx<SegSink> ctx;
+    ctx.gsubrs = &font.gsubrs;
+    if (font.is_cid) {
+      int fd = font.fd_of(gids[i]);
+      if (fd < 0 || fd >= (int)font.fd_lsubrs.size()) continue;
+      ctx.lsubrs = font.fd_has[fd] ? &font.fd_lsubrs[fd] : nullptr;
+    } else {
+      ctx.lsubrs = font.has_lsubrs ? &font.lsubrs : nullptr;
+    }
+    ctx.sink = &outs[i];
+    bool ended = false;
+    if (!run_t2(ctx, cs.p, cs.p + cs.len, 0, &ended) || outs[i].bad) continue;
+    if (ended) outs[i].close_path();
+    ok[i] = 1;
+  }
+  return gather_segs(outs, ok, kinds, pts, cap, glyph_nrecs, out_count);
 }
 
 }  // extern "C"

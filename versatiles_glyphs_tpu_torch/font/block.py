@@ -15,7 +15,7 @@ from typing import TYPE_CHECKING
 from ..constants import GLYPH_BLOCK_SIZE
 from ..proto.pbf import encode_glyphs
 
-if TYPE_CHECKING:  # the parser needs fontTools; a block only holds entries
+if TYPE_CHECKING:  # a block only holds entries
     from .entry import FontFileEntry
 
 

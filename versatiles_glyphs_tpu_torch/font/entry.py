@@ -1,16 +1,30 @@
-"""Font file ingestion: parsing, metadata, and outline extraction.
+"""Font file ingestion: metadata, coverage, advances and outlines.
 
 Host-side equivalent of the reference's `FontFileEntry` + `FontMetadata`
-(`reference/src/font/file_entry.rs`, `src/font/metadata.rs`),
-built on fontTools instead of ttf-parser. The Rust pinned
-self-referential struct idiom is irrelevant here; we simply keep the
-parsed ``TTFont`` plus derived lookup tables.
+(`reference/src/font/file_entry.rs`, `src/font/metadata.rs`), read
+without fontTools: the sfnt directory, ``head`` and ``name`` by
+`font.sfnt`; the cmap union, hmtx advances and the glyf/CFF outlines by
+the native parsers (`proto.native`, ``csrc/vg_native.cpp``), which walk
+outlines with fontTools' pen semantics bit for bit: flattened rings for
+the render (one batch a font, into `render.metrics.build_cores`) and
+the segments from which `curve_soup` builds the fit path's cubics.
+Glyphs are keyed by glyph id: `glyph_key` gives a codepoint's, and
+`hor_advance`, `outline_rings`, `outline_curves` and `prep_cores` take it.
 
-Outlines are extracted with a fontTools pen driving
-`ops.flatten.RingAccumulator`; fontTools' BasePen decomposes TrueType
-qCurveTo runs into single quadratics with implied on-curve midpoints —
-the same decomposition ttf-parser performs — and the glyph set resolves
-composite glyphs with their component transforms.
+fontTools is needed, and imported where it is used, only for what the
+native parsers do not cover:
+
+- a unicode cmap subtable of a format other than 0, 4, 6, 12 and 14:
+  the codepoints, glyph ids and advances then come from fontTools'
+  ``TTFont`` (the same union as the JAX package's fallback);
+- outlines in no 'glyf' and no 'CFF ' table (CFF2), and a glyph the
+  native walkers reject (seac accents, point-matched components, CFF
+  arithmetic operators): those outlines are drawn with its pens
+  (`font.pens`).
+
+Where fontTools is not importable such a font raises ValueError naming
+the font and the table: for the cmap and the outline table when the
+entry is made, for a rejected glyph when its outline is first read.
 """
 
 from __future__ import annotations
@@ -18,86 +32,57 @@ from __future__ import annotations
 import io
 from functools import cached_property
 
-from fontTools.pens.basePen import BasePen
-from fontTools.ttLib import TTFont
+import numpy as np
 
-from ..ops.flatten import RingAccumulator
+from ..constants import FLATTEN_TOLERANCE_SQ
+from ..proto import native
 from .names import generate_name, parse_font_name
+from .sfnt import Sfnt
+
+# Unicode cmap subtable formats the native union reads (14, variation
+# sequences, maps no codepoint in fontTools' union either).
+NATIVE_CMAP_FORMATS = (0, 4, 6, 12, 14)
+# Segment kinds of `proto.native.glyf_curves` / `cff_curves`.
+MOVE, LINE, QUAD, CUBIC, CLOSE = range(5)
 
 
-class RingPen(BasePen):
-    """fontTools pen → RingAccumulator adapter."""
-
-    def __init__(self, glyph_set, acc: RingAccumulator):
-        super().__init__(glyph_set)
-        self.acc = acc
-
-    def _moveTo(self, pt):
-        self.acc.move_to(pt[0], pt[1])
-
-    def _lineTo(self, pt):
-        self.acc.line_to(pt[0], pt[1])
-
-    def _qCurveToOne(self, c, e):
-        self.acc.quad_to(c[0], c[1], e[0], e[1])
-
-    def _curveToOne(self, c1, c2, e):
-        self.acc.cubic_to(c1[0], c1[1], c2[0], c2[1], e[0], e[1])
-
-    def _closePath(self):
-        self.acc.close_path()
-
-    def _endPath(self):
-        # Open contours don't occur in glyph outlines; treat like close
-        # (the accumulator closes the ring geometrically anyway).
-        self.acc.close_path()
+def curve_soup(kinds: np.ndarray, pts: np.ndarray):
+    """The cubic soup of native segment records (kinds [M], pts [M, 4, 2]:
+    the current point, then the segment's points): (curves [M, 4, 2],
+    keep [M] bool), the rules of `font.pens` CurvePen with its operation
+    order. A line becomes a cubic with control points at the thirds, a
+    quadratic is degree-elevated by 2/3, a cubic stays, and a close whose
+    current point is not the contour's start becomes a closing line."""
+    s, a, e = pts[:, 0], pts[:, 1], pts[:, 3]
+    line = (kinds == LINE) | ((kinds == CLOSE) & np.any(s != e, axis=1))
+    quad = kinds == QUAD
+    out = pts.copy()
+    sl, el = s[line], e[line]
+    out[line, 1] = sl + (el - sl) / 3.0
+    out[line, 2] = sl + 2.0 * (el - sl) / 3.0
+    sq, cq, eq = s[quad], a[quad], e[quad]
+    out[quad, 1] = sq + 2.0 / 3.0 * (cq - sq)
+    out[quad, 2] = eq + 2.0 / 3.0 * (cq - eq)
+    return out, line | quad | (kinds == CUBIC)
 
 
-class CurvePen(BasePen):
-    """Collects a glyph's outline as a cubic-curve soup [C, 4, 2]
-    (float64, font units) for the differentiable model path
-    (`models/glyph_model.py`): lines become cubics with collinear
-    control points, quadratics are degree-elevated exactly, and every
-    contour is closed with a line back to its start — so chord-
-    flattening the curves reproduces the closed rings the SDF needs."""
-
-    def __init__(self, glyph_set):
-        super().__init__(glyph_set)
-        self.curves: list = []
-        self._start = None
-
-    def _line_cubic(self, s, e):
-        sx, sy = s
-        ex, ey = e
-        c1 = (sx + (ex - sx) / 3.0, sy + (ey - sy) / 3.0)
-        c2 = (sx + 2.0 * (ex - sx) / 3.0, sy + 2.0 * (ey - sy) / 3.0)
-        self.curves.append((s, c1, c2, e))
-
-    def _moveTo(self, pt):
-        self._start = pt
-
-    def _lineTo(self, pt):
-        self._line_cubic(self._getCurrentPoint(), pt)
-
-    def _qCurveToOne(self, c, e):
-        s = self._getCurrentPoint()
-        sx, sy = s
-        cx, cy = c
-        ex, ey = e
-        c1 = (sx + 2.0 / 3.0 * (cx - sx), sy + 2.0 / 3.0 * (cy - sy))
-        c2 = (ex + 2.0 / 3.0 * (cx - ex), ey + 2.0 / 3.0 * (cy - ey))
-        self.curves.append((s, c1, c2, e))
-
-    def _curveToOne(self, c1, c2, e):
-        self.curves.append((self._getCurrentPoint(), c1, c2, e))
-
-    def _closePath(self):
-        cur = self._getCurrentPoint()
-        if self._start is not None and cur is not None and cur != self._start:
-            self._line_cubic(cur, self._start)
-
-    def _endPath(self):
-        self._closePath()
+def _cmap_why(cmap: bytes) -> str:
+    """Which part of a cmap table the native union rejected."""
+    if len(cmap) >= 4:
+        n = int.from_bytes(cmap[2:4], "big")
+        for t in range(n):
+            rec = cmap[4 + 8 * t: 12 + 8 * t]
+            if len(rec) < 8:
+                break
+            plat, enc = int.from_bytes(rec[:2], "big"), int.from_bytes(rec[2:4], "big")
+            off = int.from_bytes(rec[4:], "big")
+            if not (plat == 0 or (plat == 3 and enc in (0, 1, 10))):
+                continue
+            fmt = cmap[off:off + 2]
+            if len(fmt) == 2 and int.from_bytes(fmt, "big") not in NATIVE_CMAP_FORMATS:
+                return (f"its 'cmap' subtable ({plat}, {enc}) of format "
+                        f"{int.from_bytes(fmt, 'big')}")
+    return "its malformed 'cmap' table"
 
 
 class FontMetadata:
@@ -105,29 +90,10 @@ class FontMetadata:
     coverage (union of all unicode cmap subtables, mapped codepoints
     only — `src/font/metadata.rs:103-118`)."""
 
-    def __init__(self, font: TTFont, codepoints: list[int] | None = None):
-        name_table = font["name"]
-        raw_family = name_table.getDebugName(1) or ""
-        ps_name = name_table.getDebugName(6) or ""
-        self.name = raw_family
-        self.family, self.style, self.weight, self.width = parse_font_name(
-            raw_family, ps_name
-        )
-
-        if codepoints is not None:
-            # Pre-computed coverage (the native cmap parser,
-            # `FontFileEntry._native_index`) — skips the fontTools cmap
-            # decompile on the ingest hot path.
-            self.codepoints = codepoints
-            return
-        cmap_table = font.get("cmap")
-        if cmap_table is None:
-            raise ValueError("Font has no cmap table")
-        cps: set[int] = set()
-        for sub in cmap_table.tables:
-            if sub.isUnicode():
-                cps.update(sub.cmap.keys())
-        self.codepoints: list[int] = sorted(cps)
+    def __init__(self, family: str, ps_name: str, codepoints: list[int]):
+        self.name = family
+        self.family, self.style, self.weight, self.width = parse_font_name(family, ps_name)
+        self.codepoints: list[int] = codepoints
 
     def generate_name(self) -> str:
         return generate_name(self.family, self.style, self.weight, self.width)
@@ -141,337 +107,273 @@ class FontMetadata:
 
 
 class FontFileEntry:
-    """One parsed font file: raw bytes + TTFont + metadata + outline
-    access. Mirrors `src/font/file_entry.rs` (identity) and the outline
-    path of `src/render/renderer.rs:103-116` (lookup + advance)."""
+    """One parsed font file: raw bytes + sfnt directory + metadata +
+    outline access by glyph id. Mirrors `src/font/file_entry.rs`
+    (identity) and the outline path of `src/render/renderer.rs:103-116`
+    (lookup + advance). Raises RuntimeError when the native library is
+    not built (`proto.native.require`), ValueError for a file that is
+    not a font or that needs fontTools where there is none."""
 
     def __init__(self, data: bytes):
+        native.require()
         self.data = data
-        self.font = TTFont(io.BytesIO(data), fontNumber=0, lazy=True)
-        idx = self._native_index
-        self.metadata = FontMetadata(
-            self.font, None if idx is None else idx[0].tolist()
-        )
-        self.units_per_em: int = self.font["head"].unitsPerEm
+        self.sfnt = Sfnt(data)
+        family, ps_name = self.sfnt.names()
+        self.label = family or ps_name or "(unnamed)"
+        self.units_per_em: int = self.sfnt.units_per_em
+        self._tt = None
+        index = self._native_index()
+        if isinstance(index, str):
+            index = self._fonttools_index(index)
+        self._cps, self._gids, self._advances = index
+        if self._outline_table is None:
+            # No native route for any outline: fail now without fontTools.
+            self._fonttools(self._outlines_of("the outlines"))
+        self.metadata = FontMetadata(family or "", ps_name or "", self._cps.tolist())
 
-    @cached_property
+    # -- fontTools, for the fallback only ---------------------------------
+
+    def _fonttools(self, what: str):
+        """fontTools' TTFont of the file; ValueError naming the font and
+        ``what`` needs it when fontTools is not importable."""
+        if self._tt is None:
+            try:
+                from fontTools.ttLib import TTFont
+            except ImportError:
+                raise ValueError(f"font {self.label!r}: fontTools is needed for {what}, "
+                                 "and it is not installed") from None
+            self._tt = TTFont(io.BytesIO(self.data), fontNumber=0, lazy=True)
+        return self._tt
+
+    def _glyph_name(self, gid: int, what: str) -> str:
+        return self._fonttools(what).getGlyphOrder()[gid]
+
+    # -- index: codepoints, glyph ids, advances -----------------------------
+
     def _native_index(self):
         """(cps u32 sorted, gids u32, advances u16 by gid) from the raw
-        cmap/hmtx/hhea/maxp tables via the native parsers — the ingest
-        hot path's replacement for fontTools' cmap + post decompile
-        (metadata coverage, cp→glyph lookup AND advances become three
-        array reads). None when the native library is unavailable or a
-        cmap subtable format is uncovered (fontTools fallback; asserted
-        equal in tests/test_native.py)."""
-        import numpy as np
-
-        from ..proto import native
-
-        if not native.available():
-            return None
-        reader = getattr(self.font, "reader", None)
-        if reader is None:
-            return None
-        tables = reader.tables
-        if not all(k in tables for k in ("cmap", "hmtx", "hhea", "maxp")):
-            return None
-        for k in ("cmap", "hmtx", "hhea", "maxp"):
-            e = tables[k]
-            # Over-declared directory lengths (fontTools tolerates the
-            # short read): take the fontTools fallback, per contract.
-            if e.offset + e.length > len(self.data):
-                return None
-
-        def raw(tag):
-            e = tables[tag]
-            return np.frombuffer(
-                self.data, np.uint8, count=e.length, offset=e.offset
-            )
-
-        res = native.cmap_union(raw("cmap"))
+        cmap/hmtx/hhea/maxp tables by the native parsers, or why they do
+        not cover this font (str)."""
+        s = self.sfnt
+        if "cmap" not in s:
+            raise ValueError("Font has no cmap table")
+        for tag in ("cmap", "hmtx", "hhea", "maxp"):
+            if tag not in s:
+                return f"a font with no '{tag}' table"
+            if not s.covered(tag):
+                # Over-declared directory length (fontTools tolerates
+                # the short read).
+                return f"its '{tag}' table, which runs past the end of the file"
+        cmap = s.table("cmap")
+        res = native.cmap_union(np.frombuffer(cmap, np.uint8))
         if res is None:
-            return None
+            return _cmap_why(cmap)
         cps, gids = res
-        hhea, maxp = raw("hhea"), raw("maxp")
-        if len(hhea) < 36 or len(maxp) < 6:
-            return None
-        num_h = (int(hhea[34]) << 8) | int(hhea[35])
-        num_g = (int(maxp[4]) << 8) | int(maxp[5])
-        adv = native.hmtx_advances(raw("hmtx"), num_h, num_g)
+        num_h, num_g = s.u16("hhea", 34), s.u16("maxp", 4)
+        if num_h is None or num_g is None:
+            return "its short 'hhea' or 'maxp' table"
+        adv = native.hmtx_advances(np.frombuffer(s.table("hmtx"), np.uint8), num_h, num_g)
         if adv is None:
-            return None
+            return "its short 'hmtx' table"
         keep = gids < num_g  # guard malformed cmaps; fontTools would err
         if not keep.all():
             cps, gids = cps[keep], gids[keep]
         return cps, gids, adv
 
-    @cached_property
-    def _gid_map(self) -> dict:
-        """cp → glyph id (native index path only)."""
-        cps, gids, _ = self._native_index
-        return dict(zip(cps.tolist(), gids.tolist()))
-
-    @cached_property
-    def _cmap(self) -> dict:
-        """Codepoint → glyph name over the UNION of all unicode cmap
-        subtables, first subtable in table order to map a codepoint
-        wins — matching ttf-parser's `Face::glyph_index` subtable scan
-        (the reference's lookup, `src/render/renderer.rs:104`) and the
-        coverage union metadata is built from
-        (`src/font/metadata.rs:103-116`). A single-subtable
-        `getBestCmap()` would silently skip codepoints that only a
-        non-"best" subtable maps."""
+    def _fonttools_index(self, why: str):
+        """The index through fontTools: the union over its unicode cmap
+        subtables (first subtable to map a codepoint wins), names turned
+        into glyph ids, advances from its hmtx (0 where it has none)."""
+        tt = self._fonttools(why)
+        cmap = tt.get("cmap")
+        if cmap is None:
+            raise ValueError("Font has no cmap table")
         union: dict = {}
-        for sub in self.font["cmap"].tables:
+        for sub in cmap.tables:
             if sub.isUnicode():
                 for cp, name in sub.cmap.items():
                     union.setdefault(cp, name)
-        return union
-
-    @cached_property
-    def _glyph_set(self):
-        return self.font.getGlyphSet()
-
-    @cached_property
-    def _hmtx(self):
-        return self.font["hmtx"]
-
-    def glyph_name(self, codepoint: int):
-        """cmap lookup; None when the codepoint has no glyph (reference:
-        `face.glyph_index(cp)` returning None skips the glyph)."""
-        return self._cmap.get(codepoint)
-
-    def hor_advance(self, glyph_name: str) -> int:
+        gid_of = tt.getReverseGlyphMap()
+        cps = np.array(sorted(union), dtype=np.uint32)
+        gids = np.array([gid_of[union[int(cp)]] for cp in cps], dtype=np.uint32)
         try:
-            return self._hmtx[glyph_name][0]
+            metrics = tt["hmtx"].metrics
         except KeyError:
-            return 0
+            metrics = {}
+        adv = np.array([metrics.get(n, (0, 0))[0] for n in tt.getGlyphOrder()], dtype=np.uint16)
+        return cps, gids, adv
 
     @cached_property
-    def _glyf_raw(self):
-        """(glyf bytes view, loca uint32 offsets) straight from the sfnt
-        directory, or None for CFF fonts. Feeds the native parser."""
-        import numpy as np
-
-        reader = getattr(self.font, "reader", None)
-        if reader is None:
-            return None
-        tables = reader.tables
-        if "glyf" not in tables or "loca" not in tables:
-            return None
-        le = tables["loca"]
-        raw = self.data[le.offset : le.offset + le.length]
-        if self.font["head"].indexToLocFormat == 0:
-            loca = np.frombuffer(raw, dtype=">u2").astype(np.uint32) * 2
-        else:
-            loca = np.frombuffer(raw, dtype=">u4").astype(np.uint32)
-        ge = tables["glyf"]
-        glyf = np.frombuffer(
-            self.data, dtype=np.uint8, count=ge.length, offset=ge.offset
-        )
-        return glyf, loca
-
-    @cached_property
-    def _cff_raw(self):
-        """Raw 'CFF ' table bytes view, or None (TrueType / CFF2).
-        Feeds the native Type 2 charstring parser."""
-        import numpy as np
-
-        reader = getattr(self.font, "reader", None)
-        if reader is None or "CFF " not in reader.tables:
-            return None
-        e = reader.tables["CFF "]
-        return np.frombuffer(
-            self.data, dtype=np.uint8, count=e.length, offset=e.offset
-        )
-
-    @cached_property
-    def _native_raw(self):
-        """One native batch parse+flatten of every cmap-mapped glyph
-        (csrc vg_glyf_rings for TrueType, vg_cff_rings for CFF/OTF —
-        the host ingest hot path; ~100× the fontTools pen walk).
-        Returns (names_sorted, pts [N,2] f64, ring_lens [R] i32,
-        glyph_nrings [n] i32 — −1 marks a glyph the native parser
-        rejected) or None when unavailable."""
-        import numpy as np
-
-        from ..constants import FLATTEN_TOLERANCE_SQ
-        from ..proto import native
-
-        glyf = self._glyf_raw
-        cff = self._cff_raw if glyf is None else None
-        if (glyf is None and cff is None) or not native.available():
-            return None
-        names = sorted(set(self._cmap.values()))
-        gid_of = self.font.getReverseGlyphMap()
-        gids = np.array([gid_of[n] for n in names], dtype=np.uint32)
-        if glyf is not None:
-            res = native.glyf_rings(glyf[0], glyf[1], gids, FLATTEN_TOLERANCE_SQ)
-        else:
-            res = native.cff_rings(cff, gids, FLATTEN_TOLERANCE_SQ)
-        if res is None:
-            return None
-        return (names, *res)
-
-    @cached_property
-    def _native_rings(self):
-        """name → list of (K, 2) f64 rings (font units) for every
-        cmap-mapped glyph, sliced from `_native_raw`. None when
-        unavailable; per-glyph None values mark glyphs the native parser
-        rejected (pen fallback)."""
-        raw = self._native_raw
-        if raw is None:
-            return None
-        names, pts, ring_lens, glyph_nrings = raw
-        out: dict = {}
-        p = 0
-        r = 0
-        for i, name in enumerate(names):
-            k = int(glyph_nrings[i])
-            if k < 0:
-                out[name] = None  # unsupported → pen fallback
-                continue
-            rings = []
-            for _ in range(k):
-                ln = int(ring_lens[r])
-                rings.append(pts[p : p + ln])
-                p += ln
-                r += 1
-            out[name] = rings
-        return out
-
-    def _pen_flat(self):
-        """Flat ring arrays for every cmap-mapped glyph with the
-        fontTools pen filling in whatever the native parser couldn't
-        handle (CFF2 fonts, native-rejected charstrings, or the whole
-        set when the native library is absent). One pen walk per glyph
-        NAME (the old per-glyph fallback re-walked per CODEPOINT), and
-        the result feeds the same vectorized `build_cores` pass as the
-        native path — so degraded fonts keep the batched host-prep
-        fast path. Returns
-        (names, pts [N,2] f64, ring_lens [R] i32, glyph_nrings [n] i32,
-        −1 marking glyphs whose pen walk failed)."""
-        import numpy as np
-
-        names = sorted(set(self._cmap.values()))
-        native = self._native_rings  # None, or per-name rings/None
-        pts_parts: list = []
-        lens: list[int] = []
-        nrings: list[int] = []
-        for name in names:
-            rings = native.get(name) if native is not None else None
-            if rings is None:
-                try:
-                    acc = RingAccumulator()
-                    self._glyph_set[name].draw(RingPen(self._glyph_set, acc))
-                    rings = acc.finish()
-                except Exception:
-                    nrings.append(-1)  # truly malformed: per-glyph error
-                    continue
-            nrings.append(len(rings))
-            for ring in rings:
-                pts_parts.append(np.asarray(ring, dtype=np.float64))
-                lens.append(len(ring))
-        pts = (
-            np.concatenate(pts_parts, axis=0)
-            if pts_parts
-            else np.zeros((0, 2), dtype=np.float64)
-        )
-        return (
-            names,
-            pts,
-            np.asarray(lens, dtype=np.int32),
-            np.asarray(nrings, dtype=np.int32),
-        )
-
-    @cached_property
-    def _cores_and_mode(self):
-        """(cores dict, key mode): the per-glyph `GlyphCore` table and
-        how it is keyed — ``"gid"`` on the all-native fast path (cmap/
-        hmtx/outlines all parsed natively; no fontTools post/glyphOrder
-        decompile ever runs), ``"name"`` otherwise. `glyph_key` returns
-        the matching key per codepoint."""
-        import numpy as np
-
-        from ..constants import FLATTEN_TOLERANCE_SQ
-        from ..proto import native
-        from ..render.metrics import build_cores
-
-        idx = self._native_index
-        if idx is not None:
-            cps, gids, adv = idx
-            glyf = self._glyf_raw
-            cff = self._cff_raw if glyf is None else None
-            res = None
-            ugids = np.unique(gids).astype(np.uint32)
-            if glyf is not None:
-                res = native.glyf_rings(
-                    glyf[0], glyf[1], ugids, FLATTEN_TOLERANCE_SQ
-                )
-            elif cff is not None:
-                res = native.cff_rings(cff, ugids, FLATTEN_TOLERANCE_SQ)
-            if res is not None and int(res[2].min(initial=0)) >= 0:
-                pts, ring_lens, glyph_nrings = res
-                advances = adv[ugids].astype(np.float64)
-                cores = build_cores(
-                    ugids.tolist(), advances, self.units_per_em,
-                    pts, ring_lens, glyph_nrings,
-                )
-                return cores, "gid"
-
-        raw = self._native_raw
-        if raw is not None and int(raw[3].min(initial=0)) >= 0:
-            names, pts, ring_lens, glyph_nrings = raw
-        else:
-            names, pts, ring_lens, glyph_nrings = self._pen_flat()
-        advances = np.array(
-            [self.hor_advance(n) for n in names], dtype=np.float64
-        )
-        cores = build_cores(
-            names, advances, self.units_per_em, pts, ring_lens, glyph_nrings
-        )
-        return cores, "name"
-
-    @property
-    def prep_cores(self):
-        """Key → `render.metrics.GlyphCore` for every cmap-mapped
-        glyph: metrics + device transport caches computed in ONE
-        vectorized pass over the font (`render.metrics.build_cores`).
-        Keys are whatever `glyph_key` returns (glyph ids on the
-        all-native path, names otherwise); every codepoint mapping to
-        a glyph shares its core. Glyphs the native parser can't handle
-        (CFF2, rejected charstrings, absent native library) are
-        pen-walked into the same flat arrays (`_pen_flat`), so every
-        font keeps the vectorized metrics path; per-key None cores
-        remain only for glyphs whose pen walk itself failed."""
-        return self._cores_and_mode[0]
+    def _gid_map(self) -> dict:
+        """cp → glyph id."""
+        return dict(zip(self._cps.tolist(), self._gids.tolist()))
 
     def glyph_key(self, codepoint: int):
-        """The `prep_cores` dict key for a codepoint (gid or name per
-        the core table's mode); None when the codepoint is unmapped."""
-        if self._cores_and_mode[1] == "gid":
-            return self._gid_map.get(codepoint)
-        return self.glyph_name(codepoint)
+        """The glyph id of a codepoint: the key of `prep_cores`,
+        `hor_advance`, `outline_rings` and `outline_curves`; None when the
+        codepoint has no glyph (reference: `face.glyph_index(cp)`
+        returning None skips the glyph)."""
+        return self._gid_map.get(codepoint)
 
-    def outline_rings(self, glyph_name: str):
-        """Flattened closed rings (font units, float64) for a glyph."""
-        cache = self._native_rings
-        if cache is not None:
-            rings = cache.get(glyph_name, None)
-            if rings is not None:
-                return rings
+    def hor_advance(self, gid: int) -> int:
+        return int(self._advances[gid]) if 0 <= gid < len(self._advances) else 0
+
+    # -- outlines -----------------------------------------------------------
+
+    @cached_property
+    def _outline_table(self):
+        """("glyf", glyf bytes, loca u32 offsets), ("CFF ", table bytes),
+        or None (CFF2 or no outline table): the native walkers' input."""
+        s = self.sfnt
+        if "glyf" in s and "loca" in s:
+            raw = s.table("loca")
+            if s.index_to_loc_format == 0:
+                raw = raw[: len(raw) // 2 * 2]
+                loca = np.frombuffer(raw, dtype=">u2").astype(np.uint32) * 2
+            else:
+                raw = raw[: len(raw) // 4 * 4]
+                loca = np.frombuffer(raw, dtype=">u4").astype(np.uint32)
+            return "glyf", np.frombuffer(s.table("glyf"), np.uint8), loca
+        if "CFF " in s:
+            return "CFF ", np.frombuffer(s.table("CFF "), np.uint8)
+        return None
+
+    def _outlines_of(self, what: str) -> str:
+        """``what`` of the font's outline table, for a message."""
+        tag = next((t for t in ("glyf", "CFF ", "CFF2") if t in self.sfnt), None)
+        return f"{what} of its '{tag}' table" if tag else f"{what} of a font with no outline table"
+
+    def _rejected(self, gid: int) -> str:
+        return self._outlines_of(f"glyph {gid}")
+
+    def _pen_rings(self, name: str):
+        """A glyph's rings drawn by fontTools' pen (the fallback)."""
+        from ..ops.flatten import RingAccumulator
+        from .pens import pen_classes
+
+        glyph_set = self._tt.getGlyphSet()
         acc = RingAccumulator()
-        pen = RingPen(self._glyph_set, acc)
-        self._glyph_set[glyph_name].draw(pen)
+        glyph_set[name].draw(pen_classes()[0](glyph_set, acc))
         return acc.finish()
 
-    def outline_curves(self, glyph_name: str):
-        """Cubic-curve soup [C, 4, 2] (font units, float64) for the
-        differentiable model path."""
-        import numpy as np
+    @cached_property
+    def _flat(self):
+        """(gids u32 sorted unique, pts [N, 2] f64, ring_lens [R] i32,
+        glyph_nrings [n] i32) of every mapped glyph: one native batch
+        parse and flatten (csrc vg_glyf_rings / vg_cff_rings), the glyphs
+        it rejects drawn by fontTools' pen; −1 marks a glyph whose pen
+        walk failed too."""
+        ugids = np.unique(self._gids).astype(np.uint32)
+        table = self._outline_table
+        res = None
+        if table is not None and table[0] == "glyf":
+            res = native.glyf_rings(table[1], table[2], ugids, FLATTEN_TOLERANCE_SQ)
+        elif table is not None:
+            res = native.cff_rings(table[1], ugids, FLATTEN_TOLERANCE_SQ)
+        if res is None:
+            res = (np.zeros((0, 2)), np.zeros(0, np.int32), np.full(len(ugids), -1, np.int32))
+        pts, ring_lens, nrings = res
+        if int(nrings.min(initial=0)) >= 0:
+            return ugids, pts, ring_lens, nrings
+        rings = self._split_rings(pts, ring_lens, nrings)
+        parts, lens, counts = [], [], []
+        for gid, rs in zip(ugids.tolist(), rings):
+            if rs is None:
+                name = self._glyph_name(gid, self._rejected(gid))
+                try:
+                    rs = self._pen_rings(name)
+                except Exception:
+                    counts.append(-1)  # truly malformed: per-glyph error
+                    continue
+            counts.append(len(rs))
+            for r in rs:
+                parts.append(np.asarray(r, dtype=np.float64))
+                lens.append(len(r))
+        pts = np.concatenate(parts, axis=0) if parts else np.zeros((0, 2), np.float64)
+        return (ugids, pts, np.asarray(lens, dtype=np.int32),
+                np.asarray(counts, dtype=np.int32))
 
-        pen = CurvePen(self._glyph_set)
-        self._glyph_set[glyph_name].draw(pen)
-        if not pen.curves:
-            return np.zeros((0, 4, 2))
-        return np.asarray(pen.curves, dtype=np.float64)
+    @staticmethod
+    def _split_rings(pts, ring_lens, nrings) -> list:
+        """Per glyph, its list of (K, 2) rings (views), None where −1."""
+        out = []
+        p = r = 0
+        for k in nrings.tolist():
+            if k < 0:
+                out.append(None)
+                continue
+            rings = []
+            for ln in ring_lens[r:r + k].tolist():
+                rings.append(pts[p:p + ln])
+                p += ln
+            r += k
+            out.append(rings)
+        return out
+
+    @cached_property
+    def _ring_map(self) -> dict:
+        """gid → list of (K, 2) f64 rings, None for a failed glyph."""
+        ugids, pts, ring_lens, nrings = self._flat
+        return dict(zip(ugids.tolist(), self._split_rings(pts, ring_lens, nrings)))
+
+    @cached_property
+    def prep_cores(self):
+        """Glyph id → `render.metrics.GlyphCore` for every cmap-mapped
+        glyph: metrics + device transport caches computed in ONE
+        vectorized pass over the font (`render.metrics.build_cores`);
+        every codepoint mapping to a glyph shares its core. A None core
+        remains only for a glyph whose outline no parser could walk."""
+        from ..render.metrics import build_cores
+
+        ugids, pts, ring_lens, nrings = self._flat
+        advances = self._advances[ugids].astype(np.float64)
+        return build_cores(ugids.tolist(), advances, self.units_per_em, pts, ring_lens, nrings)
+
+    def outline_rings(self, gid: int):
+        """Flattened closed rings (font units, float64) of a glyph."""
+        rings = self._ring_map.get(gid)
+        if rings is None:
+            rings = self._pen_rings(self._glyph_name(gid, self._rejected(gid)))
+        return rings
+
+    @cached_property
+    def _curve_map(self) -> dict:
+        """gid → cubic soup [C, 4, 2] of every mapped glyph."""
+        return self._native_curves(np.unique(self._gids).astype(np.uint32))
+
+    def _native_curves(self, ugids: np.ndarray) -> dict:
+        """gid → cubic soup [C, 4, 2] from one native walk of the glyphs'
+        segments (csrc vg_glyf_curves / vg_cff_curves), None where the
+        walker rejected a glyph."""
+        table = self._outline_table
+        if table is None:
+            return dict.fromkeys(ugids.tolist())
+        if table[0] == "glyf":
+            kinds, pts, nrecs = native.glyf_curves(table[1], table[2], ugids)
+        else:
+            kinds, pts, nrecs = native.cff_curves(table[1], ugids)
+        curves, keep = curve_soup(kinds, pts)
+        out: dict = {}
+        r = 0
+        for gid, m in zip(ugids.tolist(), nrecs.tolist()):
+            if m < 0:
+                out[gid] = None
+                continue
+            out[gid] = np.ascontiguousarray(curves[r:r + m][keep[r:r + m]])
+            r += m
+        return out
+
+    def outline_curves(self, gid: int):
+        """Cubic-curve soup [C, 4, 2] (font units, float64) for the
+        differentiable model path; empty as [0, 4, 2]."""
+        cmap = self._curve_map
+        curves = cmap[gid] if gid in cmap else self._native_curves(np.array([gid], np.uint32))[gid]
+        if curves is None:
+            from .pens import pen_classes
+
+            name = self._glyph_name(gid, self._rejected(gid))
+            glyph_set = self._tt.getGlyphSet()
+            pen = pen_classes()[1](glyph_set)
+            glyph_set[name].draw(pen)
+            curves = np.asarray(pen.curves, dtype=np.float64)
+        return curves if len(curves) else np.zeros((0, 4, 2))

@@ -34,14 +34,14 @@ class FontManager:
     # -- ingestion -------------------------------------------------------
 
     def add_path(self, path: str) -> None:
-        from .entry import FontFileEntry  # fontTools, needed only to read a file
+        from .entry import FontFileEntry
 
         with open(path, "rb") as f:
             data = f.read()
         try:
             file = FontFileEntry(data)
         except Exception as e:
-            # Contextual error instead of a raw fontTools traceback (the
+            # Contextual error instead of a raw parser traceback (the
             # reference's anyhow context chain, `wrapper.rs:137-146`).
             raise ValueError(f"failed to parse font file {path!r}: {e}") from e
         font_id = name_to_id(file.metadata.generate_name())
@@ -77,7 +77,7 @@ class FontManager:
 
         1. host prep (flatten + metrics) per block runs on a
            **background thread** feeding a bounded queue — the
-           fontTools/numpy work releases the GIL enough that block
+           native/numpy work releases the GIL enough that block
            N+1's prep overlaps block N's pack + device uploads (the
            host-side reshaping of the reference's rayon overlap,
            `manager.rs:117-121`);

@@ -13,7 +13,7 @@ from typing import TYPE_CHECKING
 from ..constants import GLYPH_BLOCK_SIZE
 from .block import GlyphBlock
 
-if TYPE_CHECKING:  # the parser needs fontTools, imported where a file is read
+if TYPE_CHECKING:  # the parser is imported where a file is read
     from .entry import FontFileEntry, FontMetadata
 
 
@@ -33,7 +33,7 @@ class FontWrapper:
             try:
                 file = FontFileEntry(data)
             except Exception as e:
-                # Contextual error instead of a raw fontTools traceback
+                # Contextual error instead of a raw parser traceback
                 # (the reference's anyhow context chain,
                 # `wrapper.rs:137-146`).
                 raise ValueError(

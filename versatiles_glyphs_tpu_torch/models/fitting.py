@@ -57,7 +57,7 @@ CPU (which has no graphs) `step_many` loops over `step`.
 `torch.optim.Adam` takes optax's place and `torch.save` orbax's;
 `params_from_numpy` and `adam_state_from_optax` carry a JAX run's
 parameters and Adam state across. `make_fit_batch` reads a font file
-(fontTools, through the entry it is given); nothing here imports
+through the entry it is given (`font.entry`); nothing here imports
 fontTools, JAX, optax or orbax.
 """
 
@@ -850,8 +850,8 @@ def assemble_fit_batch(items) -> FitBatch:
 
 
 def make_fit_batch(entry, codepoints, depth: int = 3, target_entry=None) -> FitBatch:
-    """A FitBatch from a font (`versatiles_glyphs_tpu.font.entry.
-    FontFileEntry`, which needs fontTools): initial curves from
+    """A FitBatch from a font (`font.entry.FontFileEntry`, or an entry
+    with its glyph-key methods): initial curves from
     ``entry``'s outlines, scaled to 24 px/EM and shifted by the parity
     pipeline's dx; targets from the exact renderer on ``target_entry``
     (default: the same font, a self-fit). Unfittable codepoints are
@@ -862,15 +862,15 @@ def make_fit_batch(entry, codepoints, depth: int = 3, target_entry=None) -> FitB
     target_entry = target_entry or entry
     items = []
     for cp in codepoints:
-        name = entry.glyph_name(cp)
-        tname = target_entry.glyph_name(cp)
-        if name is None or tname is None:
+        key = entry.glyph_key(cp)
+        tkey = target_entry.glyph_key(cp)
+        if key is None or tkey is None:
             continue
-        rings = target_entry.outline_rings(tname)
-        prep = prepare_glyph(cp, rings, target_entry.units_per_em, target_entry.hor_advance(tname))
+        rings = target_entry.outline_rings(tkey)
+        prep = prepare_glyph(cp, rings, target_entry.units_per_em, target_entry.hor_advance(tkey))
         if prep.empty:
             continue
-        curves = entry.outline_curves(name)
+        curves = entry.outline_curves(key)
         if curves.shape[0] == 0:
             continue
         curves = curves * (24.0 / entry.units_per_em) + np.array([prep.dx, 0.0])

@@ -133,8 +133,8 @@ def fitted_preps(params, batch, entry, depth: int) -> list[GlyphPrep]:
         if not mask.any():
             continue  # padding row / empty glyph
         cp = int(cps[b])
-        name = entry.glyph_name(cp)
-        adv_units = entry.hor_advance(name) if name is not None else 0
+        key = entry.glyph_key(cp)
+        adv_units = entry.hor_advance(key) if key is not None else 0
         preps.append(
             fitted_prep(
                 cp,

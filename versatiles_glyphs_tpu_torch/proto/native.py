@@ -113,6 +113,12 @@ def _load():
         lib.vg_cff_rings.argtypes = [
             P, L, P, L, ctypes.c_double, P, L, P, L, P, P,
         ]
+    if hasattr(lib, "vg_glyf_curves"):
+        lib.vg_glyf_curves.restype = L
+        lib.vg_glyf_curves.argtypes = [P, L, P, L, P, L, P, P, L, P, P]
+    if hasattr(lib, "vg_cff_curves"):
+        lib.vg_cff_curves.restype = L
+        lib.vg_cff_curves.argtypes = [P, L, P, L, P, P, L, P, P]
     if hasattr(lib, "vg_prep_cores"):
         lib.vg_prep_cores.restype = L
         lib.vg_prep_cores.argtypes = [
@@ -266,6 +272,58 @@ def cff_rings(cff: np.ndarray, gids: np.ndarray, tol_sq: float):
     return None
 
 
+def _curves(call, n: int):
+    """Run a ``vg_*_curves`` entry point, growing its buffers until they
+    hold every record: (kinds [M] i8, pts [M, 4, 2] f64, glyph_nrecs [n]
+    i32)."""
+    nrecs = np.zeros(n, dtype=np.int32)
+    count = np.zeros(1, dtype=np.int64)
+    cap = 1 << 16
+    for _ in range(3):
+        kinds = np.empty(cap, dtype=np.int8)
+        pts = np.empty((cap, 4, 2), dtype=np.float64)
+        if call(_ptr(kinds), _ptr(pts), cap, _ptr(nrecs), _ptr(count)) == 0:
+            m = int(count[0])
+            return kinds[:m], pts[:m], nrecs
+        cap = int(count[0]) + 1
+    raise RuntimeError("native outline segments: buffer growth failed")
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def glyf_curves(glyf: np.ndarray, loca: np.ndarray, gids: np.ndarray):
+    """The outline segments of a batch of glyph ids, walked natively
+    from the raw glyf table (csrc ``vg_glyf_curves``) as a fontTools pen
+    receives them: (kinds [M] i8 — 0 move, 1 line, 2 quadratic, 3 cubic,
+    4 close —, pts [M, 4, 2] f64 — the current point, then the
+    segment's points, a close ending at its contour's start —,
+    glyph_nrecs [n] i32, −1 for a glyph the walker rejects), or None
+    when the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    glyf = np.ascontiguousarray(glyf, dtype=np.uint8)
+    loca = np.ascontiguousarray(loca, dtype=np.uint32)
+    gids = np.ascontiguousarray(gids, dtype=np.uint32)
+    return _curves(lambda *out: lib.vg_glyf_curves(
+        _ptr(glyf), len(glyf), _ptr(loca), len(loca) - 1, _ptr(gids), len(gids), *out),
+        len(gids))
+
+
+def cff_curves(cff: np.ndarray, gids: np.ndarray):
+    """`glyf_curves` from a raw 'CFF ' table (csrc ``vg_cff_curves``, the
+    Type 2 charstring walk)."""
+    lib = _load()
+    if lib is None:
+        return None
+    cff = np.ascontiguousarray(cff, dtype=np.uint8)
+    gids = np.ascontiguousarray(gids, dtype=np.uint32)
+    return _curves(lambda *out: lib.vg_cff_curves(
+        _ptr(cff), len(cff), _ptr(gids), len(gids), *out), len(gids))
+
+
 def render_sdf_batch(preps, n_threads: int | None = None):
     """Exact f64 SDF bitmaps for a list of non-empty `GlyphPrep`s, or
     None when the native library is unavailable."""
@@ -416,10 +474,11 @@ def cmap_union(cmap_bytes: np.ndarray):
     """Codepoint→glyph-id union over a raw cmap table's unicode
     subtables (csrc vg_cmap_union): record order, first subtable to map
     a codepoint wins, gid 0 excluded — the exact semantics of the
-    fontTools union path it replaces (`font.entry.FontFileEntry._cmap`;
-    asserted equal in tests/test_native.py). Returns (cps u32 sorted,
-    gids u32) or None when unavailable / the table uses a subtable
-    format the native parser doesn't cover (fontTools fallback)."""
+    fontTools union path it replaces (`font.entry.FontFileEntry.
+    _fonttools_index`; format 14 subtables map nothing in both).
+    Returns (cps u32 sorted, gids u32) or None when unavailable / the
+    table uses a subtable format the native parser doesn't cover
+    (fontTools fallback)."""
     lib = _load()
     if lib is None or not hasattr(lib, "vg_cmap_union"):
         return None

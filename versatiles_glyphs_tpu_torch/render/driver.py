@@ -18,9 +18,10 @@ Backends:
 - ``"auto"``  — ``"cuda"``: the default is the card, and without one the
                 constructor raises. The CPU backends are chosen by name.
 
-This module loads without the font parser (fontTools): `prep_glyph` and
-`prep_block` reach a font entry only through its methods, so fitted and
-synthesized glyphs render on a machine that lacks it.
+This module loads without the font parser: `prep_glyph` and
+`prep_block` reach a font entry only through its methods (`glyph_key`,
+`prep_cores`, `outline_rings`, `hor_advance`), so fitted and
+synthesized glyphs render through them too.
 """
 
 from __future__ import annotations
@@ -106,13 +107,10 @@ class Renderer:
                 # were computed once for the whole font; codepoints
                 # sharing a glyph share the core's arrays.
                 return core.make_prep(codepoint)
-        # Rare per-glyph fallback (core build failed for this glyph):
-        # the fontTools pen path, keyed by name.
-        name = entry.glyph_name(codepoint)
-        if name is None:
-            return None
-        rings = entry.outline_rings(name)
-        return prepare_glyph(codepoint, rings, entry.units_per_em, entry.hor_advance(name))
+        # Per-glyph path: an entry without a core table, or a glyph
+        # whose core failed (its outline is read again, and raises).
+        rings = entry.outline_rings(key)
+        return prepare_glyph(codepoint, rings, entry.units_per_em, entry.hor_advance(key))
 
     def prep_block(self, sources) -> list[GlyphPrep]:
         """Host prep for a block's (codepoint, entry) pairs — the
@@ -123,14 +121,12 @@ class Renderer:
         out: list[GlyphPrep] = []
         cur_entry = None
         cores = gmap = None
-        gid_mode = False
         for cp, entry in sources:
             if entry is not cur_entry:
                 cur_entry = entry
-                cores, mode = entry._cores_and_mode
-                gid_mode = mode == "gid" and cores is not None
-                gmap = entry._gid_map if gid_mode else None
-            if gid_mode and _valid_cp(cp):
+                cores = entry.prep_cores
+                gmap = entry._gid_map if cores is not None else None
+            if gmap is not None and _valid_cp(cp):
                 gid = gmap.get(cp)
                 if gid is None:
                     continue

@@ -14,15 +14,18 @@ printing JSON lines:
   (with the host's lane-run check), upload, the i8 decode and the tile
   table, kernel 1, fetch; then `Renderer.render_bitmaps` of the whole
   font end to end, warm.
-- ``e2e``: `FontManager.render_glyphs` over K copies of the font
-  (`utils.synth_font.SynthEntry`, which has no ``prep_cores``, so the
-  manager preps glyph by glyph, not by a real font's font-level cores)
-  into a dummy writer, in turns with the device-only
+- ``e2e``: `FontManager.render_glyphs` over K copies of the font into
+  a dummy writer, in turns with the device-only
   `Renderer.render_bitmaps` of the same preps K times: seconds a font
-  of each side and their paired ratio.
-- ``cpuprof``: one ``e2e`` manager run under cProfile of the caller's
-  thread: wall and CPU seconds a font, and the top 22 frames by own
-  time.
+  of each side and their paired ratio. Two sources of the K fonts:
+  ``synth``, `utils.synth_font.SynthEntry` (no ``prep_cores``: the
+  manager preps glyph by glyph in Python), and ``file``, K TrueType
+  files written by `utils.synth_font.build_ttf_curved` and read by
+  `font.entry.FontFileEntry` inside the timed run (the native parse and
+  the font-level prep cores, as ``merge`` reads a file).
+- ``cpuprof``: one ``e2e`` manager run of each source under cProfile of
+  the caller's thread: wall and CPU seconds a font, and the top 22
+  frames by own time.
 - ``fit``: 10 warm steps each of the graphed one-device ``flat`` step,
   the graphed sharded ``flat`` step over the card listed twice
   (`models.fitting.ShardedStepGraph`), the eager sharded step and the
@@ -60,6 +63,8 @@ FIT_STEPS = 10
 TOP_FRAMES = 22
 # name -> (render reps, manager fonts K, e2e pairs, fit runs)
 SIZES = {"full": (10, 8, 4, 3), "quick": (3, 2, 1, 1)}
+# Where `e2e` and `cpuprof` take their K fonts from (see the docstring).
+SOURCES = ("synth", "file")
 
 
 class StageTimer:
@@ -148,58 +153,75 @@ def host_runs(fn, reps: int) -> list:
     return out
 
 
-def synth_entries(font: str, k: int) -> list:
-    from ..utils.synth_font import SynthEntry
+PREP = {
+    "synth": "SynthEntry has no prep_cores: the manager preps glyph by glyph",
+    "file": "FontFileEntry of a written TTF, made in the timed run: native parse, "
+            "font-level prep cores",
+}
+
+
+def entry_maker(font: str, k: int, source: str):
+    """A function giving ``k`` fresh entries of ``font`` from ``source``
+    (see the module docstring): a file's entry caches its prep cores,
+    so each run reads the files anew."""
+    from ..utils.synth_font import SynthEntry, build_ttf_curved
 
     n, first_cp, seed, quads = FONTS[font]
-    return [SynthEntry(n, first_cp, seed=seed, quads=quads)] * k
+    if source == "synth":
+        return lambda: [SynthEntry(n, first_cp, seed=seed, quads=quads)] * k
+    from ..font.entry import FontFileEntry
+
+    data = build_ttf_curved(n, first_cp, seed=seed, quads=quads)
+    return lambda: [FontFileEntry(data) for _ in range(k)]
 
 
-def manager_run(entries, renderer) -> tuple[float, float]:
-    """(wall, CPU) seconds of one `FontManager.render_glyphs` of
-    ``entries``, each its own font, into a dummy writer."""
+def manager_run(make_entries, renderer) -> tuple[float, float]:
+    """(wall, CPU) seconds of making the entries and one
+    `FontManager.render_glyphs` of them, each its own font, into a
+    dummy writer."""
     from ..font.manager import FontManager
     from ..font.wrapper import FontWrapper
     from ..writer import Writer
 
+    t0, c0 = time.perf_counter(), time.process_time()
     manager = FontManager()
-    for i, entry in enumerate(entries):
+    for i, entry in enumerate(make_entries()):
         manager.fonts[f"synth_{i}"] = FontWrapper()
         manager.fonts[f"synth_{i}"].add_file(entry)
     writer = Writer.new_dummy()
-    t0, c0 = time.perf_counter(), time.process_time()
     manager.render_glyphs(writer, renderer)
     writer.finish()
     return time.perf_counter() - t0, time.process_time() - c0
 
 
-def e2e(font: str, k: int, pairs: int, backend: str) -> dict:
-    """The manager over ``k`` copies of ``font`` against the device-only
-    render of the same preps ``k`` times, ``pairs`` times in turns after
-    one warm-up each: seconds a font and the ratio of each pair."""
+def e2e(font: str, k: int, pairs: int, backend: str, source: str = "synth") -> dict:
+    """The manager over ``k`` copies of ``font`` from ``source`` against
+    the device-only render of the same preps ``k`` times, ``pairs`` times
+    in turns after one warm-up each: seconds a font and the ratio of
+    each pair."""
     from ..render.driver import Renderer
 
     renderer = Renderer(backend)
-    entries = synth_entries(font, k)
-    entry = entries[0]
-    preps = [p for p in (renderer.prep_glyph(entry, cp) for cp in entry.metadata.codepoints)
-             if p is not None and not p.empty]
+    make = entry_maker(font, k, source)
+    entry = make()[0]
+    preps = [p for p in renderer.prep_block([(cp, entry) for cp in entry.metadata.codepoints])
+             if not p.empty]
 
     def device_only():
         t0 = time.perf_counter()
         renderer.render_bitmaps(preps * k)
         return (time.perf_counter() - t0) / k
 
-    manager_run(entries, renderer)
+    manager_run(make, renderer)
     device_only()
     e2e_s, dev_s = [], []
     for _ in range(pairs):
-        e2e_s.append(manager_run(entries, renderer)[0] / k)
+        e2e_s.append(manager_run(make, renderer)[0] / k)
         dev_s.append(device_only())
     ratios = [e / d for e, d in zip(e2e_s, dev_s)]
     glyphs = len(entry.metadata.codepoints)
-    return {"font": font, "fonts": k, "glyphs_a_font": glyphs, "preps_a_font": len(preps),
-            "prep": "SynthEntry has no prep_cores: the manager preps glyph by glyph",
+    return {"font": font, "source": source, "fonts": k, "glyphs_a_font": glyphs,
+            "preps_a_font": len(preps), "prep": PREP[source],
             "e2e_s_a_font": e2e_s, "device_only_s_a_font": dev_s, "paired_ratio": ratios,
             "paired_ratio_median": statistics.median(ratios),
             "e2e_glyphs_per_s_best": glyphs / min(e2e_s)}
@@ -215,23 +237,25 @@ def top_frames(prof: cProfile.Profile, n: int = TOP_FRAMES) -> list:
             for (path, line, name), (cc, nc, tt, ct, _) in rows]
 
 
-def cpuprof(font: str, k: int, backend: str) -> dict:
-    """One manager run over ``k`` copies of ``font`` unprofiled, then one
-    under cProfile of this thread (after a warm-up): wall and CPU
-    seconds a font of each, and the profiled run's top frames."""
+def cpuprof(font: str, k: int, backend: str, source: str = "synth") -> dict:
+    """One manager run over ``k`` copies of ``font`` from ``source``
+    unprofiled, then one under cProfile of this thread (after a
+    warm-up): wall and CPU seconds a font of each, and the profiled
+    run's top frames."""
     from ..render.driver import Renderer
 
     renderer = Renderer(backend)
-    entries = synth_entries(font, k)
-    manager_run(entries, renderer)
-    wall, cpu = manager_run(entries, renderer)
+    make = entry_maker(font, k, source)
+    manager_run(make, renderer)
+    wall, cpu = manager_run(make, renderer)
     prof = cProfile.Profile()
     prof.enable()
     try:
-        pwall, pcpu = manager_run(entries, renderer)
+        pwall, pcpu = manager_run(make, renderer)
     finally:
         prof.disable()
-    return {"font": font, "fonts": k, "wall_s_a_font": wall / k, "cpu_s_a_font": cpu / k,
+    return {"font": font, "source": source, "fonts": k, "wall_s_a_font": wall / k,
+            "cpu_s_a_font": cpu / k,
             "profiled_wall_s_a_font": pwall / k, "profiled_cpu_s_a_font": pcpu / k,
             "top_frames": top_frames(prof)}
 
@@ -362,16 +386,18 @@ def main(argv=None) -> dict:
         res["render_bitmaps_s"] = secs
         emit({"tool": "profile", "step": "render_bitmaps", "glyphs": len(preps),
               "seconds_median": statistics.median(secs), "seconds": secs})
-    if "e2e" in todo:
-        res["e2e"] = e2e(args.font, k, pairs, "cuda")
-        emit({"tool": "profile", "step": "e2e", **res["e2e"]})
-    if "cpuprof" in todo:
-        res["cpuprof"] = cpuprof(args.font, k, "cuda")
-        frames = res["cpuprof"]["top_frames"]
-        emit({"tool": "profile", "step": "cpuprof",
-              **{key: v for key, v in res["cpuprof"].items() if key != "top_frames"}})
-        for rank, frame in enumerate(frames):
-            emit({"tool": "profile", "step": "cpuprof_frame", "rank": rank, **frame})
+    for source in SOURCES:
+        suffix = "" if source == "synth" else f"_{source}"
+        if "e2e" in todo:
+            rec = res["e2e" + suffix] = e2e(args.font, k, pairs, "cuda", source)
+            emit({"tool": "profile", "step": "e2e", **rec})
+        if "cpuprof" in todo:
+            rec = res["cpuprof" + suffix] = cpuprof(args.font, k, "cuda", source)
+            emit({"tool": "profile", "step": "cpuprof",
+                  **{key: v for key, v in rec.items() if key != "top_frames"}})
+            for rank, frame in enumerate(rec["top_frames"]):
+                emit({"tool": "profile", "step": "cpuprof_frame", "source": source,
+                      "rank": rank, **frame})
     if "fit" in todo:
         res["fit"] = fit_steps(args.font, dev, [dev, dev], runs)
         for rec in res["fit"].values():

@@ -9,16 +9,18 @@ hundred points per glyph at the default detail, like a text font, and
 about a thousand at ``quads=24``, like a heavy script.
 
 `curved_outlines`, `curved_preps`, `synth_fit_batch` and `SynthEntry`
-need only numpy (and torch); `build_ttf_curved` wraps the same outlines
-into a TrueType font with fontTools, imported where it is called. The
-CPU tests show that the font and the synthesized forms agree: the same
-preps, the same fit batch, the same metadata.
+need only numpy (and torch); `build_ttf_curved` writes the same
+outlines as a TrueType font with numpy and struct alone, so that a
+machine without fontTools can make the fonts the CLI reads. The CPU
+tests show that the font and the synthesized forms agree (the same
+preps, the same fit batch, the same metadata) and that fontTools reads
+the file as it reads FontBuilder's font of the same glyphs.
 """
 
 from __future__ import annotations
 
-import io
 import math
+import struct
 
 import numpy as np
 
@@ -28,6 +30,9 @@ from ..render.metrics import prepare_glyph
 UPEM = 1000
 ASCENT = 800
 DESCENT = -200
+# head.created and head.modified of `build_ttf_curved`: 2024-01-01 in
+# seconds since 1904, fixed so that the file is a function of its inputs.
+TIMESTAMP = 3_786_912_000
 
 
 def _ring(rng, cx: int, cy: int, radius: float, n: int, reverse: bool):
@@ -82,52 +87,184 @@ def curved_preps(n_glyphs: int, first_cp: int = 32, seed: int = 0, quads: int = 
     return preps
 
 
+def _checksum(data: bytes) -> int:
+    """The sfnt checksum: the sum of big-endian u32 words, zero-padded."""
+    data += b"\0" * (-len(data) % 4)
+    return int(np.frombuffer(data, ">u4").sum(dtype=np.uint64)) & 0xFFFFFFFF
+
+
+def _sfnt(tables: dict) -> bytes:
+    """A TrueType sfnt file of ``tables`` (tag -> bytes): the directory
+    sorted by tag, each table 4-byte aligned with its checksum, and
+    ``head.checkSumAdjustment`` making the file's sum 0xB1B0AFBA."""
+    tags = sorted(tables)
+    n = len(tags)
+    sel = n.bit_length() - 1
+    out = [struct.pack(">IHHHH", 0x00010000, n, 16 << sel, sel, 16 * n - (16 << sel))]
+    off = 12 + 16 * n
+    body, head_at = [], 0
+    for tag in tags:
+        data = tables[tag]
+        out.append(struct.pack(">4sIII", tag.encode("latin1"), _checksum(data), off, len(data)))
+        if tag == "head":
+            head_at = off
+        body.append(data + b"\0" * (-len(data) % 4))
+        off += len(body[-1])
+    font = bytearray(b"".join(out + body))
+    font[head_at + 8:head_at + 12] = struct.pack(">I", (0xB1B0AFBA - _checksum(bytes(font))) & 0xFFFFFFFF)
+    return bytes(font)
+
+
+def _coords(values, short: int, same: int) -> tuple[list, bytes]:
+    """Per point the flag bits and the bytes of one coordinate axis,
+    delta-coded: 0 is ``same``, |d| < 256 one byte (``short``, with
+    ``same`` for a positive d), else a signed word."""
+    flags, out, prev = [], bytearray(), 0
+    for v in values:
+        d, prev = v - prev, v
+        if d == 0:
+            flags.append(same)
+        elif -255 <= d <= 255:
+            flags.append(short | (same if d > 0 else 0))
+            out.append(abs(d))
+        else:
+            flags.append(0)
+            out += struct.pack(">h", d)
+    return flags, bytes(out)
+
+
+def _simple_glyph(contours) -> tuple[bytes, tuple, int]:
+    """A glyf simple glyph of `curved_outlines` contours, the points a
+    TrueType pen keeps for `_draw` (P_0, C_0, P_1, C_1, ...): (bytes
+    padded to 4, bbox over every point, point count)."""
+    pts, on, ends = [], [], []
+    for ring_on, ring_off in contours:
+        for p, c in zip(ring_on, ring_off):
+            pts += [p, c]
+            on += [1, 0]
+        ends.append(len(pts) - 1)
+    xs, ys = [x for x, _ in pts], [y for _, y in pts]
+    bbox = (min(xs), min(ys), max(xs), max(ys))
+    fx, bx = _coords(xs, 0x02, 0x10)
+    fy, by = _coords(ys, 0x04, 0x20)
+    data = (struct.pack(">hhhhh", len(ends), *bbox) + struct.pack(f">{len(ends)}H", *ends)
+            + struct.pack(">H", 0) + bytes(o | a | b for o, a, b in zip(on, fx, fy)) + bx + by)
+    return data + b"\0" * (-len(data) % 4), bbox, len(pts)
+
+
+def _cmap_table(cmap: dict) -> bytes:
+    """A cmap of (0, 3) and (3, 1) format 4 over the BMP codepoints,
+    and (3, 10) format 12 over all when one lies above U+FFFF (the
+    subtables fontTools' FontBuilder writes)."""
+    items = sorted(cmap.items())
+
+    def runs(pairs):  # [start, end, first gid] of consecutive cps and gids
+        out = []
+        for cp, gid in pairs:
+            if out and cp == out[-1][1] + 1 and gid == out[-1][2] + cp - out[-1][0]:
+                out[-1][1] = cp
+            else:
+                out.append([cp, cp, gid])
+        return out
+
+    segs = runs([(cp, g) for cp, g in items if cp < 0xFFFF]) + [[0xFFFF, 0xFFFF, 0]]
+    n = len(segs)
+    sel = n.bit_length() - 1
+    fmt4 = struct.pack(">7H", 4, 16 + 8 * n, 0, 2 * n, 2 << sel, sel, 2 * n - (2 << sel))
+    fmt4 += struct.pack(f">{n}H", *(e for _, e, _ in segs)) + b"\0\0"
+    fmt4 += struct.pack(f">{n}H", *(s for s, _, _ in segs))
+    fmt4 += struct.pack(f">{n}H", *((g - s) % 65536 if s != 0xFFFF else 1 for s, _, g in segs))
+    fmt4 += b"\0\0" * n
+    subtables = [((0, 3), fmt4), ((3, 1), fmt4)]
+    if items and items[-1][0] > 0xFFFF:
+        groups = runs(items)
+        fmt12 = struct.pack(">HHIII", 12, 0, 16 + 12 * len(groups), 0, len(groups))
+        fmt12 += b"".join(struct.pack(">III", *g) for g in groups)
+        subtables.append(((3, 10), fmt12))
+    head = struct.pack(">HH", 0, len(subtables))
+    off, recs, body, at = 4 + 8 * len(subtables), [], [], {}
+    for (pid, eid), data in subtables:
+        if id(data) not in at:
+            at[id(data)] = off
+            body.append(data)
+            off += len(data)
+        recs.append(struct.pack(">HHI", pid, eid, at[id(data)]))
+    return head + b"".join(recs) + b"".join(body)
+
+
+def _name_table(strings: dict) -> bytes:
+    """A name table of ``strings`` (name ID -> text) on platform 1
+    (Mac Roman, English) and platform 3 (UTF-16BE, en-US)."""
+    recs, data = [], b""
+    for pid, eid, lid, codec in ((1, 0, 0, "mac_roman"), (3, 1, 0x409, "utf_16_be")):
+        for nid in sorted(strings):
+            raw = strings[nid].encode(codec)
+            recs.append(struct.pack(">6H", pid, eid, lid, nid, len(raw), len(data)))
+            data += raw
+    return struct.pack(">HHH", 0, len(recs), 6 + 12 * len(recs)) + b"".join(recs) + data
+
+
 def build_ttf_curved(
     n_glyphs: int,
     first_cp: int = 32,
     seed: int = 0,
     quads: int = 8,
+    family: str = "Synth Curved",
+    style: str = "Regular",
 ) -> bytes:
-    """A TrueType font of `curved_outlines`, glyph k mapped from
-    ``first_cp + k``."""
-    from fontTools.fontBuilder import FontBuilder
-    from fontTools.pens.ttGlyphPen import TTGlyphPen
-
+    """A TrueType font of `curved_outlines`, glyph k (glyph id k + 1
+    after an empty .notdef) mapped from ``first_cp + k``, written by
+    hand with numpy and struct: head, hhea, maxp 1.0, OS/2 4, hmtx
+    (left side bearing = xMin), cmap, loca, glyf, name (IDs 1, 2, 4 and
+    6 on platforms 1 and 3) and post 3 (no glyph names), with table
+    checksums and ``checkSumAdjustment``; the values fontTools'
+    FontBuilder computes for the same glyphs (timestamps `TIMESTAMP`)."""
     outlines = curved_outlines(n_glyphs, seed, quads)
-    names = [f"g{k}" for k in range(n_glyphs)]
-    fb = FontBuilder(UPEM, isTTF=True)
-    fb.setupGlyphOrder([".notdef"] + names)
-    fb.setupCharacterMap({first_cp + k: name for k, name in enumerate(names)})
-    glyphs = {".notdef": TTGlyphPen(None).glyph()}
-    metrics = {".notdef": (600, 0)}
-    for name, (advance, contours) in zip(names, outlines):
-        pen = TTGlyphPen(None)
-        _draw(
-            contours,
-            lambda x, y: pen.moveTo((x, y)),
-            lambda cx, cy, x, y: pen.qCurveTo((cx, cy), (x, y)),
-            pen.closePath,
-        )
-        glyphs[name] = pen.glyph()
-        # The left side bearing is the glyph's xMin, as font editors
-        # write it: fontTools draws a glyph shifted by lsb − xMin.
-        metrics[name] = (advance, min(x for on, off in contours for x, _ in on + off))
-    fb.setupGlyf(glyphs)
-    fb.setupHorizontalMetrics(metrics)
-    fb.setupHorizontalHeader(ascent=ASCENT, descent=DESCENT)
-    fb.setupNameTable(
-        {"familyName": "Synth Curved", "styleName": "Regular", "psName": "SynthCurved-Regular"}
-    )
-    fb.setupOS2(sTypoAscender=ASCENT, sTypoDescender=DESCENT)
-    fb.setupPost()
-    buf = io.BytesIO()
-    fb.save(buf)
-    return buf.getvalue()
+    glyphs = [(b"", None, 0)] + [_simple_glyph(contours) for _, contours in outlines]
+    metrics = [(600, 0)] + [(adv, g[1][0]) for (adv, _), g in zip(outlines, glyphs[1:])]
+    loca = np.cumsum([0] + [len(g[0]) for g in glyphs])
+    short = loca[-1] < 0x20000
+    boxes = [g[1] for g in glyphs if g[1] is not None]
+    x0, y0 = min(b[0] for b in boxes), min(b[1] for b in boxes)
+    x1, y1 = max(b[2] for b in boxes), max(b[3] for b in boxes)
+    n_h = len(metrics)  # trailing equal advances share the last metric
+    while n_h > 1 and metrics[n_h - 2][0] == metrics[-1][0]:
+        n_h -= 1
+    inked = [(adv, lsb, g[1]) for (adv, lsb), g in zip(metrics, glyphs) if g[1] is not None]
+    cmap = {first_cp + k: k + 1 for k in range(n_glyphs)}
+    tables = {
+        "head": struct.pack(">IIIIHHqqhhhhHHhhh", 0x00010000, 0x00010000, 0, 0x5F0F3CF5, 0x0003,
+                            UPEM, TIMESTAMP, TIMESTAMP, x0, y0, x1, y1, 0, 3, 2,
+                            0 if short else 1, 0),
+        "hhea": struct.pack(">IhhhHhhhhhh4hhH", 0x00010000, ASCENT, DESCENT, 0,
+                            max(a for a, _ in metrics), min(lsb for _, lsb, _ in inked),
+                            min(a - lsb - (b[2] - b[0]) for a, lsb, b in inked),
+                            max(lsb + b[2] - b[0] for _, lsb, b in inked),
+                            1, 0, 0, 0, 0, 0, 0, 0, n_h),
+        "maxp": struct.pack(">IHHHHHHHHHHHHHH", 0x00010000, len(glyphs),
+                            max(g[2] for g in glyphs), max(len(c) for _, c in outlines),
+                            0, 0, 2, 0, 0, 0, 0, 0, 0, 0, 0),
+        "OS/2": struct.pack(">HhHHH11h10s4I4sHHHhhhHHIIhhHHH", 4,
+                            round(sum(a for a, _ in metrics) / len(metrics)), 400, 5, 0,
+                            650, 600, 0, 75, 650, 600, 0, 350, 50, 300, 0, bytes(10),
+                            0, 0, 0, 0, b"NONE", 0x40, min(min(cmap), 0xFFFF),
+                            min(max(cmap), 0xFFFF), ASCENT, DESCENT, 0, ASCENT, -DESCENT,
+                            1, 0, 0, 0, 0, 32, 0),
+        "hmtx": b"".join(struct.pack(">Hh", a, lsb) for a, lsb in metrics[:n_h])
+        + b"".join(struct.pack(">h", lsb) for _, lsb in metrics[n_h:]),
+        "cmap": _cmap_table(cmap),
+        "loca": (loca // 2).astype(">u2").tobytes() if short else loca.astype(">u4").tobytes(),
+        "glyf": b"".join(g[0] for g in glyphs),
+        "name": _name_table({1: family, 2: style, 4: f"{family} {style}",
+                             6: f"{family.replace(' ', '')}-{style.replace(' ', '')}"}),
+        "post": struct.pack(">IIhhIIIII", 0x00030000, 0, 0, 0, 0, 0, 0, 0, 0),
+    }
+    return _sfnt(tables)
 
 
 def _contour_curves(on, off):
     """The cubics [C, 4, 2] (font units, float64) that
-    `versatiles_glyphs_tpu.font.entry.CurvePen` collects for one contour
+    `font.entry.FontFileEntry.outline_curves` gives for one contour
     of `_draw`: each quadratic degree-elevated by 2/3, and a closing line
     (a collinear cubic) where the contour does not end at its start."""
     n = len(on)
@@ -160,7 +297,7 @@ def synth_fit_batch(
     """A `models.fitting.FitBatch` of `curved_outlines`, without a font
     file: what `models.fitting.make_fit_batch` gives for the font
     `build_ttf_curved` of the same arguments (a self-fit). Curves follow
-    the rules of `font.entry.CurvePen`, scaled by 24/UPEM and shifted by
+    the rules of `font.pens` CurvePen, scaled by 24/UPEM and shifted by
     ``prep.dx``; targets are exact SDFs of the `curved_preps` outlines
     (the native f64 renderer where it is built, else
     `ops.sdf_ref.render_sdf_exact`; the two agree byte for byte).
@@ -216,36 +353,33 @@ class SynthEntry:
     """The part of `font.entry.FontFileEntry` that
     `models.render_fitted.fitted_preps`, `render_fitted_pbfs`, the
     manager (`font.wrapper.FontWrapper`, `font.manager.FontManager`) and
-    `render.driver.Renderer.prep_glyph` / `prep_block` read (glyph names
-    and keys, outlines as flattened rings, advances, units per EM,
-    metadata), for the font `build_ttf_curved(n_glyphs, first_cp, seed,
-    quads)`, without fontTools. It has no table of prep cores, so the
-    renderer preps each glyph from its rings: the preps of
-    `curved_preps`."""
+    `render.driver.Renderer.prep_glyph` / `prep_block` read (glyph keys,
+    outlines as flattened rings, advances, units per EM, metadata), for
+    the font `build_ttf_curved(n_glyphs, first_cp, seed, quads)`, without
+    a file. Its keys are the font's glyph ids (glyph k is id k + 1). It
+    has no table of prep cores, so the renderer preps each glyph from
+    its rings: the preps of `curved_preps`."""
 
     units_per_em = UPEM
     prep_cores = None
-    _cores_and_mode = (None, "name")
 
     def __init__(self, n_glyphs: int, first_cp: int = 32, seed: int = 0, quads: int = 8):
         self.first_cp = first_cp
         self._outlines = curved_outlines(n_glyphs, seed, quads)
         self.metadata = _SynthMetadata(range(first_cp, first_cp + n_glyphs))
 
-    def glyph_name(self, codepoint: int):
+    def glyph_key(self, codepoint: int):
         k = codepoint - self.first_cp
-        return f"g{k}" if 0 <= k < len(self._outlines) else None
+        return k + 1 if 0 <= k < len(self._outlines) else None
 
-    glyph_key = glyph_name
+    def hor_advance(self, gid: int) -> int:
+        return self._outlines[gid - 1][0]
 
-    def hor_advance(self, name: str) -> int:
-        return self._outlines[int(name[1:])][0]
-
-    def outline_rings(self, name: str):
+    def outline_rings(self, gid: int):
         """Flattened closed rings (font units, float64), as
         `curved_preps` flattens them."""
         acc = RingAccumulator()
-        _draw(self._outlines[int(name[1:])][1], acc.move_to, acc.quad_to, acc.close_path)
+        _draw(self._outlines[gid - 1][1], acc.move_to, acc.quad_to, acc.close_path)
         return acc.finish()
 
 

@@ -112,6 +112,18 @@ JSON lines:
    median of three warm (kernel 1 twice a text font, its two groups),
    the host seconds of `make_fit_batch`, seconds a step through the
    CLI, kernels 2 and 3 counted as in phase 5 (23 in 20 steps).
+   Then OTFs written without fontTools (`utils.synth_font`): a CJK font
+   of 27,584 glyphs over U+3400-4DBF and U+4E00-9FFF (108 blocks), a
+   CID-keyed CFF (`build_otf_curved`), and its CFF2 twin with blends
+   (`build_otf2_curved`); ``merge`` of the CJK font against the same
+   CLI's exact tree (the contract above), the twin's tree byte-equal to
+   it; two small TTFs whose only unicode cmap subtable is of format 13
+   and of format 2, merged against their exact trees. In this process:
+   the host seconds of the CJK font's parse and prep cores, the twin's
+   `outline_curves` bit-equal to the CFF font's for every glyph, the
+   CJK merge's seconds (first and the median of three warm) with
+   kernel 1's launches equal to the render groups (`driver.WIRE_STATS`),
+   and lanes, tiles and flattened points a glyph.
 5. fit    — a self-fit of the text font's 1,700 glyphs at depth 3 from
    a perturbed start (`utils.synth_font.synth_fit_batch`): 20 Adam steps
    of the ``flat`` backend through `FontFitter.step_many`, which
@@ -1517,7 +1529,145 @@ def phase_cli(work) -> int:
           "step_ms_warm": 1e3 * statistics.median(step_s[len(step_s) // 2:]),
           "step_ms_each": [1e3 * x for x in step_s],
           "launches": {k: v for k, v in launches.items() if v}})
-    return first_launches
+    return first_launches + phase_cli_cjk(d)
+
+
+# Phase 4b's OTFs: the CJK font (`utils.synth_font.build_otf_curved`,
+# CID-keyed CFF over `CJK_RANGES`) and its CFF2 twin, seed 0; and two
+# small TTFs whose only unicode cmap subtable is of format 13 and of
+# format 2 (`cjk_cmap_fonts`).
+CJK_GLYPHS = 27584
+CJK_FAMILY = "Synth Ideo"
+
+
+def cjk_cmap_fonts() -> dict:
+    """name -> (bytes, glyphs): a 40-glyph TTF whose cmap is one format
+    13 subtable (platform 3, encoding 10: 30 codepoints one a glyph and
+    one range of 6 onto one glyph) and one whose cmap is one format 2
+    subtable (platform 0, encoding 3: single-byte codes 0x41.. and
+    two-byte codes 0x8100.. through a second subHeader)."""
+    from versatiles_glyphs_tpu_torch.utils import synth_font as sf
+
+    f13 = sf.with_cmap(sf.build_ttf_curved(40, 0x41, seed=21, family="Synth Thirteen"), [
+        (3, 10, sf.cmap_format13([(0x41 + k, 0x41 + k, k + 1) for k in range(30)]
+                                 + [(0x2000, 0x2005, 31)]))])
+    f2 = sf.with_cmap(sf.build_ttf_curved(40, 0x41, seed=22, family="Synth Two Byte"), [
+        (0, 3, sf.cmap_format2([(0x41, 26, 0, 0), (0, 14, 26, 0)], {0x81: 1},
+                               list(range(1, 41))))])
+    return {"cmap13": (f13, 36), "cmap2": (f2, 40)}
+
+
+def phase_cli_cjk(d) -> int:
+    """Phase 4b's OTFs through the CLI. Returns kernel 1's launches in
+    the in-process CJK merge's first run."""
+    import io
+
+    from versatiles_glyphs_tpu_torch import cli
+    from versatiles_glyphs_tpu_torch.font.entry import FontFileEntry
+    from versatiles_glyphs_tpu_torch.ops import sdf_cuda
+    from versatiles_glyphs_tpu_torch.render import driver
+    from versatiles_glyphs_tpu_torch.utils import synth_font as sf
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fonts = {"cjk": sf.build_otf_curved(CJK_GLYPHS, family=CJK_FAMILY)}
+    write_s = {"cjk": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    fonts["cjk_cff2"] = sf.build_otf2_curved(CJK_GLYPHS, family=CJK_FAMILY)
+    write_s["cjk_cff2"] = time.perf_counter() - t0
+    small = cjk_cmap_fonts()
+    fonts.update({k: v[0] for k, v in small.items()})
+    paths = {}
+    for name, data in fonts.items():
+        paths[name] = os.path.join(d, f"{name}.{'ttf' if name.startswith('cmap') else 'otf'}")
+        with open(paths[name], "wb") as f:
+            f.write(data)
+    emit({"phase": "cli", "step": "write_otfs", "glyphs": CJK_GLYPHS, "writer_s": write_s,
+          "bytes": {k: len(v) for k, v in fonts.items()}})
+
+    # The CJK font through the CLI against its exact tree, and its CFF2
+    # twin's tree against the CFF font's, byte for byte.
+    auto_dir, exact_dir = os.path.join(d, "cjk_auto"), os.path.join(d, "cjk_exact")
+    wall, lines = run_cli(["merge", paths["cjk"], "-o", auto_dir])
+    exact_wall, _ = run_cli(["merge", paths["cjk"], "-o", exact_dir, "--renderer", "exact"])
+    stack = only_stack(auto_dir)
+    if sorted(os.listdir(auto_dir)) != sorted(os.listdir(exact_dir)):
+        raise AssertionError("cli merge cjk: the trees list other files")
+    files, n_glyphs, n_pix, n_diff, max_d = compare_trees(stack, auto_dir, exact_dir)
+    frac = n_diff / max(n_pix, 1)
+    n_blocks = len({cp >> 8 for cp in sf.cjk_codepoints(CJK_GLYPHS)})
+    if max_d > 1 or frac > 0.05 or n_glyphs != CJK_GLYPHS or files != n_blocks:
+        raise AssertionError(f"cli merge cjk: {files} blocks, {n_glyphs} glyphs, max |Δ| "
+                             f"{max_d} on {frac:.4%} of pixels")
+    twin_dir = os.path.join(d, "cjk_cff2_auto")
+    twin_wall, _ = run_cli(["merge", paths["cjk_cff2"], "-o", twin_dir])
+    if compare_bytes(stack, twin_dir, auto_dir):
+        raise AssertionError("cli merge cjk_cff2: its tree differs from the CFF font's")
+    for fn in ("index.json", "font_families.json"):
+        with open(os.path.join(twin_dir, fn), "rb") as a, open(os.path.join(auto_dir, fn), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"cli merge cjk_cff2: {fn} differs")
+    emit({"phase": "cli", "step": "merge", "font": "cjk", "stack": stack, "blocks": files,
+          "glyphs": n_glyphs, "process_wall_s": wall, "exact_process_wall_s": exact_wall,
+          "cff2_twin_process_wall_s": twin_wall, "cff2_twin_tree_equal": True,
+          "seconds_to_rendering": line_at(lines, "Rendering glyphs"), "pixels": n_pix,
+          "pixels_off_by_1": n_diff, "frac_off": frac, "max_abs_diff": max_d})
+
+    # The two small fonts of one cmap subtable each, against their exact
+    # trees (written in this process).
+    for name, (_, n_cps) in small.items():
+        a_dir, e_dir = os.path.join(d, f"{name}_auto"), os.path.join(d, f"{name}_exact")
+        wall, _ = run_cli(["merge", paths[name], "-o", a_dir])
+        cli.main(["merge", paths[name], "-o", e_dir, "--renderer", "exact"], stdout=io.BytesIO())
+        st = only_stack(a_dir)
+        files, n_glyphs, n_pix, n_diff, max_d = compare_trees(st, a_dir, e_dir)
+        if max_d > 1 or n_diff / max(n_pix, 1) > 0.05 or n_glyphs != n_cps:
+            raise AssertionError(f"cli merge {name}: {n_glyphs} glyphs, max |Δ| {max_d}")
+        emit({"phase": "cli", "step": "merge", "font": name, "stack": st, "blocks": files,
+              "glyphs": n_glyphs, "process_wall_s": wall, "max_abs_diff": max_d,
+              "pixels_off_by_1": n_diff})
+
+    # In this process: the host's parse and prep cores, the twin's curves
+    # against the CFF font's, and the CJK merge timed with the counts reset.
+    t0 = time.perf_counter()
+    entry = FontFileEntry(fonts["cjk"])
+    cores = entry.prep_cores
+    host_s = time.perf_counter() - t0
+    twin = FontFileEntry(fonts["cjk_cff2"])
+    t0 = time.perf_counter()
+    for cp in entry.metadata.codepoints:
+        a = entry.outline_curves(entry.glyph_key(cp))
+        b = twin.outline_curves(twin.glyph_key(cp))
+        if a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"cjk: the CFF2 twin's curves of U+{cp:04X} differ")
+    curves_s = time.perf_counter() - t0
+    preps = [cores[entry.glyph_key(cp)].make_prep(cp) for cp in entry.metadata.codepoints]
+    n_pts = len(entry._flat[1])
+    out = os.path.join(d, "cjk_in_process")
+    secs, counts, groups = [], [], []
+    for _ in range(4):
+        sdf_cuda.reset_launches()
+        driver.reset_wire_stats()
+        t0 = time.perf_counter()
+        cli.main(["merge", paths["cjk"], "-o", out], stdout=io.BytesIO())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append(sdf_cuda.LAUNCHES["sdf_tiles_pts"])
+        groups.append(driver.WIRE_STATS["groups"])
+    if compare_bytes(stack, out, auto_dir):
+        raise AssertionError("cli merge cjk: in-process tree differs from the subprocess's")
+    if counts != groups or min(counts) < 1:
+        raise AssertionError(f"cli merge cjk: kernel 1 launches {counts} for groups {groups}")
+    n = len(preps)
+    emit({"phase": "cli", "step": "merge_in_process", "font": "cjk", "glyphs": n,
+          "seconds_first": secs[0], "seconds_warm": statistics.median(secs[1:]),
+          "seconds_each": secs, "groups": groups, "launches_sdf_tiles_pts": counts,
+          "host_parse_and_cores_s": host_s, "cff2_curves_equal_s": curves_s,
+          "lanes_per_glyph": sum(p.npts for p in preps) / n,
+          "tiles_per_glyph": sum(p.ntiles256 for p in preps if not p.empty) / n,
+          "flattened_points_per_glyph": n_pts / n, "synth_text_lanes_per_glyph": 447,
+          "phase_s": time.perf_counter() - t_phase})
+    return counts[0]
 
 
 def phase_flat_renders(font_list) -> dict:

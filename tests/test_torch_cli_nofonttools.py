@@ -19,9 +19,13 @@ bound is empirical: a self-fit starts at the optimum, where Adam's
 normalized steps move a parameter with a rounding-level gradient by up
 to the learning rate either way, so other fonts can exceed it.
 
-(e) A font that needs fontTools (a CFF2 font; a font whose only unicode
-cmap subtable is of format 13) exits, with fontTools refused, with one
-``error:`` line naming the table, and writes no tree.
+(e) Fonts the JAX package reads through fontTools: a CFF2 font, a font
+whose only unicode cmap subtable is of format 13, and 64 glyphs of
+`utils.synth_font.cjk_outlines` over two blocks as a CID-keyed OTF
+(`build_otf_curved`) and as its CFF2 twin (`build_otf2_curved`). The
+same refusing interpreter ``merge``s each (``--renderer torch``), and
+the trees are the JAX CLI's (``--renderer tpu --single-thread``), byte
+for byte.
 """
 
 import io
@@ -38,7 +42,11 @@ from fontTools.ttLib.tables._c_m_a_p import CmapSubtable
 
 from versatiles_glyphs_tpu.cli import main as jax_main
 from versatiles_glyphs_tpu.utils.synth_font import build_otf2, build_ttf
-from versatiles_glyphs_tpu_torch.utils.synth_font import build_ttf_curved
+from versatiles_glyphs_tpu_torch.utils.synth_font import (
+    build_otf2_curved,
+    build_otf_curved,
+    build_ttf_curved,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFUSED = ("fontTools", "jax", "jaxlib", "versatiles_glyphs_tpu")
@@ -74,6 +82,9 @@ main(["debug", out + "/merge/synth_alpha_regular"], stdout=rows)
 open(out + "/debug.csv", "w").write(rows.getvalue())
 main(["fit", fit_font, *{FIT!r}, "--device", "cpu", "--backend", "flat", "--render",
       "--render-backend", "torch", "-o", out + "/fit"], stdout=io.StringIO())
+for path in sys.argv[5:]:
+    stem = path.rsplit("/", 1)[-1].split(".")[0]
+    main(["merge", path, "-o", out + "/extra/" + stem, "--renderer", "torch"], stdout=io.BytesIO())
 bad = sorted(m for m in sys.modules if m.split('.')[0] in REFUSED)
 assert not bad, bad
 print("ALONE")
@@ -101,9 +112,13 @@ def runs(tmp_path_factory):
             build_ttf_curved(24, 0x41, seed=seed + 5, quads=6, family=family))
     font, fit_font = str(fonts / "alpha.ttf"), str(tmp / "fit.ttf")
     (tmp / "fit.ttf").write_bytes(build_ttf_curved(4, 65, seed=1))
+    extra = []
+    for stem, data in EXTRA_FONTS.items():
+        extra.append(tmp / f"{stem}.otf")
+        extra[-1].write_bytes(data())
     port, jax = tmp / "port", tmp / "jax"
     proc = subprocess.run([sys.executable, "-c", PORT_SIDE, font, str(fonts), fit_font,
-                           str(port)],
+                           str(port), *map(str, extra)],
                           cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ALONE" in proc.stdout
@@ -123,6 +138,9 @@ def runs(tmp_path_factory):
     (jax / "debug.csv").write_text(rows.getvalue())
     jax_main(["fit", fit_font, *FIT, "--backend", "pallas", "--render", "--render-backend", "tpu",
               "-o", str(jax / "fit")], stdout=io.StringIO())
+    for path in extra:
+        jax_main(["merge", str(path), "-o", str(jax / "extra" / path.stem), "--renderer", "tpu",
+                  "--single-thread"], stdout=io.BytesIO())
     return port, jax
 
 
@@ -178,20 +196,42 @@ def _cmap13_font() -> bytes:
     return buf.getvalue()
 
 
+# The fonts of (e): stem -> bytes. The CJK pair starts at U+34E0, so that
+# its 64 glyphs fill two blocks.
+EXTRA_FONTS = {
+    "cff2": lambda: build_otf2(6, family="Two Sans"),
+    "cmap13": _cmap13_font,
+    "cjk_cid": lambda: build_otf_curved(64, seed=4, first_cp=0x34E0, family="Synth Ideo"),
+    "cjk_cff2": lambda: build_otf2_curved(64, seed=4, first_cp=0x34E0, family="Synth Ideo"),
+}
+
+
 @pytest.mark.parametrize("kind,family,table", [
     ("cff2", "Two Sans", "the outlines of its 'CFF2' table"),
     ("cmap13", "Thirteen Sans", "its 'cmap' subtable (3, 10) of format 13"),
 ])
-def test_font_that_needs_fonttools_fails_in_one_line(tmp_path, kind, family, table):
-    data = build_otf2(6, family=family) if kind == "cff2" else _cmap13_font()
-    path = tmp_path / f"{kind}.ttf"
-    path.write_bytes(data)
-    out = tmp_path / "out"
-    code = BLOCKER + f"sys.argv = ['vg', 'merge', {str(path)!r}, '-o', {str(out)!r}]\nmain()\n"
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                          text=True, timeout=300)
-    assert proc.returncode == 1, proc.stderr[-3000:]
-    lines = proc.stderr.splitlines()
-    assert len(lines) == 1 and lines[0].startswith("error: "), proc.stderr
-    assert f"font {family!r}: fontTools is needed for {table}" in lines[0]
-    assert not out.exists() and proc.stdout == ""
+def test_font_that_needs_fonttools_fails_in_one_line(runs, kind, family, table):
+    """Fonts whose ``table`` the JAX package reads through fontTools
+    ``merge`` with fontTools refused, to the JAX CLI's tree."""
+    port, jax = runs
+    font = TTFont(io.BytesIO(EXTRA_FONTS[kind]()))
+    if kind == "cff2":
+        assert "CFF2" in font and "CFF " not in font and "glyf" not in font, table
+    else:
+        assert [(t.platformID, t.platEncID, t.format) for t in font["cmap"].tables] == [(3, 10, 13)]
+    got = _tree(port / "extra" / kind)
+    assert got == _tree(jax / "extra" / kind)
+    stack = family.lower().replace(" ", "_") + "_regular"
+    assert sorted(got) == ["font_families.json", "index.json", f"{stack}/0-255.pbf"]
+
+
+@pytest.mark.parametrize("kind", ["cjk_cid", "cjk_cff2"])
+def test_cjk_otf_merge_equals_jax(runs, kind):
+    """The CID-keyed OTF and its CFF2 twin, 64 glyphs over two blocks:
+    the JAX CLI's tree, and the same tree from both fonts."""
+    port, jax = runs
+    got = _tree(port / "extra" / kind)
+    assert got == _tree(jax / "extra" / kind)
+    assert got == _tree(port / "extra" / "cjk_cid")
+    assert sorted(got) == ["font_families.json", "index.json", "synth_ideo_regular/13312-13567.pbf",
+                           "synth_ideo_regular/13568-13823.pbf"]

@@ -2,9 +2,9 @@
 it reads fonts without fontTools.
 
 (a) No ``.py`` of `versatiles_glyphs_tpu_torch`, and neither
-``chip_smoke.py`` nor ``__graft_entry_torch__.py``, holds an import of `versatiles_glyphs_tpu` or of `jax` (an ``ast`` walk,
-so imports inside functions count and comments do not), and none
-imports fontTools outside a function body: no module loads it.
+``chip_smoke.py`` nor ``__graft_entry_torch__.py``, holds an import of `versatiles_glyphs_tpu`, of `jax` or of fontTools (an ``ast`` walk,
+so imports inside functions count and comments do not), and the
+fontTools pens of the old fallback (``font/pens.py``) are gone.
 
 (b) In a fresh interpreter whose import system refuses
 `versatiles_glyphs_tpu`, `jax`, `jaxlib` and `fontTools`, the port's ``merge``
@@ -31,8 +31,8 @@ from versatiles_glyphs_tpu_torch.utils.synth_font import build_ttf_curved
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "versatiles_glyphs_tpu_torch")
 NEVER = ("versatiles_glyphs_tpu", "jax", "jaxlib")
-# What (b)'s interpreter refuses: fontTools too, which the port imports
-# only for the fonts its own readers do not cover.
+# What (b)'s interpreter refuses: fontTools too, which the port reads
+# fonts without.
 REFUSED = NEVER + ("fontTools",)
 
 
@@ -122,17 +122,20 @@ def _module_level_imports(path):
     return out
 
 
-def test_no_module_of_the_port_loads_fonttools():
-    """fontTools is imported inside functions only (the fallback of
-    `font.entry`, `font.pens`, the x-mac codecs of `font.sfnt`), and the
-    walk sees the function-level ones."""
+def test_no_module_of_the_port_loads_fonttools(tmp_path):
+    """No file of the port imports fontTools at any level (inside
+    functions too), and ``font/pens.py``, the pens of the old fallback,
+    is gone."""
     bad = [f"{os.path.relpath(path, ROOT)}:{line}: {mod}"
-           for path in _port_files() for line, mod in _module_level_imports(path)
+           for path in _port_files() for line, mod in _imports(path)
            if mod.split(".")[0] == "fontTools"]
     assert not bad, bad
-    pens = os.path.join(PORT, "font", "pens.py")
-    assert any(mod.startswith("fontTools") for _, mod in _imports(pens))
-    assert not any(mod.startswith("fontTools") for _, mod in _module_level_imports(pens))
+    assert not os.path.exists(os.path.join(PORT, "font", "pens.py"))
+    # The walk sees an import inside a function, which no module-level walk would.
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f():\n    from fontTools.ttLib import TTFont\n    return TTFont\n")
+    assert _imports(str(probe)) == [(2, "fontTools.ttLib")]
+    assert _module_level_imports(str(probe)) == []
 
 
 def _tree(root):

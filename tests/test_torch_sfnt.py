@@ -13,8 +13,10 @@ tables, strings of odd length).
 `FontFileEntry`, glyph for glyph, on those fonts and on a font whose
 glyphs sit at the walkers' edges: a contour that starts off-curve, an
 all-off-curve contour, composites with a 2×2, an x/y and a uniform
-scale, and a composite of a composite. Their rings too. And the fontTools
-fallback (a CFF2 font, a format 13 cmap) against the JAX entry.
+scale, and a composite of a composite. Their rings too. And a CFF2 font
+and a font whose only unicode cmap is of format 13, which the JAX
+package reads through fontTools, against the JAX entry. The port's side
+runs with fontTools refused (`test_torch_cff2.fonttools_refused`).
 
 (c) `utils.synth_font.build_ttf_curved` against fontTools' FontBuilder
 on the same glyphs: fontTools opens the file, its checksums hold, and
@@ -49,6 +51,8 @@ from versatiles_glyphs_tpu.utils.synth_font import build_otf, build_otf2, build_
 from versatiles_glyphs_tpu_torch.font import entry as pt_entry
 from versatiles_glyphs_tpu_torch.font import sfnt
 from versatiles_glyphs_tpu_torch.utils import synth_font
+
+from test_torch_cff2 import fonttools_refused  # noqa: E402  (a sibling test module)
 
 FONTS = {
     "ttf": lambda: build_ttf(24),
@@ -204,21 +208,22 @@ def edge_font() -> bytes:
 def test_outline_curves_equal_curve_pen(kind):
     """Every mapped glyph's cubic soup, bit for bit, against fontTools'
     CurvePen (the JAX entry's `outline_curves`), and its rings against
-    the JAX entry's; every glyph through the native walk, none through
-    the port's fontTools fallback."""
+    the JAX entry's; the port's side with fontTools refused."""
     data = edge_font() if kind == "edges" else FONTS[kind]()
-    a, b = pt_entry.FontFileEntry(data), jx_entry.FontFileEntry(data)
+    b = jx_entry.FontFileEntry(data)
+    with fonttools_refused():
+        a = pt_entry.FontFileEntry(data)
+        got = {cp: (a.outline_curves(a.glyph_key(cp)), a.outline_rings(a.glyph_key(cp)))
+               for cp in a.metadata.codepoints}
     seen = 0
     for cp in b.metadata.codepoints:
-        key, name = a.glyph_key(cp), b.glyph_name(cp)
-        assert a._curve_map[key] is not None
-        got, want = a.outline_curves(key), b.outline_curves(name)
-        assert _bits(got) == _bits(want), (kind, name)
-        assert [_bits(r) for r in a.outline_rings(key)] == [
-            _bits(r) for r in b.outline_rings(name)], (kind, name)
+        name = b.glyph_name(cp)
+        curves, rings = got[cp]
+        want = b.outline_curves(name)
+        assert _bits(curves) == _bits(want), (kind, name)
+        assert [_bits(r) for r in rings] == [_bits(r) for r in b.outline_rings(name)], (kind, name)
         seen += len(want)
     assert seen > 20
-    assert a._tt is None  # fontTools never opened the file
 
 
 def cmap13_font() -> bytes:
@@ -235,25 +240,33 @@ def cmap13_font() -> bytes:
 
 @pytest.mark.parametrize("kind", ["cff2", "cmap13"])
 def test_fonttools_fallback_matches_jax(kind):
-    """Where the native parsers do not cover a font (CFF2 outlines; a
-    format 13 cmap), the port opens it with fontTools, lazily, and gives
-    the JAX entry's results codepoint by codepoint: advance, the prep of
-    the glyph's core, rings and curves."""
+    """Where the JAX package reads a font through fontTools (CFF2
+    outlines; a format 13 cmap), the port reads it natively, with no
+    fontTools module loaded, and gives the JAX entry's results codepoint
+    by codepoint: advance, the prep of the glyph's core, rings and
+    curves."""
     data = build_otf2(8, family="Two Sans") if kind == "cff2" else cmap13_font()
-    a, b = pt_entry.FontFileEntry(data), jx_entry.FontFileEntry(data)
-    assert a._tt is not None
+    b = jx_entry.FontFileEntry(data)
+    with fonttools_refused():
+        a = pt_entry.FontFileEntry(data)
+        got = {}
+        for cp in a.metadata.codepoints:
+            key = a.glyph_key(cp)
+            got[cp] = (a.hor_advance(key), a.prep_cores[key].make_prep(cp),
+                       a.outline_rings(key), a.outline_curves(key))
     assert (a.metadata.generate_name(), a.metadata.codepoints) == (
         b.metadata.generate_name(), b.metadata.codepoints)
     assert len(b.metadata.codepoints) >= 6
     for cp in b.metadata.codepoints:
-        key, name = a.glyph_key(cp), b.glyph_name(cp)
-        assert a.hor_advance(key) == b.hor_advance(name)
-        pa, pb = a.prep_cores[key].make_prep(cp), b.prep_cores[b.glyph_key(cp)].make_prep(cp)
+        name = b.glyph_name(cp)
+        advance, pa, rings, curves = got[cp]
+        assert advance == b.hor_advance(name)
+        pb = b.prep_cores[b.glyph_key(cp)].make_prep(cp)
         assert (pa.advance, pa.width, pa.height, pa.x0, pa.y0) == (
             pb.advance, pb.width, pb.height, pb.x0, pb.y0)
         assert _bits(pa.chain16) == _bits(pb.chain16)
-        assert [_bits(r) for r in a.outline_rings(key)] == [_bits(r) for r in b.outline_rings(name)]
-        assert _bits(a.outline_curves(key)) == _bits(b.outline_curves(name))
+        assert [_bits(r) for r in rings] == [_bits(r) for r in b.outline_rings(name)]
+        assert _bits(curves) == _bits(b.outline_curves(name))
 
 
 def test_curve_soup_rules():

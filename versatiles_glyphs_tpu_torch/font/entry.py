@@ -3,33 +3,26 @@
 Host-side equivalent of the reference's `FontFileEntry` + `FontMetadata`
 (`reference/src/font/file_entry.rs`, `src/font/metadata.rs`), read
 without fontTools: the sfnt directory, ``head`` and ``name`` by
-`font.sfnt`; the cmap union, hmtx advances and the glyf/CFF outlines by
-the native parsers (`proto.native`, ``csrc/vg_native.cpp``), which walk
-outlines with fontTools' pen semantics bit for bit: flattened rings for
-the render (one batch a font, into `render.metrics.build_cores`) and
-the segments from which `curve_soup` builds the fit path's cubics.
+`font.sfnt`; the cmap union, hmtx advances and the glyf, CFF and CFF2
+outlines by the native parsers (`proto.native`, ``csrc/vg_native.cpp``),
+which read every font the JAX package reads through fontTools 4.61.1 and
+give what it gives, bit for bit: flattened rings for the render (one
+batch a font, into `render.metrics.build_cores`) and the segments from
+which `curve_soup` builds the fit path's cubics. A glyph fontTools'
+pen fails to draw is −1 in the batch (a None core), as the JAX package
+records it; a font fontTools fails to read raises ValueError.
 Glyphs are keyed by glyph id: `glyph_key` gives a codepoint's, and
 `hor_advance`, `outline_rings`, `outline_curves` and `prep_cores` take it.
 
-fontTools is needed, and imported where it is used, only for what the
-native parsers do not cover:
-
-- a unicode cmap subtable of a format other than 0, 4, 6, 12 and 14:
-  the codepoints, glyph ids and advances then come from fontTools'
-  ``TTFont`` (the same union as the JAX package's fallback);
-- outlines in no 'glyf' and no 'CFF ' table (CFF2), and a glyph the
-  native walkers reject (seac accents, point-matched components, CFF
-  arithmetic operators): those outlines are drawn with its pens
-  (`font.pens`).
-
-Where fontTools is not importable such a font raises ValueError naming
-the font and the table: for the cmap and the outline table when the
-entry is made, for a rejected glyph when its outline is first read.
+Where a font's cmap, hhea, maxp or hmtx is missing, runs past the end
+of the file or is short, `FontFileEntry` reads the index as fontTools'
+tables give it (the JAX package's route for such a font): advances 0
+where fontTools has no metric, and ValueError where it raises.
 """
 
 from __future__ import annotations
 
-import io
+import struct
 from functools import cached_property
 
 import numpy as np
@@ -39,9 +32,6 @@ from ..proto import native
 from .names import generate_name, parse_font_name
 from .sfnt import Sfnt
 
-# Unicode cmap subtable formats the native union reads (14, variation
-# sequences, maps no codepoint in fontTools' union either).
-NATIVE_CMAP_FORMATS = (0, 4, 6, 12, 14)
 # Segment kinds of `proto.native.glyf_curves` / `cff_curves`.
 MOVE, LINE, QUAD, CUBIC, CLOSE = range(5)
 
@@ -49,8 +39,8 @@ MOVE, LINE, QUAD, CUBIC, CLOSE = range(5)
 def curve_soup(kinds: np.ndarray, pts: np.ndarray):
     """The cubic soup of native segment records (kinds [M], pts [M, 4, 2]:
     the current point, then the segment's points): (curves [M, 4, 2],
-    keep [M] bool), the rules of `font.pens` CurvePen with its operation
-    order. A line becomes a cubic with control points at the thirds, a
+    keep [M] bool), the rules of the JAX package's CurvePen (a fontTools
+    pen) with its operation order. A line becomes a cubic with control points at the thirds, a
     quadratic is degree-elevated by 2/3, a cubic stays, and a close whose
     current point is not the contour's start becomes a closing line."""
     s, a, e = pts[:, 0], pts[:, 1], pts[:, 3]
@@ -66,23 +56,39 @@ def curve_soup(kinds: np.ndarray, pts: np.ndarray):
     return out, line | quad | (kinds == CUBIC)
 
 
-def _cmap_why(cmap: bytes) -> str:
-    """Which part of a cmap table the native union rejected."""
-    if len(cmap) >= 4:
-        n = int.from_bytes(cmap[2:4], "big")
-        for t in range(n):
-            rec = cmap[4 + 8 * t: 12 + 8 * t]
-            if len(rec) < 8:
-                break
-            plat, enc = int.from_bytes(rec[:2], "big"), int.from_bytes(rec[2:4], "big")
-            off = int.from_bytes(rec[4:], "big")
-            if not (plat == 0 or (plat == 3 and enc in (0, 1, 10))):
-                continue
-            fmt = cmap[off:off + 2]
-            if len(fmt) == 2 and int.from_bytes(fmt, "big") not in NATIVE_CMAP_FORMATS:
-                return (f"its 'cmap' subtable ({plat}, {enc}) of format "
-                        f"{int.from_bytes(fmt, 'big')}")
-    return "its malformed 'cmap' table"
+def _fonttools_cmap(cmap: bytes) -> bool:
+    """Whether a cmap has a unicode subtable of format 2 or 13 (declared
+    length not 0): the JAX package's native reader lacks those, and
+    reads the whole font's index through fontTools."""
+    n = struct.unpack(">H", cmap[2:4])[0] if len(cmap) >= 4 else 0
+    for t in range(n):
+        rec = cmap[4 + 8 * t:12 + 8 * t]
+        if len(rec) < 8:
+            break
+        pid, eid, off = struct.unpack(">HHI", rec)
+        if not (pid == 0 or (pid == 3 and eid in (0, 1, 10))):
+            continue
+        head = cmap[off:off + 8]
+        if len(head) < 4:
+            continue
+        fmt = struct.unpack(">H", head[:2])[0]
+        if fmt == 2 and struct.unpack(">H", head[2:4])[0]:
+            return True
+        if fmt == 13 and len(head) == 8 and struct.unpack(">I", head[4:8])[0]:
+            return True
+    return False
+
+
+def _side_bearings(hmtx: bytes, num_h: int, num_g: int):
+    """hmtx's left side bearing of each of ``num_g`` glyphs (int16): the
+    long metrics', then the trailing array's; None where the table is
+    too short for them."""
+    if num_h < 1 or len(hmtx) < 4 * num_h + 2 * (num_g - num_h):
+        return None
+    lsb = np.empty(num_g, np.int16)
+    lsb[:num_h] = np.frombuffer(hmtx[:4 * num_h], ">i2")[1::2]
+    lsb[num_h:] = np.frombuffer(hmtx[4 * num_h:4 * num_h + 2 * (num_g - num_h)], ">i2")
+    return lsb
 
 
 class FontMetadata:
@@ -112,7 +118,7 @@ class FontFileEntry:
     (identity) and the outline path of `src/render/renderer.rs:103-116`
     (lookup + advance). Raises RuntimeError when the native library is
     not built (`proto.native.require`), ValueError for a file that is
-    not a font or that needs fontTools where there is none."""
+    not a font or that fontTools fails to read."""
 
     def __init__(self, data: bytes):
         native.require()
@@ -121,87 +127,107 @@ class FontFileEntry:
         family, ps_name = self.sfnt.names()
         self.label = family or ps_name or "(unnamed)"
         self.units_per_em: int = self.sfnt.units_per_em
-        self._tt = None
-        index = self._native_index()
-        if isinstance(index, str):
-            index = self._fonttools_index(index)
-        self._cps, self._gids, self._advances = index
-        if self._outline_table is None:
-            # No native route for any outline: fail now without fontTools.
-            self._fonttools(self._outlines_of("the outlines"))
+        try:
+            self._cps, self._gids, self._advances, self._lsbs = self._index()
+        except ValueError as e:
+            raise ValueError(f"font {self.label!r}: {e}") from None
         self.metadata = FontMetadata(family or "", ps_name or "", self._cps.tolist())
-
-    # -- fontTools, for the fallback only ---------------------------------
-
-    def _fonttools(self, what: str):
-        """fontTools' TTFont of the file; ValueError naming the font and
-        ``what`` needs it when fontTools is not importable."""
-        if self._tt is None:
-            try:
-                from fontTools.ttLib import TTFont
-            except ImportError:
-                raise ValueError(f"font {self.label!r}: fontTools is needed for {what}, "
-                                 "and it is not installed") from None
-            self._tt = TTFont(io.BytesIO(self.data), fontNumber=0, lazy=True)
-        return self._tt
-
-    def _glyph_name(self, gid: int, what: str) -> str:
-        return self._fonttools(what).getGlyphOrder()[gid]
 
     # -- index: codepoints, glyph ids, advances -----------------------------
 
-    def _native_index(self):
-        """(cps u32 sorted, gids u32, advances u16 by gid) from the raw
-        cmap/hmtx/hhea/maxp tables by the native parsers, or why they do
-        not cover this font (str)."""
+    def _index(self):
+        """(cps u32 sorted, gids u32, advances u16 by gid, lsbs i16 by gid
+        or None): the native cmap union, and the advances of hmtx as the
+        JAX package reads them (natively where its native reader
+        applies, else — a table missing or short, or a unicode cmap
+        subtable its native reader lacks — as fontTools' tables give
+        them, `_tolerant_metrics`). The side bearings are always
+        fontTools' (its glyph set's: a glyph drawn by fontTools' route is
+        moved by lsb - xMin), None where fontTools has no glyph set."""
         s = self.sfnt
         if "cmap" not in s:
             raise ValueError("Font has no cmap table")
-        for tag in ("cmap", "hmtx", "hhea", "maxp"):
-            if tag not in s:
-                return f"a font with no '{tag}' table"
-            if not s.covered(tag):
-                # Over-declared directory length (fontTools tolerates
-                # the short read).
-                return f"its '{tag}' table, which runs past the end of the file"
+        if not s.covered("cmap"):
+            raise ValueError("its 'cmap' table runs past the end of the file")
         cmap = s.table("cmap")
-        res = native.cmap_union(np.frombuffer(cmap, np.uint8))
-        if res is None:
-            return _cmap_why(cmap)
-        cps, gids = res
+        cps, gids = native.cmap_union(np.frombuffer(cmap, np.uint8))
         num_h, num_g = s.u16("hhea", 34), s.u16("maxp", 4)
-        if num_h is None or num_g is None:
-            return "its short 'hhea' or 'maxp' table"
-        adv = native.hmtx_advances(np.frombuffer(s.table("hmtx"), np.uint8), num_h, num_g)
-        if adv is None:
-            return "its short 'hmtx' table"
-        keep = gids < num_g  # guard malformed cmaps; fontTools would err
-        if not keep.all():
-            cps, gids = cps[keep], gids[keep]
-        return cps, gids, adv
+        adv = None
+        if (all(s.covered(t) for t in ("hmtx", "hhea", "maxp")) and None not in (num_h, num_g)
+                and not _fonttools_cmap(cmap)):
+            adv = native.hmtx_advances(np.frombuffer(s.table("hmtx"), np.uint8), num_h, num_g)
+        if adv is not None:
+            keep = gids < num_g  # guard malformed cmaps, as the JAX native reader does
+            if not keep.all():
+                cps, gids = cps[keep], gids[keep]
+            try:  # fontTools' reading of hmtx (its glyph set), or none
+                lsb = self._tolerant_metrics()[1]
+            except ValueError:
+                lsb = None
+            return cps, gids, adv, lsb
+        adv, lsb = self._tolerant_metrics()
+        if len(gids) and int(gids.max()) >= len(adv):
+            raise ValueError(f"its 'cmap' maps glyph {int(gids.max())}, past its "
+                             f"{len(adv)} glyphs")
+        return cps, gids, adv, lsb
 
-    def _fonttools_index(self, why: str):
-        """The index through fontTools: the union over its unicode cmap
-        subtables (first subtable to map a codepoint wins), names turned
-        into glyph ids, advances from its hmtx (0 where it has none)."""
-        tt = self._fonttools(why)
-        cmap = tt.get("cmap")
-        if cmap is None:
-            raise ValueError("Font has no cmap table")
-        union: dict = {}
-        for sub in cmap.tables:
-            if sub.isUnicode():
-                for cp, name in sub.cmap.items():
-                    union.setdefault(cp, name)
-        gid_of = tt.getReverseGlyphMap()
-        cps = np.array(sorted(union), dtype=np.uint32)
-        gids = np.array([gid_of[union[int(cp)]] for cp in cps], dtype=np.uint32)
-        try:
-            metrics = tt["hmtx"].metrics
-        except KeyError:
-            metrics = {}
-        adv = np.array([metrics.get(n, (0, 0))[0] for n in tt.getGlyphOrder()], dtype=np.uint16)
-        return cps, gids, adv
+    def _table_for_fonttools(self, tag: str) -> bytes:
+        """A listed table's bytes; ValueError where it runs past the end
+        of the file (fontTools' load asserts its length)."""
+        if not self.sfnt.covered(tag):
+            raise ValueError(f"its '{tag}' table runs past the end of the file")
+        return self.sfnt.table(tag)
+
+    def _num_glyphs(self) -> int | None:
+        """``maxp.numGlyphs`` as fontTools decodes maxp (exactly 6 bytes
+        of version 0.5 or 32 of 1.0); None without a maxp."""
+        if "maxp" not in self.sfnt:
+            return None
+        raw = self._table_for_fonttools("maxp")
+        if len(raw) < 6 or len(raw) != (6 if raw[:4] == b"\0\0\x50\0" else 32):
+            raise ValueError("its 'maxp' table, which fontTools cannot decode")
+        return struct.unpack(">H", raw[4:6])[0]
+
+    def _tolerant_metrics(self):
+        """(advances u16, lsbs i16 or None) of each glyph of fontTools'
+        glyph order, as fontTools' hmtx gives them: advance 0 and no side
+        bearings (no glyph set) without an hmtx; numberOfHMetrics is the
+        glyph count without an hhea, and capped at it; ValueError where
+        fontTools raises (a table cut short, an hhea or maxp it cannot
+        decode, an hmtx shorter than its metrics or without the maxp it
+        reads, no long metric at all)."""
+        s = self.sfnt
+        if "CFF " in s:  # the glyph order is the CFF charset
+            n = native.cff_glyph_count(np.frombuffer(self._table_for_fonttools("CFF "), np.uint8))
+            if n < 0:
+                raise ValueError("its 'CFF ' table, which does not parse")
+        else:
+            n = self._num_glyphs()
+            if n is None:
+                raise ValueError("a font with no 'maxp' table")
+        adv = np.zeros(n, np.uint16)
+        if "hmtx" not in s:
+            return adv, None
+        num_g = self._num_glyphs()
+        if num_g is None:  # fontTools keeps a half-read hmtx, which fails when read again
+            raise ValueError("its 'hmtx' table, which cannot be read without a 'maxp'")
+        num_h = num_g
+        if "hhea" in s:
+            hhea = self._table_for_fonttools("hhea")
+            if len(hhea) != 36:
+                raise ValueError("its 'hhea' table, which fontTools cannot decode")
+            num_h = min(struct.unpack(">H", hhea[34:36])[0], num_g)
+        hmtx = self._table_for_fonttools("hmtx")
+        if len(hmtx) < 4 * num_h + 2 * (num_g - num_h):
+            raise ValueError("its short 'hmtx' table")
+        if num_h == 0:
+            raise ValueError("its 'hmtx' table, which holds no long metric")
+        if num_g > n:
+            raise ValueError(f"its 'maxp' counts {num_g} glyphs, past its {n}")
+        long_adv = np.frombuffer(hmtx[:4 * num_h], ">u2")[::2]
+        adv[:num_h] = long_adv
+        adv[num_h:num_g] = long_adv[-1]
+        return adv, _side_bearings(hmtx, num_h, num_g)
 
     @cached_property
     def _gid_map(self) -> dict:
@@ -223,7 +249,8 @@ class FontFileEntry:
     @cached_property
     def _outline_table(self):
         """("glyf", glyf bytes, loca u32 offsets), ("CFF ", table bytes),
-        or None (CFF2 or no outline table): the native walkers' input."""
+        ("CFF2", table bytes), or None (no outline table: every glyph −1,
+        as fontTools draws none)."""
         s = self.sfnt
         if "glyf" in s and "loca" in s:
             raw = s.table("loca")
@@ -234,64 +261,33 @@ class FontFileEntry:
                 raw = raw[: len(raw) // 4 * 4]
                 loca = np.frombuffer(raw, dtype=">u4").astype(np.uint32)
             return "glyf", np.frombuffer(s.table("glyf"), np.uint8), loca
-        if "CFF " in s:
-            return "CFF ", np.frombuffer(s.table("CFF "), np.uint8)
+        for tag in ("CFF ", "CFF2"):
+            if tag in s:
+                return tag, np.frombuffer(s.table(tag), np.uint8)
         return None
 
-    def _outlines_of(self, what: str) -> str:
-        """``what`` of the font's outline table, for a message."""
-        tag = next((t for t in ("glyf", "CFF ", "CFF2") if t in self.sfnt), None)
-        return f"{what} of its '{tag}' table" if tag else f"{what} of a font with no outline table"
-
-    def _rejected(self, gid: int) -> str:
-        return self._outlines_of(f"glyph {gid}")
-
-    def _pen_rings(self, name: str):
-        """A glyph's rings drawn by fontTools' pen (the fallback)."""
-        from ..ops.flatten import RingAccumulator
-        from .pens import pen_classes
-
-        glyph_set = self._tt.getGlyphSet()
-        acc = RingAccumulator()
-        glyph_set[name].draw(pen_classes()[0](glyph_set, acc))
-        return acc.finish()
+    def _native_rings(self, ugids: np.ndarray):
+        """(pts [N, 2] f64, ring_lens [R] i32, glyph_nrings [n] i32) of
+        the glyphs from one native batch parse and flatten (csrc
+        vg_glyf_rings / vg_cff_rings); −1 marks a glyph fontTools' pen
+        fails to draw too."""
+        table = self._outline_table
+        res = None
+        ft = self._lsbs is not None  # fontTools has a glyph set (a readable hmtx)
+        if table is not None and table[0] == "glyf":
+            res = native.glyf_rings(table[1], table[2], ugids, FLATTEN_TOLERANCE_SQ, self._lsbs, ft)
+        elif table is not None:
+            res = native.cff_rings(table[1], ugids, FLATTEN_TOLERANCE_SQ, ft)
+        if res is None:
+            res = (np.zeros((0, 2)), np.zeros(0, np.int32), np.full(len(ugids), -1, np.int32))
+        return res
 
     @cached_property
     def _flat(self):
         """(gids u32 sorted unique, pts [N, 2] f64, ring_lens [R] i32,
-        glyph_nrings [n] i32) of every mapped glyph: one native batch
-        parse and flatten (csrc vg_glyf_rings / vg_cff_rings), the glyphs
-        it rejects drawn by fontTools' pen; −1 marks a glyph whose pen
-        walk failed too."""
+        glyph_nrings [n] i32) of every mapped glyph."""
         ugids = np.unique(self._gids).astype(np.uint32)
-        table = self._outline_table
-        res = None
-        if table is not None and table[0] == "glyf":
-            res = native.glyf_rings(table[1], table[2], ugids, FLATTEN_TOLERANCE_SQ)
-        elif table is not None:
-            res = native.cff_rings(table[1], ugids, FLATTEN_TOLERANCE_SQ)
-        if res is None:
-            res = (np.zeros((0, 2)), np.zeros(0, np.int32), np.full(len(ugids), -1, np.int32))
-        pts, ring_lens, nrings = res
-        if int(nrings.min(initial=0)) >= 0:
-            return ugids, pts, ring_lens, nrings
-        rings = self._split_rings(pts, ring_lens, nrings)
-        parts, lens, counts = [], [], []
-        for gid, rs in zip(ugids.tolist(), rings):
-            if rs is None:
-                name = self._glyph_name(gid, self._rejected(gid))
-                try:
-                    rs = self._pen_rings(name)
-                except Exception:
-                    counts.append(-1)  # truly malformed: per-glyph error
-                    continue
-            counts.append(len(rs))
-            for r in rs:
-                parts.append(np.asarray(r, dtype=np.float64))
-                lens.append(len(r))
-        pts = np.concatenate(parts, axis=0) if parts else np.zeros((0, 2), np.float64)
-        return (ugids, pts, np.asarray(lens, dtype=np.int32),
-                np.asarray(counts, dtype=np.int32))
+        return (ugids, *self._native_rings(ugids))
 
     @staticmethod
     def _split_rings(pts, ring_lens, nrings) -> list:
@@ -322,18 +318,27 @@ class FontFileEntry:
         glyph: metrics + device transport caches computed in ONE
         vectorized pass over the font (`render.metrics.build_cores`);
         every codepoint mapping to a glyph shares its core. A None core
-        remains only for a glyph whose outline no parser could walk."""
+        remains only for a glyph fontTools' pen fails to draw."""
         from ..render.metrics import build_cores
 
         ugids, pts, ring_lens, nrings = self._flat
         advances = self._advances[ugids].astype(np.float64)
         return build_cores(ugids.tolist(), advances, self.units_per_em, pts, ring_lens, nrings)
 
+    def _failed(self, gid: int) -> ValueError:
+        tag = self._outline_table[0].strip() if self._outline_table else "no outline"
+        return ValueError(f"font {self.label!r}: glyph {gid} of its '{tag}' table "
+                          "cannot be drawn")
+
     def outline_rings(self, gid: int):
-        """Flattened closed rings (font units, float64) of a glyph."""
-        rings = self._ring_map.get(gid)
+        """Flattened closed rings (font units, float64) of a glyph;
+        ValueError for a glyph fontTools' pen fails to draw."""
+        if gid in self._ring_map:
+            rings = self._ring_map[gid]
+        else:
+            rings = self._split_rings(*self._native_rings(np.array([gid], np.uint32)))[0]
         if rings is None:
-            rings = self._pen_rings(self._glyph_name(gid, self._rejected(gid)))
+            raise self._failed(gid)
         return rings
 
     @cached_property
@@ -343,13 +348,13 @@ class FontFileEntry:
 
     def _native_curves(self, ugids: np.ndarray) -> dict:
         """gid → cubic soup [C, 4, 2] from one native walk of the glyphs'
-        segments (csrc vg_glyf_curves / vg_cff_curves), None where the
-        walker rejected a glyph."""
+        segments (csrc vg_glyf_curves / vg_cff_curves), None where
+        fontTools' pen fails to draw a glyph."""
         table = self._outline_table
-        if table is None:
+        if table is None or self._lsbs is None:  # no glyph set in fontTools
             return dict.fromkeys(ugids.tolist())
         if table[0] == "glyf":
-            kinds, pts, nrecs = native.glyf_curves(table[1], table[2], ugids)
+            kinds, pts, nrecs = native.glyf_curves(table[1], table[2], ugids, self._lsbs)
         else:
             kinds, pts, nrecs = native.cff_curves(table[1], ugids)
         curves, keep = curve_soup(kinds, pts)
@@ -365,15 +370,10 @@ class FontFileEntry:
 
     def outline_curves(self, gid: int):
         """Cubic-curve soup [C, 4, 2] (font units, float64) for the
-        differentiable model path; empty as [0, 4, 2]."""
+        differentiable model path; empty as [0, 4, 2]; ValueError for a
+        glyph fontTools' pen fails to draw."""
         cmap = self._curve_map
         curves = cmap[gid] if gid in cmap else self._native_curves(np.array([gid], np.uint32))[gid]
         if curves is None:
-            from .pens import pen_classes
-
-            name = self._glyph_name(gid, self._rejected(gid))
-            glyph_set = self._tt.getGlyphSet()
-            pen = pen_classes()[1](glyph_set)
-            glyph_set[name].draw(pen)
-            curves = np.asarray(pen.curves, dtype=np.float64)
+            raise self._failed(gid)
         return curves if len(curves) else np.zeros((0, 4, 2))

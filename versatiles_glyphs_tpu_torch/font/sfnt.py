@@ -21,14 +21,18 @@ gives the JAX package.
   which wins at once; an empty result is None. A record's encoding is
   fontTools' ``encodingTools`` map, copied below: every encoding there is
   a codec of Python's own except the four CJK Mac ones of fontTools
-  (``x_mac_*_ttx``: platform 1 encodings 1, 2, 3 and 25). Those records
-  are decoded through fontTools where it is importable and skipped where
-  it is not. Unknown encodings decode as ASCII, and UTF-16 strings of
-  odd length are repaired as ``NameRecord.toUnicode`` repairs them.
+  (``x_mac_*_ttx``: platform 1 encodings 1, 2, 3 and 25), which are
+  decoded here as fontTools' ``encodings.codecs.ExtendCodec`` decodes
+  them: Python's ``shift_jis``, ``big5``, ``euc_kr`` or ``gb2312`` with
+  a few single bytes it cannot decode mapped to characters (`_MAC_CJK`,
+  fontTools' ``_extended_encodings``). Unknown encodings decode as
+  ASCII, and UTF-16 strings of odd length are repaired as
+  ``NameRecord.toUnicode`` repairs them.
 """
 
 from __future__ import annotations
 
+import codecs
 import struct
 
 SFNT_VERSIONS = (b"\x00\x01\x00\x00", b"OTTO", b"true")
@@ -53,6 +57,40 @@ _ENCODINGS = {
 }
 ENGLISH = ((1, 0), (3, 0x409))
 
+# fontTools.encodings.codecs._extended_encodings: the base codec of each
+# CJK Mac encoding and the bytes it cannot decode that map to a character.
+_MAC_CJK = {
+    "x_mac_japanese_ttx": ("shift_jis", {b"\xFC": "\u007C", b"\x7E": "\u007E", b"\x80": "\u005C",
+                                         b"\xA0": "\u00A0", b"\xFD": "\u00A9", b"\xFE": "\u2122",
+                                         b"\xFF": "\u2026"}),
+    "x_mac_trad_chinese_ttx": ("big5", {b"\x80": "\u005C", b"\xA0": "\u00A0", b"\xFD": "\u00A9",
+                                        b"\xFE": "\u2122", b"\xFF": "\u2026"}),
+    "x_mac_korean_ttx": ("euc_kr", {b"\x80": "\u00A0", b"\x81": "\u20A9", b"\x82": "\u2014",
+                                    b"\x83": "\u00A9", b"\xFE": "\u2122", b"\xFF": "\u2026"}),
+    "x_mac_simp_chinese_ttx": ("gb2312", {b"\x80": "\u00FC", b"\xA0": "\u00A0", b"\xFD": "\u00A9",
+                                          b"\xFE": "\u2122", b"\xFF": "\u2026"}),
+}
+
+
+def _mac_cjk_handler(mapping: dict):
+    """``ExtendCodec.error`` for decoding: the shortest run of the bytes
+    that failed, from where they start, that ``mapping`` holds, else the
+    error is raised (fontTools decodes with ``errors="strict"``)."""
+
+    def handler(e):
+        if isinstance(e, UnicodeDecodeError):
+            for end in range(e.start + 1, e.end + 1):
+                s = e.object[e.start:end]
+                if s in mapping:
+                    return mapping[s], end
+        raise e
+
+    return handler
+
+
+for _name, (_, _mapping) in _MAC_CJK.items():
+    codecs.register_error("versatiles_" + _name, _mac_cjk_handler(_mapping))
+
 
 def encoding_of(platform_id: int, enc_id: int, lang_id: int) -> str:
     """The codec name fontTools gives a name record ('ascii' if unknown)."""
@@ -68,11 +106,8 @@ def _isascii(b: int) -> bool:
 
 def decode_name(raw: bytes, platform_id: int, enc_id: int, lang_id: int) -> str:
     """A name record's string as ``NameRecord.toUnicode()`` gives it;
-    raises UnicodeDecodeError where that does, and LookupError for an
-    ``x_mac_*_ttx`` record when fontTools is not importable."""
+    raises UnicodeDecodeError where that does."""
     enc = encoding_of(platform_id, enc_id, lang_id)
-    if enc.endswith("_ttx"):
-        import fontTools.encodings.codecs  # noqa: F401  (registers the codecs; may raise)
     s = raw
     if enc == "utf_16_be" and len(s) % 2 == 1:
         if s[-1] == 0:
@@ -81,7 +116,10 @@ def decode_name(raw: bytes, platform_id: int, enc_id: int, lang_id: int) -> str:
             s = b"\0" + s
         elif s[0] == 0 and all(_isascii(b) for b in s[1:]):
             s = b"".join(b"\0" + bytes([b]) for b in s[1:])
-    text = s.decode(enc)
+    if enc in _MAC_CJK:
+        text = s.decode(_MAC_CJK[enc][0], errors="versatiles_" + enc)
+    else:
+        text = s.decode(enc)
     if all(ord(c) == 0 if i % 2 == 0 else _isascii(ord(c)) for i, c in enumerate(text)):
         text = "".join(text[1::2])
     return text
@@ -114,7 +152,7 @@ def debug_name(records, name_id: int) -> str | None:
             continue
         try:
             text = decode_name(raw, pid, eid, lid)
-        except (UnicodeDecodeError, LookupError, ImportError):
+        except (UnicodeDecodeError, LookupError):
             continue
         some = text
         if (pid, lid) in ENGLISH:

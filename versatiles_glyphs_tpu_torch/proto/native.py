@@ -106,16 +106,16 @@ def _load():
     if hasattr(lib, "vg_glyf_rings"):
         lib.vg_glyf_rings.restype = L
         lib.vg_glyf_rings.argtypes = [
-            P, L, P, L, P, L, ctypes.c_double, P, L, P, L, P, P,
+            P, L, P, L, L, P, L, P, L, ctypes.c_double, P, L, P, L, P, P,
         ]
     if hasattr(lib, "vg_cff_rings"):
         lib.vg_cff_rings.restype = L
         lib.vg_cff_rings.argtypes = [
-            P, L, P, L, ctypes.c_double, P, L, P, L, P, P,
+            P, L, L, P, L, ctypes.c_double, P, L, P, L, P, P,
         ]
     if hasattr(lib, "vg_glyf_curves"):
         lib.vg_glyf_curves.restype = L
-        lib.vg_glyf_curves.argtypes = [P, L, P, L, P, L, P, P, L, P, P]
+        lib.vg_glyf_curves.argtypes = [P, L, P, L, P, L, P, L, P, P, L, P, P]
     if hasattr(lib, "vg_cff_curves"):
         lib.vg_cff_curves.restype = L
         lib.vg_cff_curves.argtypes = [P, L, P, L, P, P, L, P, P]
@@ -125,6 +125,9 @@ def _load():
             P, L, P, L, P, L, P, ctypes.c_double,
             P, P, P, P, P, P, P, P, P, P, P, P, P,
         ]
+    if hasattr(lib, "vg_cff_glyph_count"):
+        lib.vg_cff_glyph_count.restype = L
+        lib.vg_cff_glyph_count.argtypes = [P, L]
     if hasattr(lib, "vg_cmap_union"):
         lib.vg_cmap_union.restype = L
         lib.vg_cmap_union.argtypes = [P, L, P, P, L]
@@ -201,21 +204,35 @@ def tar_header(
     return out.tobytes()
 
 
+def _lsb_arg(lsb):
+    """(pointer, count) of an int16 left-side-bearing array, or (None, 0)
+    where there is none (a glyph that needs one then fails)."""
+    if lsb is None:
+        return None, 0
+    lsb = np.ascontiguousarray(lsb, dtype=np.int16)
+    return lsb, len(lsb)
+
+
 def glyf_rings(
-    glyf: np.ndarray, loca: np.ndarray, gids: np.ndarray, tol_sq: float
+    glyf: np.ndarray, loca: np.ndarray, gids: np.ndarray, tol_sq: float, lsb=None,
+    fonttools_mode: bool = True,
 ):
     """Flattened outline rings for a batch of glyph ids, parsed natively
-    from the raw glyf table (csrc vg_glyf_rings). Returns
+    from the raw glyf table (csrc vg_glyf_rings), with fontTools' drawing
+    where the native walk gives up (which moves a top-level simple glyph
+    by its hmtx ``lsb`` [glyphs] int16 minus its xMin; none with
+    ``fonttools_mode`` False: the font has no fontTools glyph set).
+    Returns
     (pts [npts, 2] f64, ring_lens [nrings] i32, glyph_nrings [n] i32 —
-    -1 marks a glyph the parser does not support, caller falls back to
-    the fontTools pen for it) or None when the native library is
-    unavailable."""
+    -1 marks a glyph fontTools fails to draw too) or None when the native
+    library is unavailable."""
     lib = _load()
     if lib is None or not hasattr(lib, "vg_glyf_rings"):
         return None
     glyf = np.ascontiguousarray(glyf, dtype=np.uint8)
     loca = np.ascontiguousarray(loca, dtype=np.uint32)
     gids = np.ascontiguousarray(gids, dtype=np.uint32)
+    lsb_a, n_lsb = _lsb_arg(lsb)
     n = len(gids)
     nr = np.zeros(n, dtype=np.int32)
     counts = np.zeros(2, dtype=np.int64)
@@ -228,7 +245,8 @@ def glyf_rings(
         pts = np.empty((pts_cap, 2), dtype=np.float64)
         ring_lens = np.empty(rings_cap, dtype=np.int32)
         rc = lib.vg_glyf_rings(
-            _p(glyf), len(glyf), _p(loca), len(loca) - 1, _p(gids), n,
+            _p(glyf), len(glyf), _p(loca), len(loca) - 1, int(fonttools_mode),
+            None if lsb_a is None else _p(lsb_a), n_lsb, _p(gids), n,
             ctypes.c_double(tol_sq), _p(pts), pts_cap, _p(ring_lens),
             rings_cap, _p(nr), _p(counts),
         )
@@ -239,12 +257,13 @@ def glyf_rings(
     return None
 
 
-def cff_rings(cff: np.ndarray, gids: np.ndarray, tol_sq: float):
+def cff_rings(cff: np.ndarray, gids: np.ndarray, tol_sq: float, fonttools_mode: bool = True):
     """Flattened outline rings for a batch of glyph ids, parsed
-    natively from a raw 'CFF ' table (csrc vg_cff_rings — Type 2
-    charstring interpreter). Same return contract as `glyf_rings`;
-    per-glyph -1 marks unsupported constructs (seac, CFF2, arithmetic
-    ops) for the fontTools pen fallback."""
+    natively from a raw 'CFF ' or 'CFF2' table (csrc vg_cff_rings — Type
+    2 charstring interpreter, with fontTools' semantics where the native
+    walk gives up and for CFF2, unless ``fonttools_mode`` is False). Same
+    return contract as `glyf_rings`;
+    per-glyph -1 marks a glyph fontTools fails to draw too."""
     lib = _load()
     if lib is None or not hasattr(lib, "vg_cff_rings"):
         return None
@@ -262,7 +281,7 @@ def cff_rings(cff: np.ndarray, gids: np.ndarray, tol_sq: float):
         pts = np.empty((pts_cap, 2), dtype=np.float64)
         ring_lens = np.empty(rings_cap, dtype=np.int32)
         rc = lib.vg_cff_rings(
-            _p(cff), len(cff), _p(gids), n, ctypes.c_double(tol_sq),
+            _p(cff), len(cff), int(fonttools_mode), _p(gids), n, ctypes.c_double(tol_sq),
             _p(pts), pts_cap, _p(ring_lens), rings_cap, _p(nr), _p(counts),
         )
         if rc == 0:
@@ -293,28 +312,31 @@ def _ptr(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def glyf_curves(glyf: np.ndarray, loca: np.ndarray, gids: np.ndarray):
+def glyf_curves(glyf: np.ndarray, loca: np.ndarray, gids: np.ndarray, lsb=None):
     """The outline segments of a batch of glyph ids, walked natively
-    from the raw glyf table (csrc ``vg_glyf_curves``) as a fontTools pen
-    receives them: (kinds [M] i8 — 0 move, 1 line, 2 quadratic, 3 cubic,
+    from the raw glyf table (csrc ``vg_glyf_curves``) as fontTools draws
+    them into a pen (a top-level simple glyph moved by ``lsb`` - xMin): (kinds [M] i8 — 0 move, 1 line, 2 quadratic, 3 cubic,
     4 close —, pts [M, 4, 2] f64 — the current point, then the
     segment's points, a close ending at its contour's start —,
-    glyph_nrecs [n] i32, −1 for a glyph the walker rejects), or None
-    when the native library is unavailable."""
+    glyph_nrecs [n] i32, −1 for a glyph fontTools fails to draw), or
+    None when the native library is unavailable."""
     lib = _load()
     if lib is None:
         return None
     glyf = np.ascontiguousarray(glyf, dtype=np.uint8)
     loca = np.ascontiguousarray(loca, dtype=np.uint32)
     gids = np.ascontiguousarray(gids, dtype=np.uint32)
+    lsb_a, n_lsb = _lsb_arg(lsb)
     return _curves(lambda *out: lib.vg_glyf_curves(
-        _ptr(glyf), len(glyf), _ptr(loca), len(loca) - 1, _ptr(gids), len(gids), *out),
+        _ptr(glyf), len(glyf), _ptr(loca), len(loca) - 1,
+        None if lsb_a is None else _ptr(lsb_a), n_lsb, _ptr(gids), len(gids), *out),
         len(gids))
 
 
 def cff_curves(cff: np.ndarray, gids: np.ndarray):
-    """`glyf_curves` from a raw 'CFF ' table (csrc ``vg_cff_curves``, the
-    Type 2 charstring walk)."""
+    """`glyf_curves` from a raw 'CFF ' or 'CFF2' table (csrc
+    ``vg_cff_curves``, the Type 2 charstring walk as fontTools' pen
+    draws it)."""
     lib = _load()
     if lib is None:
         return None
@@ -322,6 +344,14 @@ def cff_curves(cff: np.ndarray, gids: np.ndarray):
     gids = np.ascontiguousarray(gids, dtype=np.uint32)
     return _curves(lambda *out: lib.vg_cff_curves(
         _ptr(cff), len(cff), _ptr(gids), len(gids), *out), len(gids))
+
+
+def cff_glyph_count(cff: np.ndarray) -> int:
+    """The number of charstrings of a raw 'CFF ' or 'CFF2' table, -1
+    where it does not parse."""
+    lib = _load()
+    cff = np.ascontiguousarray(cff, dtype=np.uint8)
+    return int(lib.vg_cff_glyph_count(_ptr(cff), len(cff)))
 
 
 def render_sdf_batch(preps, n_threads: int | None = None):
@@ -473,29 +503,27 @@ def prep_cores_batch(pts, ring_lens, glyph_nrings, advances, upem):
 def cmap_union(cmap_bytes: np.ndarray):
     """Codepoint→glyph-id union over a raw cmap table's unicode
     subtables (csrc vg_cmap_union): record order, first subtable to map
-    a codepoint wins, gid 0 excluded — the exact semantics of the
-    fontTools union path it replaces (`font.entry.FontFileEntry.
-    _fonttools_index`; format 14 subtables map nothing in both).
-    Returns (cps u32 sorted, gids u32) or None when unavailable / the
-    table uses a subtable format the native parser doesn't cover
-    (fontTools fallback)."""
+    a codepoint wins, gid 0 excluded — the union fontTools' reader gives
+    (format 14 subtables map nothing in both). Returns (cps u32 sorted,
+    gids u32), or None when the library is unavailable; raises
+    ValueError for a table fontTools fails to read (a unicode subtable
+    cut short, or of a format fontTools has no decoder for)."""
     lib = _load()
     if lib is None or not hasattr(lib, "vg_cmap_union"):
         return None
     cm = np.ascontiguousarray(cmap_bytes, dtype=np.uint8)
-
-    def _p(a):
-        return a.ctypes.data_as(ctypes.c_void_p)
-
     cap = 1 << 16
     for _ in range(3):
         cps = np.empty(cap, np.uint32)
         gids = np.empty(cap, np.uint32)
-        rc = lib.vg_cmap_union(_p(cm), len(cm), _p(cps), _p(gids), cap)
+        rc = lib.vg_cmap_union(_ptr(cm), len(cm), _ptr(cps), _ptr(gids), cap)
         if rc >= 0:
             return cps[:rc].copy(), gids[:rc].copy()
         if rc == -2:
-            return None
+            raise ValueError("its malformed 'cmap' table")
+        if rc <= -3:
+            raise ValueError(f"its unicode 'cmap' subtable of format {-3 - rc}, "
+                             "which fontTools has no decoder for")
         cap *= 32  # -1: capacity; retry bigger (caps at 0x110000 pairs)
     return None
 

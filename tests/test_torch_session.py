@@ -167,9 +167,13 @@ def test_wire_stats_count_the_packed_arrays(low_caps, monkeypatch):
         "upload_bytes": sum(packed),
         "fetch_bytes": 256 * sum(p.ntiles256 for p in preps),
         "groups": s.groups,
+        "glyphs": 12,
+        "tiles": sum(p.ntiles256 for p in preps),
+        "pixels": sum(p.width * p.height for p in preps),
     }
     tdriver.reset_wire_stats()
-    assert tdriver.WIRE_STATS == {"upload_bytes": 0, "fetch_bytes": 0, "groups": 0}
+    assert tdriver.WIRE_STATS == {"upload_bytes": 0, "fetch_bytes": 0, "groups": 0, "glyphs": 0,
+                                  "tiles": 0, "pixels": 0}
 
 
 @pytest.mark.parametrize("wire", ["i8", "f32"])

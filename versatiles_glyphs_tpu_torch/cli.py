@@ -23,10 +23,12 @@ import argparse
 import json
 import os
 import sys
+import threading
 
 from .font.manager import FontManager
 from .proto.pbf import decode_glyphs
 from .render.driver import BACKENDS, TRANSPORTS, Renderer
+from .utils import trace
 from .utils.output_dir import prepare_output_directory
 from .writer import Writer
 
@@ -60,6 +62,56 @@ def _add_output_flags(p: argparse.ArgumentParser) -> None:
         help="device point transport: i8 delta wire (default), i16 "
         "fixed point (same bytes as i8), or f32",
     )
+    _add_trace_flag(p)
+
+
+def _add_trace_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--trace",
+        default=None,
+        metavar="FILE",
+        help="run under torch.profiler and write its Chrome trace to FILE: the "
+        "port's spans beside the kernels and copies, on one clock",
+    )
+
+
+def _request(args, stdout) -> None:
+    with trace.span("cli.request"):
+        args.func(args, stdout)
+
+
+def _run_traced(args, stdout, path: str) -> None:
+    """`_request` under `torch.profiler` (CPU activity, and CUDA where a
+    card is present), its Chrome trace written to ``path``. The port's
+    spans of every thread are added from `utils.trace`, placed by the
+    clock of a marker range; the main thread's on the marker's row."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    main_thread = threading.get_ident()
+    with profile(activities=activities) as prof:
+        with record_function("vg.trace.mark"):
+            mark = time.perf_counter()
+        _request(args, stdout)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    marker = next(e for e in events if e.get("name") == "vg.trace.mark")
+    for r in trace.records():
+        if r.start >= mark:
+            tid = marker["tid"] if r.thread == main_thread else r.thread
+            events.append({"ph": "X", "cat": "user_annotation", "name": r.name,
+                           "pid": marker["pid"], "tid": tid,
+                           "ts": marker["ts"] + (r.start - mark) * 1e6,
+                           "dur": (r.end - r.start) * 1e6})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def _run_pipeline(args, manager: FontManager, stdout) -> None:
@@ -317,6 +369,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from a previous run's {output}/checkpoint file")
     p.add_argument("--render-backend", choices=BACKENDS, default="auto",
                    help=argparse.SUPPRESS)
+    _add_trace_flag(p)
     p.set_defaults(func=cmd_fit)
     return parser
 
@@ -327,7 +380,10 @@ def main(argv=None, stdout=None) -> None:
     if own_stdout:
         stdout = sys.stdout.buffer if args.command in ("recurse", "merge") else sys.stdout
     try:
-        args.func(args, stdout)
+        if getattr(args, "trace", None):
+            _run_traced(args, stdout, args.trace)
+        else:
+            _request(args, stdout)
     except BrokenPipeError:
         # Downstream pipe closed early (`debug ... | head`): exit quietly.
         if not own_stdout:

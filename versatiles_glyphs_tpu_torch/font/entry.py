@@ -29,6 +29,7 @@ import numpy as np
 
 from ..constants import FLATTEN_TOLERANCE_SQ
 from ..proto import native
+from ..utils import trace
 from .names import generate_name, parse_font_name
 from .sfnt import Sfnt
 
@@ -286,8 +287,9 @@ class FontFileEntry:
     def _flat(self):
         """(gids u32 sorted unique, pts [N, 2] f64, ring_lens [R] i32,
         glyph_nrings [n] i32) of every mapped glyph."""
-        ugids = np.unique(self._gids).astype(np.uint32)
-        return (ugids, *self._native_rings(ugids))
+        with trace.span("font.outlines"):
+            ugids = np.unique(self._gids).astype(np.uint32)
+            return (ugids, *self._native_rings(ugids))
 
     @staticmethod
     def _split_rings(pts, ring_lens, nrings) -> list:
@@ -321,9 +323,11 @@ class FontFileEntry:
         remains only for a glyph fontTools' pen fails to draw."""
         from ..render.metrics import build_cores
 
-        ugids, pts, ring_lens, nrings = self._flat
-        advances = self._advances[ugids].astype(np.float64)
-        return build_cores(ugids.tolist(), advances, self.units_per_em, pts, ring_lens, nrings)
+        ugids, pts, ring_lens, nrings = self._flat  # its own span, before this one
+        with trace.span("font.build_cores"):
+            advances = self._advances[ugids].astype(np.float64)
+            return build_cores(ugids.tolist(), advances, self.units_per_em, pts, ring_lens,
+                               nrings)
 
     def _failed(self, gid: int) -> ValueError:
         tag = self._outline_table[0].strip() if self._outline_table else "no outline"

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import os
 
+from ..utils import trace
 from ..utils.progress import progress_bar
 from .index_files import build_font_families_json, build_index_json
 from .names import name_to_id
@@ -36,19 +37,20 @@ class FontManager:
     def add_path(self, path: str) -> None:
         from .entry import FontFileEntry
 
-        with open(path, "rb") as f:
-            data = f.read()
-        try:
-            file = FontFileEntry(data)
-        except Exception as e:
-            # Contextual error instead of a raw parser traceback (the
-            # reference's anyhow context chain, `wrapper.rs:137-146`).
-            raise ValueError(f"failed to parse font file {path!r}: {e}") from e
-        font_id = name_to_id(file.metadata.generate_name())
-        wrapper = self.fonts.get(font_id)
-        if wrapper is None:
-            wrapper = self.fonts[font_id] = FontWrapper()
-        wrapper.add_file(file)
+        with trace.span("font.read"):
+            with open(path, "rb") as f:
+                data = f.read()
+            try:
+                file = FontFileEntry(data)
+            except Exception as e:
+                # Contextual error instead of a raw parser traceback (the
+                # reference's anyhow context chain, `wrapper.rs:137-146`).
+                raise ValueError(f"failed to parse font file {path!r}: {e}") from e
+            font_id = name_to_id(file.metadata.generate_name())
+            wrapper = self.fonts.get(font_id)
+            if wrapper is None:
+                wrapper = self.fonts[font_id] = FontWrapper()
+            wrapper.add_file(file)
 
     def add_paths(self, paths) -> None:
         for p in paths:
@@ -126,11 +128,15 @@ class FontManager:
                     runs.append(run)
                 run.append((name, block))
 
+            # The pool's threads hang their spans under the caller's.
+            parent = trace.current()
+
             def prep_run(run):
-                return [
-                    (name, block, renderer.prep_block(block.glyph_sources()))
-                    for name, block in run
-                ]
+                with trace.span("manager.prep_font", parent):
+                    return [
+                        (name, block, renderer.prep_block(block.glyph_sources()))
+                        for name, block in run
+                    ]
 
             jobs = []
             # 4 workers, the JAX package's choice: the per-font prep is
@@ -151,7 +157,9 @@ class FontManager:
                     while ri < len(runs) and len(window) < 8:
                         window.append(pool.submit(prep_run, runs[ri]))
                         ri += 1
-                    for name, block, preps in window.popleft().result():
+                    with trace.span("manager.prep_wait"):
+                        prepped = window.popleft().result()
+                    for name, block, preps in prepped:
                         jobs.append((name, block, preps))
                         session.add([p for p in preps if not p.empty])
 
@@ -160,16 +168,19 @@ class FontManager:
             use_native = native.available()
             bm_iter = session.results()
             for name, block, preps in jobs:
-                if use_native:
-                    # Fused preps→PBF encode (no per-glyph PbfGlyph
-                    # objects, single bitmap copy) — byte-identical to
-                    # the assemble+encode pair below.
-                    data = native.encode_block_from_preps(
-                        name, block.range(), preps, bm_iter
-                    )
-                else:
-                    glyphs = renderer.assemble_glyphs(preps, bm_iter)
-                    data = encode_glyphs(name, block.range(), glyphs)
+                # The encode pulls the bitmaps: its span holds the
+                # session's fetch waits (and the last groups' dispatch).
+                with trace.span("proto.encode"):
+                    if use_native:
+                        # Fused preps→PBF encode (no per-glyph PbfGlyph
+                        # objects, single bitmap copy) — byte-identical to
+                        # the assemble+encode pair below.
+                        data = native.encode_block_from_preps(
+                            name, block.range(), preps, bm_iter
+                        )
+                    else:
+                        glyphs = renderer.assemble_glyphs(preps, bm_iter)
+                        data = encode_glyphs(name, block.range(), glyphs)
                 writer.write_file(f"{name}/{block.filename()}", data)
                 n_nonempty = sum(1 for p in preps if not p.empty)
                 progress.update(len(block) - n_nonempty)

@@ -72,6 +72,7 @@ import torch
 
 from ..device import cuda_device
 from ..render.batch import S_BUCKETS, SC, bucket
+from ..utils import trace
 from .glyph_model import bytes_to_field, glyph_field, sdf_loss
 
 PARAM_KEYS = ("curves", "translate", "log_gain")
@@ -711,11 +712,15 @@ class FontFitter:
         captured at the first call for these tensors) and runs Adam
         outside it, bit-equal to `step`; on the CPU it loops over
         `step`."""
-        if self.device.type == "cuda":
-            losses = self._graphed_steps(params, opt, dev_batch, k)
-        else:
-            losses = torch.stack([self.step(params, opt, dev_batch)[2] for _ in range(k)])
-        return params, opt, losses.cpu().numpy()
+        with trace.span("fit.step_many"):
+            if self.device.type == "cuda":
+                losses = self._graphed_steps(params, opt, dev_batch, k)
+            else:
+                losses = torch.stack([self.step(params, opt, dev_batch)[2] for _ in range(k)])
+            # The host waits here until the card has run the call's steps.
+            with trace.span("fit.loss_fetch"):
+                losses = losses.cpu()
+        return params, opt, losses.numpy()
 
     def _step_graph(self, params, dev_batch) -> StepGraph | ShardedStepGraph:
         """The cached `StepGraph` (or, over ``devices``,
@@ -736,10 +741,12 @@ class FontFitter:
         graph = self._step_graph(params, dev_batch)
         losses = torch.empty(k, dtype=torch.float32, device=self.device)
         for i in range(k):
-            loss, grads = graph.replay()
+            with trace.span("fit.replay"):
+                loss, grads = graph.replay()
             for key, g in zip(PARAM_KEYS, grads):
                 params[key].grad = g
-            opt.step()
+            with trace.span("fit.adam"):
+                opt.step()
             losses[i].copy_(loss)
         # The static buffers stay the graph's: later steps start from none.
         opt.zero_grad(set_to_none=True)

@@ -31,16 +31,21 @@ import torch
 
 from ..device import cuda_device
 from ..proto.pbf import PbfGlyph
+from ..utils import trace
 from .metrics import GlyphPrep, prepare_glyph
 
 # Bytes the device backends uploaded and fetched, and their groups, since
 # the last `reset_wire_stats` (counterpart of the JAX driver's ledger):
-# every wire array of a group once, and its whole output.
-WIRE_STATS = {"upload_bytes": 0, "fetch_bytes": 0, "groups": 0}
+# every wire array of a group once, and its whole output; the groups'
+# glyphs, the 256-pixel tiles the kernel renders for them, and their
+# bitmaps' own pixels (w·h).
+WIRE_STATS = {"upload_bytes": 0, "fetch_bytes": 0, "groups": 0, "glyphs": 0, "tiles": 0,
+              "pixels": 0}
 
 
 def reset_wire_stats() -> None:
-    WIRE_STATS.update(upload_bytes=0, fetch_bytes=0, groups=0)
+    for k in WIRE_STATS:
+        WIRE_STATS[k] = 0
 
 
 BACKENDS = ("auto", "cuda", "torch", "padded", "exact", "zeros")
@@ -211,29 +216,35 @@ class Renderer:
 
         gpreps = [p for _, p in gitems]
         G = len(gpreps)
-        if wire == "i8":
-            deltas, words, anchors, meta = pack_points_delta(gpreps)
-            starts, T = tile_starts(meta, G, TP)
-            sdf_cuda.check_lane_runs(deltas.shape[1], meta[:, 4], meta[:, 5], anchors[0])
-            arrays = (deltas, words, anchors, meta)
-        else:
-            dt = np.int16 if wire == "i16" else np.float32
-            pts, words, meta = pack_points(gpreps, dtype=dt)
-            starts, T = tile_starts(meta, G, TP)
-            tmeta, _, _ = plan_tiles(gpreps, meta, TP, T_pad=T)
-            sdf_cuda.check_lane_runs(pts.shape[1], tmeta[:, 4], tmeta[:, 5])
-            arrays = (pts, words, tmeta.T)
-        dev = lane.to_device(arrays)
-        WIRE_STATS["upload_bytes"] += sum(a.nbytes for a in arrays)
-        with lane.on(lane.compute):
+        with trace.span("session.pack"):
             if wire == "i8":
-                out = sdf_cuda.render_bitmaps_cuda_delta(*dev, TP, T_pad=T, checked=True)
+                deltas, words, anchors, meta = pack_points_delta(gpreps)
+                starts, T = tile_starts(meta, G, TP)
+                sdf_cuda.check_lane_runs(deltas.shape[1], meta[:, 4], meta[:, 5], anchors[0])
+                arrays = (deltas, words, anchors, meta)
             else:
-                out = sdf_cuda.render_bitmaps_cuda_pts(*dev, TP, checked=True)
-            rendered = lane.record(lane.compute)
-        host, fetched = lane.fetch_to_host(out, rendered)
+                dt = np.int16 if wire == "i16" else np.float32
+                pts, words, meta = pack_points(gpreps, dtype=dt)
+                starts, T = tile_starts(meta, G, TP)
+                tmeta, _, _ = plan_tiles(gpreps, meta, TP, T_pad=T)
+                sdf_cuda.check_lane_runs(pts.shape[1], tmeta[:, 4], tmeta[:, 5])
+                arrays = (pts, words, tmeta.T)
+        with trace.span("session.upload"):
+            dev = lane.to_device(arrays)
+        WIRE_STATS["upload_bytes"] += sum(a.nbytes for a in arrays)
+        with trace.span("session.launch"):
+            with lane.on(lane.compute):
+                if wire == "i8":
+                    out = sdf_cuda.render_bitmaps_cuda_delta(*dev, TP, T_pad=T, checked=True)
+                else:
+                    out = sdf_cuda.render_bitmaps_cuda_pts(*dev, TP, checked=True)
+                rendered = lane.record(lane.compute)
+            host, fetched = lane.fetch_to_host(out, rendered)
         WIRE_STATS["fetch_bytes"] += host.numel()
         WIRE_STATS["groups"] += 1
+        WIRE_STATS["glyphs"] += G
+        WIRE_STATS["tiles"] += T
+        WIRE_STATS["pixels"] += int((meta[:G, 2].astype(np.int64) * meta[:G, 3]).sum())
         return _Group(gitems, starts, host, fetched)
 
     def _lpt_rounds(self, items, D: int, TP: int):
@@ -388,6 +399,10 @@ class RenderSession:
 
     def add(self, preps) -> None:
         """Submit non-empty preps; may dispatch filled device groups."""
+        with trace.span("session.add"):
+            self._add(preps)
+
+    def _add(self, preps) -> None:
         if self._closed:
             raise RuntimeError("render session is closed")
         r = self.r
@@ -476,7 +491,8 @@ class RenderSession:
             placed: list = [None] * self._n
             ptr = 0
             for group in self._pending:
-                flat = group.wait()
+                with trace.span("session.fetch_wait"):
+                    flat = group.wait()
                 # Placed by submit index: the q16/aux partition and the
                 # bins of several devices reorder.
                 for g, (i, p) in enumerate(group.items):

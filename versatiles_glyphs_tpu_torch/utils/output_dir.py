@@ -7,9 +7,12 @@ from __future__ import annotations
 import os
 import shutil
 
+from . import trace
+
 
 def prepare_output_directory(path: str) -> str:
-    if os.path.exists(path):
-        shutil.rmtree(path)
-    os.makedirs(path)
+    with trace.span("writer.clear"):
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.makedirs(path)
     return path

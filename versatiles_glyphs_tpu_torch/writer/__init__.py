@@ -12,6 +12,7 @@ import os
 import re
 import sys
 
+from ..utils import trace
 from .tar import TarWriter
 
 __all__ = ["Writer", "FileWriter", "TarWriter", "DummyWriter"]
@@ -88,7 +89,8 @@ class Writer:
         return cls(DummyWriter())
 
     def write_file(self, file_name: str, data: bytes) -> None:
-        self._backend.write_file(file_name, data)
+        with trace.span("writer.write"):
+            self._backend.write_file(file_name, data)
 
     def write_directory(self, dir_name: str) -> None:
         self._backend.write_directory(dir_name)

@@ -131,7 +131,13 @@ JSON lines:
    replays it a step, with the counts reset just before (kernels 2 and
    3 launch once in each of the graph's warm-up runs, are recorded once
    into the graph, and are counted once a replay: 10 more steps count
-   10 each; the loss descends; peak memory); 10 graphed steps against
+   10 each, and the Adam kernel once a step; the loss descends; peak
+   memory); the Adam kernel (`ops.adam`) at the fit cell's leaves
+   (1,686 × 16 curves, 1,686 translations, the gain): three steps bit-equal
+   to its plain version on CPU copies, and one step's time on the card
+   (queued behind a sleep, and from a CUDA graph) beside its plain
+   version's, `torch.optim.Adam`'s foreach step's (``library_ms``), the
+   host's enqueue of both and its bytes bound; 10 graphed steps against
    10 eager `step` calls, bit for bit in parameters and losses, for the
    ``flat`` backend at full size and the ``torch`` backend on the first
    256-codepoint block (the pair-tensor loss captured too), with each
@@ -185,7 +191,7 @@ JSON lines:
 Phases 4-8 enter below the font parser with synthesized outlines (the
 same outlines as phase 4b's font files, whose parse the CPU tests hold
 against the JAX package); phase 4b enters through the CLI.
-Then a ``{"kernels": [...]}`` line (the nine kernels, each with its
+Then a ``{"kernels": [...]}`` line (the ten kernels, each with its
 launches on its path, kernel 1's in phases 4 and 4b, its time by CUDA events over back-to-back launches
 and replayed from a CUDA graph, its plain version's time and its bound:
 the larger of its f32 operations over 67 TFLOP/s and its bytes over
@@ -254,10 +260,10 @@ def phase_build() -> None:
         emit({"phase": "build", "kernel": name, "arch": "sm_90a",
               "so": os.path.relpath(so, ROOT), "nvcc_s": nvcc_s})
     emit({"phase": "build", "all_s": time.perf_counter() - t0})
-    # What ptxas said of the eight redesigned kernels (-Xptxas -v).
+    # What ptxas said of the eight redesigned kernels and Adam's (-Xptxas -v).
     for name in ("sdf_tiles_pts", "sdf_grid_flat", "sdf_tiles_flat", "sdf_min_field_padded",
                  "sdf_min_field_pts", "sdf_min_field_padded_bwd", "sdf_min_field_bwd",
-                 "sdf_tiles_pts_acc"):
+                 "sdf_tiles_pts_acc", "adam_flat"):
         so = _build.BUILDS[name][0]
         emit({"phase": "build", "kernel": name, "ptxas": _build.ptxas_report(so)})
     from versatiles_glyphs_tpu_torch.proto import native
@@ -337,6 +343,104 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> tuple[float, bool]:
+    """Mean milliseconds of ``fn()`` on the card, back to back: the
+    ``reps`` calls are queued behind a sleeping kernel that outlasts
+    their enqueue, so CUDA events time the card even where the host
+    enqueues slower than the card runs and the calls cannot be captured
+    into a graph (`torch.optim.Adam.step`). Also whether the card was
+    still asleep when the host had queued them all (else host gaps may
+    be inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 10**6)  # ~2x the enqueue at <= 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    whole = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, whole
+
+
+def adam_kernel(dev) -> dict:
+    """The Adam kernel (`ops.adam`, ``csrc/adam_flat.cu``) at the fit
+    cell's leaves (1,686 glyphs of at most 16 curves: curves, translate,
+    log_gain): three steps bit-equal to the plain version on CPU copies,
+    and the time of one step by the kernel (queued behind a sleep, and
+    replayed from a CUDA graph), by its plain version on the card, and
+    by `torch.optim.Adam`'s foreach step (``library_ms``), with the
+    host's enqueue of each and the bytes bound."""
+    from versatiles_glyphs_tpu_torch.ops import adam
+
+    rng = np.random.default_rng(18)
+    shapes = [(1686, 16, 4, 2), (1686, 2), ()]
+    host = [torch.from_numpy(rng.normal(0, 5, sh).astype(np.float32)) for sh in shapes]
+    grads = [torch.from_numpy(rng.normal(0, 1, sh).astype(np.float32)) for sh in shapes]
+
+    def leaves(device, **kw):
+        ps = [t.to(device, copy=True).requires_grad_() for t in host]
+        for p, g in zip(ps, grads):
+            p.grad = g.to(device, copy=True)
+        return ps, torch.optim.Adam(ps, lr=0.01, **kw)
+
+    pk, ok = leaves(dev)
+    pc, oc = leaves("cpu")
+    for _ in range(3):
+        adam.adam_step(ok)
+        adam.adam_step(oc)
+    pairs = [(a, b) for x, y in zip(pk, pc)
+             for a, b in ((x, y), *zip(ok.state[x].values(), oc.state[y].values()))
+             if a.device.type == "cuda"]
+    err = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in pairs)
+    equal = all(np.array_equal(a.detach().cpu().numpy().view(np.int32),
+                               b.detach().numpy().view(np.int32)) for a, b in pairs)
+
+    n = sum(p.numel() for p in pk)
+    bound = bound_of(n * adam.OPS_PER_ELEMENT, n * adam.BYTES_PER_ELEMENT)
+    ms, whole = queued_ms(lambda: adam.adam_step(ok), 200)
+    plain_leaves = [(p.detach(), p.grad, *ok.state[p].values()) for p in pk]
+    scalars = adam.step_scalars(0.01, (0.9, 0.999), 1e-8, 5.0)
+
+    def plain():
+        for p, g, _, m, v in plain_leaves:
+            adam.adam_update_plain(p, g, m, v, scalars)
+
+    _, ol = leaves(dev, foreach=True)
+    # 100 steps: seven launches each stay inside the card's queue of
+    # pending launches, so the host never waits on it while the card sleeps.
+    library_ms, library_whole = queued_ms(ol.step, 100)
+
+    def host_us(fn, reps=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us = 1e6 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        return us
+
+    rec = {"phase": "fit", "step": "adam_kernel", "leaves": [list(sh) for sh in shapes],
+           "elements": n, "bit_equal_3_steps": equal, "max_abs_err": err,
+           "ms": ms, "queued_whole": whole, "graph_ms": graph_ms(lambda: adam.adam_step(ok), 200),
+           "plain_ms": time_ms(plain, 50), "library_ms": library_ms,
+           "library_queued_whole": library_whole,
+           "host_us_a_step": host_us(lambda: adam.adam_step(ok)),
+           "library_host_us_a_step": host_us(ol.step), **bound}
+    emit(rec)
+    if not equal:
+        raise AssertionError(f"the Adam kernel differs from its plain version by {err}")
+    return rec
 
 
 def tile_kernel_edge_cases(preps, dev) -> dict:
@@ -1045,9 +1149,12 @@ def phase_profile() -> None:
     # wrappers; a graph's once a replay).
     flat, padded = ("sdf_min_field_pts", "sdf_min_field_bwd"), (
         "sdf_min_field_padded", "sdf_min_field_padded_bwd")
-    want = {"graphed_one_device": dict.fromkeys(flat, 1.0),
-            "graphed_sharded": dict.fromkeys(flat, 2.0),
-            "eager_sharded": dict.fromkeys(flat, 2.0),
+    # Adam: one launch a step of FontFitter's steps (whole on the first
+    # device); the hand-stepped padded loss calls opt.step().
+    adam = {"adam_flat": 1.0}
+    want = {"graphed_one_device": {**dict.fromkeys(flat, 1.0), **adam},
+            "graphed_sharded": {**dict.fromkeys(flat, 2.0), **adam},
+            "eager_sharded": {**dict.fromkeys(flat, 2.0), **adam},
             "padded_eager": dict.fromkeys(padded, 1.0)}
     bad = [r["stage"] for r in res["render"] if r["device_ms_median"] is None]
     bad += [k for k, r in fit.items()
@@ -1886,10 +1993,13 @@ def phase_fit(batch, work) -> dict:
     fit_kernels = ("sdf_min_field_pts", "sdf_min_field_bwd")
     if captured != dict.fromkeys(fit_kernels, 1):
         raise AssertionError(f"the step's graph recorded {captured}")
-    if not all(launches[k] == FIT_STEPS + StepGraph.WARMUP and replayed[k] == 10
-               for k in fit_kernels):
+    if not (all(launches[k] == FIT_STEPS + StepGraph.WARMUP and replayed[k] == 10
+                for k in fit_kernels)
+            and launches["adam_flat"] == FIT_STEPS and replayed["adam_flat"] == 10):
         raise AssertionError(f"{launches} kernel launches for {FIT_STEPS} steps and "
-                             f"{StepGraph.WARMUP} warm-up runs; {replayed} for 10 replays")
+                             f"{StepGraph.WARMUP} warm-up runs; {replayed} for 10 replays "
+                             "(Adam once a step)")
+    adam = adam_kernel(dev)
 
     # Graphed steps against eager ones, bit for bit (parameters and
     # losses), for the flat backend at full size and the torch backend on
@@ -1995,7 +2105,7 @@ def phase_fit(batch, work) -> dict:
           "pixels": n_pix, "pixels_off_by_1": n_diff, "frac_off": frac, "max_abs_diff": max_d})
     if max_d > 1 or frac > 0.05 or not render_launches or files != len(written):
         raise AssertionError(f"fitted atlas: max |Δ| {max_d} on {frac:.4%} of pixels")
-    return launches
+    return launches, adam
 
 
 def phase_padded_fit(batch) -> dict:
@@ -2343,7 +2453,7 @@ def main() -> None:
         flat_launches = timed("flat_renders", phase_flat_renders, font_list)
         timed("padded_render", phase_padded_render, font_list, work)
         launches += timed("cli", phase_cli, work)
-        fit_launches = timed("fit", phase_fit, batch, work)
+        fit_launches, ka = timed("fit", phase_fit, batch, work)
         pad_launches = timed("padded_fit", phase_padded_fit, batch)
         sharded_launches = timed("sharded_fit", phase_sharded_fit, batch, work)
     finally:
@@ -2356,7 +2466,8 @@ def main() -> None:
     emit({"phase": "seconds", "since_start": time.perf_counter() - T_START, **seconds})
 
     def row(name, replaces, n_launch, err, ms, plain_ms, bound, **more):
-        # No single PyTorch call computes any of these functions. Beside
+        # No single PyTorch call computes any of these functions but
+        # Adam's update (its row passes library_ms). Beside
         # the contract's keys: "graph_ms", the same launches replayed from a
         # CUDA graph (the card's time where the host's enqueue of a launch
         # takes longer than the kernel); the share of the bound the launch reaches,
@@ -2429,6 +2540,14 @@ def main() -> None:
             sms=sms, sm_clock_max_mhz=sm_clock),
         row("sdf_tiles_pts_acc", "scripts/kernel_ab.py:69", tool_launches["sdf_tiles_pts_acc"],
             k9["max_abs_err"], k9["ms"], k9["plain_ms"], k9, graph_ms=k9["graph_ms"]),
+        # Replaces no Pallas kernel (optax's update is XLA's): its ms is the
+        # card's time queued behind a sleep, and library_ms is
+        # torch.optim.Adam's foreach step on the same leaves, which the port
+        # no longer calls.
+        row("adam_flat", None, fit_launches["adam_flat"], ka["max_abs_err"], ka["ms"],
+            ka["plain_ms"], ka, graph_ms=ka["graph_ms"], library_ms=ka["library_ms"],
+            host_us_a_step=ka["host_us_a_step"],
+            library_host_us_a_step=ka["library_host_us_a_step"], **sharded("flat", "adam_flat")),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -45,7 +45,8 @@ count.
 One dispatch for k steps (the JAX package's `_step_k`, a `lax.scan`
 under one jit): on one CUDA device `FontFitter.step_many` replays a CUDA
 graph of the step's forward and backward (`StepGraph`), captured once
-for each (params, device batch), and runs Adam outside it. Sharded over
+for each (params, device batch), and runs Adam outside it (one launch of
+`ops.adam.adam_step` a step). Sharded over
 CUDA devices (the `_step_k` over `shard_map`) it replays one such graph
 a shard, each on the shard's device (`ShardedStepGraph`: one graph
 cannot span devices), with the rows copied in and the sums and
@@ -54,7 +55,8 @@ are bit-equal to `FontFitter.step`: the same kernels on the same shapes
 and the same sums in the same order, only their enqueue changes. On the
 CPU (which has no graphs) `step_many` loops over `step`.
 
-`torch.optim.Adam` takes optax's place and `torch.save` orbax's;
+A `torch.optim.Adam` takes optax's place, holding the options and the
+state, and `ops.adam.adam_step` steps it; `torch.save` takes orbax's;
 `params_from_numpy` and `adam_state_from_optax` carry a JAX run's
 parameters and Adam state across. `make_fit_batch` reads a font file
 through the entry it is given (`font.entry`); nothing here imports
@@ -71,6 +73,7 @@ import numpy as np
 import torch
 
 from ..device import cuda_device
+from ..ops.adam import adam_step
 from ..render.batch import S_BUCKETS, SC, bucket
 from ..utils import trace
 from .glyph_model import bytes_to_field, glyph_field, sdf_loss
@@ -697,11 +700,12 @@ class FontFitter:
         return loss.detach(), dict(zip(PARAM_KEYS, grads))
 
     def step(self, params, opt, dev_batch):
-        """One Adam step in place; returns (params, opt, loss)."""
+        """One Adam step in place (`ops.adam.adam_step`); returns
+        (params, opt, loss)."""
         opt.zero_grad(set_to_none=True)
         loss = self._loss(params, dev_batch)
         loss.backward()
-        opt.step()
+        adam_step(opt)
         return params, opt, loss.detach()
 
     def step_many(self, params, opt, dev_batch, k: int):
@@ -746,7 +750,7 @@ class FontFitter:
             for key, g in zip(PARAM_KEYS, grads):
                 params[key].grad = g
             with trace.span("fit.adam"):
-                opt.step()
+                adam_step(opt)
             losses[i].copy_(loss)
         # The static buffers stay the graph's: later steps start from none.
         opt.zero_grad(set_to_none=True)

@@ -2,7 +2,7 @@
 and of the Pallas kernels of `ops.sdf_grad`, `ops.legacy` and the
 measurement scripts).
 
-The port's nine hand-written kernels, each on the current stream:
+The port's ten hand-written kernels, each on the current stream:
 
 - ``sdf_tiles_pts`` (render): `render_bitmaps_cuda_pts`,
   `render_bitmaps_cuda_delta`. A block of TP / R threads a tile, R
@@ -34,7 +34,9 @@ The port's nine hand-written kernels, each on the current stream:
   ``sdf_tiles_pts``): `render_bitmaps_cuda_pts_acc`, for
   `tools.kernel_ab`;
 - ``alu_roof`` (the synthetic ALU roof on the tile kernel's launch
-  shape): `alu_roof_cuda`, for `tools.roofline`.
+  shape): `alu_roof_cuda`, for `tools.roofline`;
+- ``adam_flat`` (the fit's Adam update, every leaf in one launch): wrapped
+  in `ops.adam`, whose plain version it gives bit for bit.
 
 On CUDA tensors a wrapper launches its kernel (``csrc/<name>.cu``); on
 CPU tensors it runs the kernel's plain version in `ops.sdf_torch`.
@@ -97,6 +99,9 @@ _SIGNATURES = {
     # `sdf_torch.render_tiles_pts` too.
     "sdf_tiles_pts_acc": (
         "vg_sdf_tiles_pts_acc", [_P, _I, _P, _P, _I, _I, _I, _F, _F, _P, _P]),
+    # Adam's update of the fit's leaves (`ops.adam`; host arrays of
+    # pointers, counts and scalars).
+    "adam_flat": ("vg_adam_flat", [_I, _P, _P, _P, _P]),
 }
 # ``sdf_min_field_padded``: the most threads a block and pixels a
 # thread of the launcher's shape (`padded_launch_shape`: two blocks of

@@ -37,9 +37,11 @@ RENDER_PARENTS = {
     "cli.request": {None},
     "font.read": {"cli.request"},
     "writer.clear": {"cli.request"},
+    "font.claim": {"cli.request"},
+    "manager.prep_file": {"cli.request"},
     "manager.prep_font": {"cli.request"},
-    "font.outlines": {"manager.prep_font"},
-    "font.build_cores": {"manager.prep_font"},
+    "font.outlines": {"manager.prep_file"},
+    "font.build_cores": {"manager.prep_file"},
     "manager.prep_wait": {"cli.request"},
     "session.add": {"cli.request"},
     "session.pack": {"session.add", "proto.encode"},
@@ -49,7 +51,7 @@ RENDER_PARENTS = {
     "proto.encode": {"cli.request"},
     "writer.write": {"cli.request"},
 }
-POOL_SPANS = {"manager.prep_font", "font.outlines", "font.build_cores"}
+POOL_SPANS = {"manager.prep_file", "manager.prep_font", "font.outlines", "font.build_cores"}
 
 
 @pytest.fixture(autouse=True)

@@ -31,6 +31,11 @@ class GlyphBlock:
     def __len__(self) -> int:
         return len(self.glyphs)
 
+    def files(self) -> list[FontFileEntry]:
+        """The entries that own a glyph of the block, each once, in the
+        order of their first glyph."""
+        return list({id(e): e for e in self.glyphs.values()}.values())
+
     def range(self) -> str:
         return f"{self.start_index}-{self.start_index + GLYPH_BLOCK_SIZE - 1}"
 

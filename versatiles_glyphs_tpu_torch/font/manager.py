@@ -15,6 +15,8 @@ process renders and writes its own share of the block task list.
 from __future__ import annotations
 
 import os
+import threading
+from concurrent.futures import Future
 
 from ..utils import trace
 from ..utils.progress import progress_bar
@@ -77,12 +79,13 @@ class FontManager:
     def render_glyphs(self, writer, renderer) -> None:
         """Pipelined run batching device work across ALL blocks:
 
-        1. host prep (flatten + metrics) per block runs on a
-           **background thread** feeding a bounded queue — the
-           native/numpy work releases the GIL enough that block
-           N+1's prep overlaps block N's pack + device uploads (the
-           host-side reshaping of the reference's rayon overlap,
-           `manager.rs:117-121`);
+        1. host prep runs on a pool of 4 threads, one future a font
+           FILE (its outline walk and metrics pass), then a fontstack's
+           blocks once its files are done, in a bounded window — the
+           native/numpy work releases the GIL enough that the files of
+           one merged fontstack overlap each other and the main
+           thread's pack + device uploads (the host-side reshaping of
+           the reference's rayon overlap, `manager.rs:117-121`);
         2. the main thread drains the queue into an incremental render
            session (which dispatches SMEM-sized device groups as they
            fill and starts their async fetches — uploads, kernels and
@@ -110,58 +113,46 @@ class FontManager:
             parallel=self.parallel, progress=progress.update
         ) as session:
 
-            # One future per FONT (all of its blocks), so two fonts'
-            # parse/flatten/metrics overlap each other and the main
-            # thread's pack+upload, while blocks of one font never
-            # race its lazily-built prep cores (cached_property
-            # first-touch must stay single-threaded per entry). Runs
-            # group by font NAME, not adjacency, so a reordered task
-            # list can never split one font across two pool threads.
-            # The numpy/native parts release the GIL; order is
-            # preserved by consuming futures in submission order.
-            runs: list[list] = []
-            runs_by_name: dict[str, list] = {}
-            for name, block in tasks:
-                run = runs_by_name.get(name)
-                if run is None:
-                    run = runs_by_name[name] = []
-                    runs.append(run)
-                run.append((name, block))
-
-            # The pool's threads hang their spans under the caller's.
-            parent = trace.current()
-
-            def prep_run(run):
-                with trace.span("manager.prep_font", parent):
-                    return [
-                        (name, block, renderer.prep_block(block.glyph_sources()))
-                        for name, block in run
-                    ]
-
+            # One future per FILE (`_PrepPlan`), so the files of one
+            # fontstack and of different fontstacks overlap each other and
+            # the main thread's pack+upload; a fontstack's blocks are
+            # prepped once its files are, and consumed in task order.
+            # The numpy/native parts release the GIL.
+            runs = _fontstack_runs(tasks)
             jobs = []
-            # 4 workers, the JAX package's choice: the per-font prep is
+            # 4 workers, the JAX package's choice: the per-file prep is
             # mostly native calls that release the GIL. Not measured on
             # the port's hosts.
             with ThreadPoolExecutor(
                 max_workers=4, thread_name_prefix="vg-prep"
             ) as pool:
-                # Bounded submission window: prepped fonts hold their
-                # full transport caches, so on a slow device an
+                # The pool's threads hang their spans under the caller's.
+                plan = _PrepPlan(pool, renderer, trace.current())
+                # Bounded submission window of 8 files: prepped files hold
+                # their full transport caches, so on a slow device an
                 # unbounded prep backlog would balloon memory on
-                # thousand-font runs.
+                # thousand-font runs. A fontstack of more files than that
+                # goes alone.
                 from collections import deque
 
                 window: deque = deque()
-                ri = 0
+                held = ri = 0
                 while window or ri < len(runs):
-                    while ri < len(runs) and len(window) < 8:
-                        window.append(pool.submit(prep_run, runs[ri]))
+                    while ri < len(runs) and (
+                        not window or held + len(runs[ri].files) <= 8
+                    ):
+                        plan.start(runs[ri])
+                        window.append(runs[ri])
+                        held += len(runs[ri].files)
                         ri += 1
+                    run = window.popleft()
+                    held -= len(run.files)
                     with trace.span("manager.prep_wait"):
-                        prepped = window.popleft().result()
-                    for name, block, preps in prepped:
-                        jobs.append((name, block, preps))
+                        prepped = run.done.result()
+                    for block, preps in zip(run.blocks, prepped):
+                        jobs.append((run.name, block, preps))
                         session.add([p for p in preps if not p.empty])
+                plan.join()
 
             from ..proto import native
 
@@ -238,3 +229,81 @@ class FontManager:
         writer.write_file(
             "font_families.json", build_font_families_json(self.fonts.items())
         )
+
+
+def _fontstack_runs(tasks) -> list[_Run]:
+    """The task list as one run a fontstack, in order of first
+    appearance: runs group by font NAME, not adjacency, so a reordered
+    task list never splits one fontstack."""
+    runs: dict[str, _Run] = {}
+    for name, block in tasks:
+        run = runs.get(name)
+        if run is None:
+            run = runs[name] = _Run(name)
+        run.blocks.append(block)
+    for run in runs.values():
+        files = {id(e): e for b in run.blocks for e in b.files()}
+        run.files = list(files.values())
+    return list(runs.values())
+
+
+class _Run:
+    """A fontstack's blocks (in task order), the files they draw glyphs
+    from, and the future of the blocks' preps."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.blocks: list = []
+        self.files: list = []
+        self.left = 0  # files still in prep; 0 once one failed (`_PrepPlan`'s lock)
+        self.done: Future = Future()
+
+
+class _PrepPlan:
+    """Host prep on the pool, one future a file of a fontstack (a file
+    that claims a glyph of it): the entry's outline walk and prep cores
+    (span `manager.prep_file`), the file with the most codepoints first.
+    The fontstack's block preps (`Renderer.prep_block`, span
+    `manager.prep_font`) run on the pool thread that finishes the last
+    of its files, so no pool thread waits on another and an entry's
+    prep cores are built before any of its blocks reads them. An error
+    reaches the fontstack's future, and `join` raises it too."""
+
+    def __init__(self, pool, renderer, parent):
+        self.pool, self.renderer, self.parent = pool, renderer, parent
+        self.futures: list = []  # every submission, read by `join`
+        self._lock = threading.Lock()
+
+    def start(self, run: _Run) -> None:
+        run.left = len(run.files)
+        for entry in sorted(run.files, key=lambda e: -len(e.metadata.codepoints)):
+            self.futures.append(self.pool.submit(self._prep_file, entry, run))
+
+    def join(self) -> None:
+        for f in self.futures:
+            f.result()
+
+    def _prep_file(self, entry, run: _Run) -> None:
+        try:
+            with trace.span("manager.prep_file", self.parent):
+                entry.prep_cores  # built here; the block preps read it
+        except BaseException as e:  # the fontstack's error too; raised again
+            with self._lock:
+                first, run.left = run.left > 0, 0
+            if first:
+                run.done.set_exception(e)
+            raise
+        with self._lock:
+            run.left -= 1
+            last = run.left == 0
+        if last:
+            self._prep_blocks(run)
+
+    def _prep_blocks(self, run: _Run) -> None:
+        try:
+            with trace.span("manager.prep_font", self.parent):
+                preps = [self.renderer.prep_block(b.glyph_sources()) for b in run.blocks]
+        except BaseException as e:
+            run.done.set_exception(e)
+            raise
+        run.done.set_result(preps)

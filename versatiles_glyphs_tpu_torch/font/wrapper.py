@@ -3,7 +3,7 @@
 Mirrors `reference/src/font/wrapper.rs`: files sharing a
 normalized name merge; block assembly walks each file's codepoint
 coverage, and the first file (in insertion order) to claim a codepoint
-wins.
+wins (span `font.claim`).
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import TYPE_CHECKING
 
 from ..constants import GLYPH_BLOCK_SIZE
+from ..utils import trace
 from .block import GlyphBlock
 
 if TYPE_CHECKING:  # the parser is imported where a file is read
@@ -42,18 +43,19 @@ class FontWrapper:
             self.files.append(file)
 
     def get_blocks(self) -> list[GlyphBlock]:
-        blocks: dict[int, GlyphBlock] = {}
-        for font_file in self.files:
-            for cp in font_file.metadata.codepoints:
-                block_index = cp // GLYPH_BLOCK_SIZE
-                char_index = cp % GLYPH_BLOCK_SIZE
-                block = blocks.get(block_index)
-                if block is None:
-                    block = blocks[block_index] = GlyphBlock(
-                        block_index * GLYPH_BLOCK_SIZE
-                    )
-                block.set_glyph_font(char_index, font_file)
-        return list(blocks.values())
+        with trace.span("font.claim"):
+            blocks: dict[int, GlyphBlock] = {}
+            for font_file in self.files:
+                for cp in font_file.metadata.codepoints:
+                    block_index = cp // GLYPH_BLOCK_SIZE
+                    char_index = cp % GLYPH_BLOCK_SIZE
+                    block = blocks.get(block_index)
+                    if block is None:
+                        block = blocks[block_index] = GlyphBlock(
+                            block_index * GLYPH_BLOCK_SIZE
+                        )
+                    block.set_glyph_font(char_index, font_file)
+            return list(blocks.values())
 
     def get_metadata(self) -> FontMetadata:
         if not self.files:

@@ -16,7 +16,8 @@ JSON lines:
    and top SM clock.
 2. build  — nvcc builds every kernel from ``csrc/``, one process each,
    all at once, and ptxas's report (registers, spills, shared memory)
-   of the eight redesigned kernels is printed; g++ builds the
+   of the eight redesigned kernels, Adam's and the fused loss's four is
+   printed; g++ builds the
    native host library from ``csrc/vg_native.cpp``
    (`proto.native.require`).
 3. kernel — each kernel against its plain PyTorch version on the card,
@@ -66,7 +67,12 @@ JSON lines:
    roof kernel on group 0's grid: bit-equal to its plain version. The
    split variant of the tile kernel at group 0 (i8 and f32 wires), on
    degenerate segments and on the tile kernel's edge cases: bytes equal
-   to its plain version and to the tile kernel's.
+   to its plain version and to the tile kernel's. The fused flat-fit
+   loss's four kernels (`ops.flat_loss`: the chain, the loss, its
+   backward with a per-glyph and with a broadcast cotangent, the chain's
+   backward) at the full fit batch with translate and gain moved off
+   the start: bit-equal to their plain versions on CPU copies of the
+   same inputs and across two runs.
 4. slice  — two synthesized fonts at real sizes (a text font of 1,700
    glyphs over 7 blocks, a heavy one of 1,150 glyphs of ~1,000 points)
    through the port's renderer, pipelined render session (each group's
@@ -111,7 +117,8 @@ JSON lines:
    `cli.main`, with the counts reset: seconds a font, first and the
    median of three warm (kernel 1 twice a text font, its two groups),
    the host seconds of `make_fit_batch`, seconds a step through the
-   CLI, kernels 2 and 3 counted as in phase 5 (23 in 20 steps).
+   CLI, the flat step's six kernels counted as in phase 5 (23 in 20
+   steps).
    Then OTFs written without fontTools (`utils.synth_font`): a CJK font
    of 27,584 glyphs over U+3400-4DBF and U+4E00-9FFF (108 blocks), a
    CID-keyed CFF (`build_otf_curved`), and its CFF2 twin with blends
@@ -128,10 +135,11 @@ JSON lines:
    a perturbed start (`utils.synth_font.synth_fit_batch`): 20 Adam steps
    of the ``flat`` backend through `FontFitter.step_many`, which
    captures a CUDA graph of the forward and backward (`StepGraph`) and
-   replays it a step, with the counts reset just before (kernels 2 and
-   3 launch once in each of the graph's warm-up runs, are recorded once
-   into the graph, and are counted once a replay: 10 more steps count
-   10 each, and the Adam kernel once a step; the loss descends; peak
+   replays it a step, with the counts reset just before (the step's six
+   kernels, kernels 2 and 3 and the fused loss's four, launch once in
+   each of the graph's warm-up runs, are recorded once into the graph,
+   and are counted once a replay: 10 more steps count 10 each, and the
+   Adam kernel once a step; the loss descends; peak
    memory); the Adam kernel (`ops.adam`) at the fit cell's leaves
    (1,686 × 16 curves, 1,686 translations, the gain): three steps bit-equal
    to its plain version on CPU copies, and one step's time on the card
@@ -145,7 +153,9 @@ JSON lines:
    5 + 5 steps through a checkpoint against 10 (Δ = 0), into a fresh
    init and back into the same tensors (the graph kept); the ``torch``
    and ``flat`` backends' loss and gradients on the first 256-codepoint
-   block; the fitted atlas through the ``cuda`` renderer (f32 wire)
+   block; the open ends of the fitted float64 chains that a pixel row's
+   crossing rule decides apart in float64 and in f32; the fitted atlas
+   (the fit's own f32 chains) through the ``cuda`` renderer (f32 wire)
    against the exact one; seconds per step, warm. Then 20 Adam steps of the
    padded-layout loss `models.fitting.batch_loss_kernel` from the same
    start (each padded kernel launches once a step, the loss descends),
@@ -157,11 +167,11 @@ JSON lines:
    one-device fitter (loss within 1e-6 relative, gradients within
    1e-5·max|g|); 20 Adam steps through `step_many`, which captures one
    CUDA graph a shard (`ShardedStepGraph`), with the counts reset just
-   before (the loss descends; kernels 2 and 3 launch 2 × (20 + 3):
+   before (the loss descends; the step's six kernels launch 2 × (20 + 3):
    each shard's 3 warm-up runs, then one launch a shard a replay) and
    10 more (exactly 2 a step); one replay of a fresh graph against the
    one-device fitter (the same tolerances; each shard's capture
-   recorded kernels 2 and 3 once); 10 steps against 10 on one device
+   recorded each of the six once); 10 steps against 10 on one device
    (losses within 1e-5 relative, parameters within 1e-3 px); 5 + 5
    steps through a checkpoint against 10 (Δ = 0), into a fresh init
    and back into the same tensors (the graph kept); seconds a step
@@ -191,7 +201,7 @@ JSON lines:
 Phases 4-8 enter below the font parser with synthesized outlines (the
 same outlines as phase 4b's font files, whose parse the CPU tests hold
 against the JAX package); phase 4b enters through the CLI.
-Then a ``{"kernels": [...]}`` line (the ten kernels, each with its
+Then a ``{"kernels": [...]}`` line (the fourteen kernels, each with its
 launches on its path, kernel 1's in phases 4 and 4b, its time by CUDA events over back-to-back launches
 and replayed from a CUDA graph, its plain version's time and its bound:
 the larger of its f32 operations over 67 TFLOP/s and its bytes over
@@ -260,10 +270,12 @@ def phase_build() -> None:
         emit({"phase": "build", "kernel": name, "arch": "sm_90a",
               "so": os.path.relpath(so, ROOT), "nvcc_s": nvcc_s})
     emit({"phase": "build", "all_s": time.perf_counter() - t0})
-    # What ptxas said of the eight redesigned kernels and Adam's (-Xptxas -v).
+    # What ptxas said of the eight redesigned kernels, Adam's and the fused
+    # loss's (-Xptxas -v).
     for name in ("sdf_tiles_pts", "sdf_grid_flat", "sdf_tiles_flat", "sdf_min_field_padded",
                  "sdf_min_field_pts", "sdf_min_field_padded_bwd", "sdf_min_field_bwd",
-                 "sdf_tiles_pts_acc", "adam_flat"):
+                 "sdf_tiles_pts_acc", "adam_flat", "flat_chain_fwd", "flat_loss_fwd",
+                 "flat_loss_bwd", "flat_chain_bwd"):
         so = _build.BUILDS[name][0]
         emit({"phase": "build", "kernel": name, "ptxas": _build.ptxas_report(so)})
     from versatiles_glyphs_tpu_torch.proto import native
@@ -745,6 +757,97 @@ def phase_fit_kernels(batch, heavy_batch, preps) -> dict:
     return out
 
 
+def phase_fused_loss_kernels(batch) -> dict:
+    """The fused flat-fit loss's four kernels (`ops.flat_loss`) at the fit
+    batch, translate and log_gain moved off the start, each on its
+    inputs as a step makes them (kernel 2's field, a random per-glyph
+    cotangent, kernel 3's dpts): against its plain version on CPU copies
+    of the same inputs bit for bit, and bit-identical across two runs;
+    the loss's backward also with a broadcast cotangent (a sum's, stride
+    0). Each one's time by CUDA events over back-to-back launches and
+    replayed from a CUDA graph, its plain version's on the card and its
+    bytes bound (`flat_loss.work`). Returns {kernel: numbers of the
+    kernels line}."""
+    from versatiles_glyphs_tpu_torch.models.fitting import FontFitter
+    from versatiles_glyphs_tpu_torch.ops import flat_loss, sdf_cuda
+
+    dev = torch.device("cuda", 0)
+    params, _, db = FontFitter(depth=FIT_DEPTH, backend="flat", device=dev).init(batch)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    with torch.no_grad():
+        params["translate"].add_(0.3 * torch.randn(params["translate"].shape, generator=gen,
+                                                   device=dev))
+        params["log_gain"].fill_(0.05)
+    c, t, lg = (params[k].detach() for k in ("curves", "translate", "log_gain"))
+    rows, cmap, target = db["glyph_rows"], db["chunk_map"], db["target_tiles"]
+    words, tmeta = db["plan_words"], db["plan_tmeta"]
+    N, B, C = words.shape[0] * 32, c.shape[0], c.shape[1]
+    bern = flat_loss.bernstein_matrix(FIT_DEPTH, dev)
+    pts = flat_loss.chain_fwd(c, t, bern, cmap, rows, N)
+    d2, wn, am = sdf_cuda.launch_min_field_pts(pts, words, tmeta, TP)
+    ct = torch.rand(B, generator=gen, device=dev) / B
+    broadcast = torch.full((), 1.0 / B, device=dev).expand(B)
+    ct_d2, part = flat_loss.loss_bwd(ct, d2, wn, target, rows, lg, TP)
+    dpts = sdf_cuda.launch_min_field_bwd(pts, am, ct_d2, tmeta, TP)
+
+    def host(*ts):
+        return [x.cpu() for x in ts]
+
+    # case -> (kernel, its launch, the plain version on CPU copies, on the card)
+    cases = {
+        "chain": ("flat_chain_fwd", lambda: flat_loss.chain_fwd(c, t, bern, cmap, rows, N),
+                  lambda: flat_loss.chain_fwd_plain(*host(c, t, bern, cmap, rows), N),
+                  lambda: flat_loss.chain_fwd_plain(c, t, bern, cmap, rows, N)),
+        "loss": ("flat_loss_fwd", lambda: flat_loss.loss_fwd(d2, wn, target, rows, lg, TP),
+                 lambda: flat_loss.loss_fwd_plain(*host(d2, wn, target, rows, lg), TP),
+                 lambda: flat_loss.loss_fwd_plain(d2, wn, target, rows, lg, TP)),
+        "loss_bwd": ("flat_loss_bwd",
+                     lambda: flat_loss.loss_bwd(ct, d2, wn, target, rows, lg, TP),
+                     lambda: flat_loss.loss_bwd_plain(*host(ct, d2, wn, target, rows, lg), TP),
+                     lambda: flat_loss.loss_bwd_plain(ct, d2, wn, target, rows, lg, TP)),
+        "loss_bwd_broadcast": (
+            "flat_loss_bwd", lambda: flat_loss.loss_bwd(broadcast, d2, wn, target, rows, lg, TP),
+            lambda: flat_loss.loss_bwd_plain(broadcast.cpu(), *host(d2, wn, target, rows, lg),
+                                             TP), None),
+        "chain_bwd": ("flat_chain_bwd", lambda: flat_loss.chain_bwd(dpts, bern, rows, C, part, lg),
+                      lambda: flat_loss.chain_bwd_plain(*host(dpts, bern, rows), C,
+                                                        *host(part, lg)),
+                      lambda: flat_loss.chain_bwd_plain(dpts, bern, rows, C, part, lg)),
+    }
+    work = flat_loss.work(rows.cpu().numpy(), C, bern.shape[0], N, tmeta.shape[1], TP)
+
+    def outs(x):
+        return [o.detach() for o in (x if isinstance(x, tuple) else (x,))]
+
+    out = {}
+    for case, (name, run, plain, plain_card) in cases.items():
+        got, again = outs(run()), outs(run())
+        want = outs(plain())
+        torch.cuda.synchronize()
+        bits = sum(int((g.cpu().view(torch.int32) != w.view(torch.int32)).sum())
+                   for g, w in zip(got, want))
+        rerun = sum(int((g.view(torch.int32) != a.view(torch.int32)).sum())
+                    for g, a in zip(got, again))
+        err = max(float((g.cpu() - w).abs().max()) if w.numel() else 0.0
+                  for g, w in zip(got, want))
+        rec = {"phase": "kernel", "kernel": name, "case": case, "glyphs": B, "lanes": N,
+               "tiles": int(tmeta.shape[1]), "bits_differ_from_plain": bits,
+               "bits_differ_between_runs": rerun, "max_abs_err": err,
+               "shapes": [list(g.shape) for g in got]}
+        if plain_card is not None:
+            rec["kernel_ms"] = time_ms(run, 50)
+            rec["graph_ms"] = graph_ms(run, 50)
+            rec["plain_ms"] = time_ms(plain_card, 3)
+            rec.update(bound_of(*work[name]))
+            out[name] = {"err": err, "ms": rec["kernel_ms"], "graph_ms": rec["graph_ms"],
+                         "plain_ms": rec["plain_ms"], "bound": bound_of(*work[name])}
+        emit(rec)
+        if bits or rerun:
+            raise AssertionError(f"{name} ({case}): {bits} values differ from the plain "
+                                 f"version, {rerun} between two runs")
+    return out
+
+
 def flat_case(gp, dev, tp: int = TP):
     """Glyphs ``gp`` packed by `pack_flat` and uploaded, with kernel 6's
     tile table at ``tp`` pixels a tile: (flat [4, N], meta [G, 8], tmeta
@@ -1146,9 +1249,12 @@ def phase_profile() -> None:
                        "device_busy_ms_over_unprofiled_wall", "device_events_a_step",
                        "kernel_launches_a_step")}})
     # The port's kernels a step of each fit variant (counted by their
-    # wrappers; a graph's once a replay).
-    flat, padded = ("sdf_min_field_pts", "sdf_min_field_bwd"), (
-        "sdf_min_field_padded", "sdf_min_field_padded_bwd")
+    # wrappers; a graph's once a replay): the flat step's six a shard,
+    # kernels 2 and 3 and the fused loss's four. The tool's own table
+    # (`tools.profile.expected_launches`) has to agree with this one.
+    flat = ("flat_chain_fwd", "sdf_min_field_pts", "flat_loss_fwd", "flat_loss_bwd",
+            "sdf_min_field_bwd", "flat_chain_bwd")
+    padded = ("sdf_min_field_padded", "sdf_min_field_padded_bwd")
     # Adam: one launch a step of FontFitter's steps (whole on the first
     # device); the hand-stepped padded loss calls opt.step().
     adam = {"adam_flat": 1.0}
@@ -1158,7 +1264,8 @@ def phase_profile() -> None:
             "padded_eager": dict.fromkeys(padded, 1.0)}
     bad = [r["stage"] for r in res["render"] if r["device_ms_median"] is None]
     bad += [k for k, r in fit.items()
-            if not r["device_events_a_step"] or r["kernel_launches_a_step"] != want[k]]
+            if not r["device_events_a_step"] or r["kernel_launches_a_step"] != want[k]
+            or r["kernel_launches_a_step_expected"] != want[k]]
     for src in ("", "_file"):
         if not (np.isfinite(res["e2e" + src]["paired_ratio"]).all()
                 and res["cpuprof" + src]["top_frames"]):
@@ -1625,10 +1732,12 @@ def phase_cli(work) -> int:
         fitting.make_fit_batch, fitting.FontFitter.step_many = real_batch, real_many
     launches = dict(sdf_cuda.LAUNCHES)
     # Phase 5's count: 3 warm-up runs before the graph's capture, then
-    # one launch a replay; the fitted atlas launches kernel 1.
+    # one launch a replay of each of the step's six kernels; the fitted
+    # atlas launches kernel 1.
+    from versatiles_glyphs_tpu_torch.ops.flat_loss import STEP_KERNELS
+
     want = FIT_STEPS + 3
-    if not (launches["sdf_min_field_pts"] == launches["sdf_min_field_bwd"] == want
-            and launches["sdf_tiles_pts"] >= 1):
+    if not (all(launches[k] == want for k in STEP_KERNELS) and launches["sdf_tiles_pts"] >= 1):
         raise AssertionError(f"cli fit: launches {launches}")
     emit({"phase": "cli", "step": "fit_in_process", "glyphs": n_text, "seconds": fit_s,
           "make_fit_batch_host_s": host_s, "step_calls": len(step_s),
@@ -1947,8 +2056,9 @@ def phase_fit(batch, work) -> dict:
     import dataclasses
 
     from versatiles_glyphs_tpu_torch.models.fitting import FontFitter, StepGraph, build_flat_plan
-    from versatiles_glyphs_tpu_torch.models.render_fitted import render_fitted_pbfs
+    from versatiles_glyphs_tpu_torch.models.render_fitted import fitted_preps, render_fitted_pbfs
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda
+    from versatiles_glyphs_tpu_torch.ops.flat_loss import STEP_KERNELS
     from versatiles_glyphs_tpu_torch.render.driver import Renderer
     from versatiles_glyphs_tpu_torch.utils.synth_font import SynthEntry
 
@@ -1990,7 +2100,7 @@ def phase_fit(batch, work) -> dict:
     emit(rec)
     if not (np.isfinite(losses).all() and losses.min() < losses[0]):
         raise AssertionError(f"the fit did not descend: {losses.tolist()}")
-    fit_kernels = ("sdf_min_field_pts", "sdf_min_field_bwd")
+    fit_kernels = STEP_KERNELS
     if captured != dict.fromkeys(fit_kernels, 1):
         raise AssertionError(f"the step's graph recorded {captured}")
     if not (all(launches[k] == FIT_STEPS + StepGraph.WARMUP and replayed[k] == 10
@@ -2086,9 +2196,26 @@ def phase_fit(batch, work) -> dict:
     # wire. Fitted curves no longer share end points, so every curve is
     # an open chain; on the q16 wires a pixel row through a chain end
     # within rounding of its center flips its winding (the JAX package
-    # renders fitted atlases the same way).
+    # renders fitted atlases the same way). The atlas is the fit's own
+    # f32 chain, which the f32 wire carries unrounded. Before it, the
+    # open ends of the float64 chain that the crossing rule (y <= a row's
+    # centre) decides one way in float64 and the other in f32: each
+    # flips its row right of the end on the f32 wire.
     entry = SynthEntry(1700, 32, seed=0, quads=8)
     host = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    n_open, apart = 0, []
+    preps64 = fitted_preps(host, batch, entry, FIT_DEPTH)
+    for p in preps64:
+        for ring in p.rings_px:
+            if np.array_equal(ring[0], ring[-1]):
+                continue
+            for x, y in (ring[0], ring[-1]):
+                n_open += 1
+                y32, centre = float(np.float32(y)), np.round(y - 0.5) + 0.5
+                if (y <= centre) != (y32 <= centre):
+                    apart.append({"codepoint": p.codepoint, "x": x, "y_f64": y, "y_f32": y32})
+    emit({"phase": "fit", "step": "open_ends", "glyphs": len(preps64), "open_ends": n_open,
+          "decided_apart_in_f32": len(apart), "first": apart[:8]})
     sdf_cuda.reset_launches()
     t0 = time.perf_counter()
     written = render_fitted_pbfs(host, batch, entry, FIT_DEPTH, os.path.join(work, "fit_cuda"),
@@ -2241,6 +2368,7 @@ def phase_sharded_fit(batch, work) -> dict:
     from versatiles_glyphs_tpu_torch.models.fitting import (
         PARAM_KEYS, FontFitter, StepGraph, batch_loss_kernel, make_sharded_kernel_loss)
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
+    from versatiles_glyphs_tpu_torch.ops.flat_loss import STEP_KERNELS
 
     dev = torch.device("cuda", 0)
     devices = [dev, dev]
@@ -2306,7 +2434,7 @@ def phase_sharded_fit(batch, work) -> dict:
         if run_eager is not None:
             turns["sharded_eager"] = lambda: run_eager(ps, os_, ss, 10)
         warm = steps_in_turns(turns)
-        kernels = (("sdf_min_field_pts", "sdf_min_field_bwd") if name == "flat"
+        kernels = (STEP_KERNELS if name == "flat"
                    else ("sdf_min_field_padded", "sdf_min_field_padded_bwd"))
         warmup = StepGraph.WARMUP if name == "flat" else 0
 
@@ -2443,6 +2571,7 @@ def main() -> None:
     heavy_batch = timed("host_prep", heavy_fit_batch)
     k = timed("kernel_render", phase_kernel, font_list[0][1], font_list[1][1])
     kf = timed("kernel_fit", phase_fit_kernels, batch, heavy_batch, font_list[0][1])
+    kfl = timed("kernel_fused_loss", phase_fused_loss_kernels, batch)
     kl = timed("kernel_flat", phase_flat_kernels, font_list[0][1], font_list[1][1])
     kp = timed("kernel_padded", phase_padded_kernels, batch, heavy_batch)
     kt = timed("kernel_tools", phase_tool_kernels, font_list[0][1])
@@ -2548,6 +2677,11 @@ def main() -> None:
             ka["plain_ms"], ka, graph_ms=ka["graph_ms"], library_ms=ka["library_ms"],
             host_us_a_step=ka["host_us_a_step"],
             library_host_us_a_step=ka["library_host_us_a_step"], **sharded("flat", "adam_flat")),
+        # The fused flat-fit loss (no Pallas kernel: XLA's ops around the
+        # min-field pair in the JAX package).
+        *(row(name, None, fit_launches[name], kfl[name]["err"], kfl[name]["ms"],
+              kfl[name]["plain_ms"], kfl[name]["bound"], graph_ms=kfl[name]["graph_ms"],
+              **sharded("flat", name)) for name in kfl),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -30,7 +30,7 @@ from versatiles_glyphs_tpu.render.driver import Renderer as JaxRenderer
 from versatiles_glyphs_tpu_torch.cli import main as torch_main
 from versatiles_glyphs_tpu_torch.font.entry import FontFileEntry
 from versatiles_glyphs_tpu_torch.models import fitting, glyph_model
-from versatiles_glyphs_tpu_torch.models.render_fitted import render_fitted_pbfs
+from versatiles_glyphs_tpu_torch.models.render_fitted import fitted_prep, render_fitted_pbfs
 from versatiles_glyphs_tpu_torch.render.driver import Renderer
 from versatiles_glyphs_tpu_torch.utils.synth_font import (
     SynthEntry,
@@ -205,21 +205,34 @@ def test_flat_chain_points_matches_jax():
 
 
 @pytest.mark.parametrize(
-    "jax_backend,backend,sharpness",
-    [("jnp", "torch", None), ("jnp", "torch", 2.0), ("pallas", "flat", None)],
+    "jax_backend,backend,sharpness,moved",
+    [pytest.param("jnp", "torch", None, False, id="jnp-torch-None"),
+     pytest.param("jnp", "torch", 2.0, False, id="jnp-torch-2.0"),
+     pytest.param("pallas", "flat", None, False, id="pallas-flat-None"),
+     pytest.param("pallas", "flat", None, True, id="pallas-flat-None-moved")],
 )
-def test_backend_loss_and_grads_match_jax(jax_backend, backend, sharpness):
+def test_backend_loss_and_grads_match_jax(jax_backend, backend, sharpness, moved):
     """Loss within 1e-5 relative and every gradient within 1e-4·max|g|
-    of the JAX package's backend on the same parameters."""
+    of the JAX package's backend on the same parameters: at the start,
+    and with ``moved`` with the translations and the gain moved off it
+    (the same moves on both sides)."""
     b = _batch()
     jf = jfit.FontFitter(depth=DEPTH, backend=jax_backend, sharpness=sharpness)
     jp, _, jd = jf.init(b)
+    tf = fitting.FontFitter(depth=DEPTH, backend=backend, sharpness=sharpness, device="cpu")
+    tp, _, td = tf.init(b)
+    if moved:
+        shift = np.random.default_rng(8).normal(0, 0.3, tp["translate"].shape).astype(np.float32)
+        jp = {**jp, "translate": jp["translate"] + shift,
+              "log_gain": jax.numpy.full_like(jp["log_gain"], 0.05)}
+        with torch.no_grad():
+            tp["translate"].add_(torch.from_numpy(shift))
+            tp["log_gain"].fill_(0.05)
+        np.testing.assert_array_equal(tp["translate"].detach().numpy(), np.asarray(jp["translate"]))
     if jax_backend == "pallas":
         lj, gj = jax.value_and_grad(jf._kernel_loss)(jp, jd)
     else:
         lj, gj = jax.value_and_grad(jfit.batch_loss)(jp, jd, DEPTH, sharpness)
-    tf = fitting.FontFitter(depth=DEPTH, backend=backend, sharpness=sharpness, device="cpu")
-    tp, _, td = tf.init(b)
     lt, gt = tf.value_and_grad(tp, td)
     assert abs(lt.item() - float(lj)) <= 1e-5 * abs(float(lj))
     for k in fitting.PARAM_KEYS:
@@ -388,6 +401,38 @@ def test_render_fitted_matches_jax(jax_runs, synth_font):
     assert written == ["0-255.pbf"]
     want = _tree(cli / "glyphs")
     assert _tree(out) == want and len(want) == 3
+
+
+def _line(a, b):
+    """A straight cubic from ``a`` to ``b`` [4, 2]."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.stack([a + (b - a) * k / 3 for k in range(4)])
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_fitted_atlas_renders_the_fit_chain(depth):
+    """An open fitted chain whose end lies within f32 rounding above a
+    pixel row's centre: curve 1 ends at y = 10.4363003 + 0.0637 (both
+    f32), 10.50000028 in float64 and 10.5 in the fit's f32 sum, and curve
+    2 starts elsewhere. On the float64 chain (the JAX package's
+    `fitted_prep`) the end's segment crosses the row in float64 and not
+    on the f32 wire, so the f32 render and the exact one disagree right
+    of the end; on the fit's own chain, which `render_fitted_pbfs`
+    renders, both see 10.5 and agree within 1."""
+    ty, y_end = np.float32(0.0637), np.float32(10.436300277709961)
+    assert float(y_end) + float(ty) > 10.5 and y_end + ty == np.float32(10.5)
+    curves = np.stack([_line((4, 4), (20, 4)), _line((20, 4), (20, y_end)),
+                       _line((20.25, 10.7), (4, 18)), _line((4, 18), (4, 4))]).astype(np.float32)
+    translate = np.array([0.0, ty], np.float32)
+    diffs = {}
+    for f32 in (False, True):
+        prep = fitted_prep(65, curves, translate, depth, 600, 1000, f32=f32)
+        if f32:
+            np.testing.assert_array_equal(prep.rings_px[0][-1], [20.0, 10.5])
+        got = Renderer("torch", transport="f32").render_bitmaps([prep])[0]
+        want = Renderer("exact").render_bitmaps([prep])[0]
+        diffs[f32] = int(np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32)).max())
+    assert diffs[False] > 1 and diffs[True] <= 1, diffs
 
 
 # -- CLI ------------------------------------------------------------------

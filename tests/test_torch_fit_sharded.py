@@ -166,7 +166,9 @@ def test_fitter_rejects_bad_device_lists():
 def test_shard_plans_match_jax():
     """Each shard's plan arrays (on its device, as the loss reads them)
     equal JAX `build_flat_plan` on the same slice of the padded batch,
-    array for array."""
+    array for array; the fused loss's target tiles hold each glyph's
+    target at the rows the JAX plan's ``row_map`` gives its tiles, and
+    its glyph table starts each glyph at its first."""
     from versatiles_glyphs_tpu.parallel.mesh import pad_to_multiple
 
     b = _odd_batch()
@@ -178,7 +180,14 @@ def test_shard_plans_match_jax():
         want = jfit.build_flat_plan(mask[rows], meta[rows], DEPTH, b.target.shape[1])
         np.testing.assert_array_equal(shard["plan_tmeta"].numpy(), want.tmeta.T)
         np.testing.assert_array_equal(shard["plan_words"].numpy(), want.mask_words)
-        np.testing.assert_array_equal(shard["row_map"].numpy(), want.row_map)
+        tiles = shard["target_tiles"].numpy()
+        for g in range(3):
+            npix = int(want.tmeta[want.row_map[g, 0], 2] * want.tmeta[want.row_map[g, 0], 3])
+            ntiles = max(1, -(-npix // want.TP))
+            target = np.zeros(ntiles * want.TP, np.float32)
+            target[:npix] = pad_to_multiple(b.target, 2)[rows][g, :npix]
+            np.testing.assert_array_equal(tiles[want.row_map[g, :ntiles]].reshape(-1), target)
+        np.testing.assert_array_equal(shard["glyph_rows"].numpy()[:, 0], want.row_map[:, 0])
         np.testing.assert_array_equal(shard["chunk_map"].numpy(), want.chunk_map)
         np.testing.assert_array_equal(shard["meta"].numpy(), meta[rows])
 

@@ -88,8 +88,9 @@ def test_alu_roof_wrapper_on_the_cpu():
     with pytest.raises(ValueError, match="no plain version"):
         sdf_cuda.alu_roof_cuda(2, 64, 5, "cpu", fused=True)
     assert not any(sdf_cuda.LAUNCHES.values())
-    assert {"alu_roof", "sdf_tiles_pts_acc", "adam_flat"} <= set(sdf_cuda.KERNELS)
-    assert len(sdf_cuda.KERNELS) == 10
+    assert {"alu_roof", "sdf_tiles_pts_acc", "adam_flat", "flat_chain_fwd", "flat_loss_fwd",
+            "flat_loss_bwd", "flat_chain_bwd"} <= set(sdf_cuda.KERNELS)
+    assert len(sdf_cuda.KERNELS) == 14
 
 
 @pytest.fixture(scope="module")

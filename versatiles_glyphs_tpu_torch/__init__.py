@@ -57,9 +57,13 @@ Layers, from the entry points down to the device:
                               segment packers, `wire_to_device`, and the
                               session's streams (`DeviceLane`)
 - ``ops.sdf_grad``          — `signed_field_flat`, the autograd function
-                              over the fitting kernels (the ``flat``
-                              backend), and `signed_field_padded` over
+                              over the fitting kernels, `flat_fit_losses`
+                              (`FlatFitLoss`), the ``flat`` backend's
+                              fused loss, and `signed_field_padded` over
                               the padded pair
+- ``ops.flat_loss``         — the fused loss's chain and loss kernels
+                              around the fitting pair, their plain
+                              versions and the plan's checks
 - ``ops.legacy``            — the renders over the flat segment layout
 - ``ops.sdf_cuda``          — kernel wrappers with the launch counters
 - ``ops.sdf_torch``         — plain PyTorch versions of every device op
@@ -79,6 +83,9 @@ Layers, from the entry points down to the device:
 - ``csrc/alu_roof.cu``          — the synthetic ALU roof on the tile
                                   kernel's launch shape
 - ``csrc/sdf_pair.cuh``         — the per-pixel math the kernels share
+- ``csrc/flat_{chain,loss}_{fwd,bwd}.cu``, ``csrc/flat_loss.cuh`` — the
+                                  fused flat-fit loss around the fitting
+                                  pair
 - ``device``                — the CUDA device predicate (no CPU fallback)
 - ``utils.synth_font``      — synthesized curved fonts, fit batches and
                               entries, with no font file

@@ -12,9 +12,12 @@ Two gradient backends:
 - ``"torch"`` (the JAX package's ``jnp``): autograd of the pair-tensor
   model `models.glyph_model.glyph_field`, hard min or softmin;
 - ``"flat"`` (the JAX package's ``pallas``): the flat point-chain /
-  tile-table layout of `build_flat_plan` through `ops.sdf_grad`, whose
-  forward and backward are the hand-written min-field kernels on a CUDA
-  device and their plain versions on the CPU. Hard min only.
+  tile-table layout of `build_flat_plan` through one fused autograd node
+  (`ops.sdf_grad.flat_fit_losses`), whose forward and backward are the
+  hand-written min-field kernels with the chain and loss kernels of
+  `ops.flat_loss` around them on a CUDA device, and their plain versions
+  on the CPU. Hard min only. `flat_losses_reference` is the same loss
+  as PyTorch ops and autograd, the reference of the CPU tests.
 
 `batch_loss_kernel` is the JAX package's loss of the same name: the
 padded per-glyph layout through `ops.sdf_grad.signed_field_padded` (the
@@ -66,7 +69,6 @@ fontTools, JAX, optax or orbax.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -74,6 +76,7 @@ import torch
 
 from ..device import cuda_device
 from ..ops.adam import adam_step
+from ..ops.flat_loss import bernstein_matrix
 from ..render.batch import S_BUCKETS, SC, bucket
 from ..utils import trace
 from .glyph_model import bytes_to_field, glyph_field, sdf_loss
@@ -199,6 +202,7 @@ class FlatKernelPlan:
     mask_words: np.ndarray  # [N//32] i32 validity bits
     row_map: np.ndarray  # [B, P_pad//TP] i32 field-row gather map
     chunk_map: np.ndarray  # [N//128] i32: lane chunk → source 128-block
+    glyph_rows: np.ndarray  # [B, 4] i32: first tile row, w·h, first lane, npts
 
 
 def build_flat_plan(
@@ -220,7 +224,9 @@ def build_flat_plan(
     to a multiple of BT with skip rows. ``chunk_map`` maps each 128-lane
     chunk to a 128-point block of the chain tensor; ``row_map[g, t]``
     maps loss-layout pixel tiles to field rows (out-of-range tiles point
-    at the glyph's last tile; their pixels are masked)."""
+    at the glyph's last tile; their pixels are masked). ``glyph_rows``
+    is the fused loss's glyph table (`ops.flat_loss`): each glyph's first
+    tile row, w·h, first lane and chain points."""
     B, C_pad = curve_mask.shape
     K = (1 << depth) + 1
     npts = curve_mask.sum(axis=1).astype(np.int64) * K
@@ -259,22 +265,25 @@ def build_flat_plan(
         raise ValueError(f"P_pad={P_pad} must be a multiple of TP={TP}")
     t = np.arange(P_pad // TP)[None, :]
     row_map = (tstart[:, None] + np.minimum(t, (ntiles - 1)[:, None])).astype(np.int32)
+    glyph_rows = np.stack([tstart, wh, offs, npts], axis=1).astype(np.int32)
     return FlatKernelPlan(
-        K=K, N=N, T=T, TP=TP, L_max=L_max,
-        tmeta=tmeta, mask_words=mask_words, row_map=row_map, chunk_map=chunk_map,
+        K=K, N=N, T=T, TP=TP, L_max=L_max, tmeta=tmeta, mask_words=mask_words,
+        row_map=row_map, chunk_map=chunk_map, glyph_rows=glyph_rows,
     )
 
 
-@functools.lru_cache(maxsize=8)
-def _bernstein_matrix(depth: int, device: torch.device) -> torch.Tensor:
-    """[K, 4] f32 Bernstein evaluation matrix at the K = 2^depth + 1
-    dyadic parameters, on ``device`` (made once: a copy from the host
-    would synchronize every step). The rows at t = 0 and 1 are exact
-    unit vectors, so chain endpoints equal the control points bitwise."""
-    K = (1 << depth) + 1
-    t = np.arange(K, dtype=np.float64) / (K - 1)
-    M = np.stack([(1 - t) ** 3, 3 * t * (1 - t) ** 2, 3 * t * t * (1 - t), t**3], axis=1)
-    return torch.from_numpy(M.astype(np.float32)).to(device)
+def tile_target(plan: FlatKernelPlan, target: np.ndarray) -> np.ndarray:
+    """The target [B, P_pad] laid out as the min field's tiles
+    [T_pad, TP] f32 (glyph g's pixel i at row ``tstart_g + i // TP``,
+    slot ``i % TP``; padding rows 0), which the fused loss reads beside
+    the field (`ops.flat_loss`)."""
+    TP = plan.TP
+    B = target.shape[0]
+    out = np.zeros((plan.tmeta.shape[0], TP), np.float32)
+    ntiles = np.maximum(1, -(-plan.glyph_rows[:, 1].astype(np.int64) // TP))
+    own = np.arange(plan.row_map.shape[1])[None, :] < ntiles[:, None]
+    out[plan.row_map[own]] = np.asarray(target, np.float32).reshape(B, -1, TP)[own]
+    return out
 
 
 def flat_chain_points(curves, translate, depth: int, chunk_map) -> torch.Tensor:
@@ -285,7 +294,7 @@ def flat_chain_points(curves, translate, depth: int, chunk_map) -> torch.Tensor:
     B, C_pad = curves.shape[:2]
     K = (1 << depth) + 1
     c = curves + translate[:, None, None, :]
-    chain = torch.einsum("kj,bcjd->bckd", _bernstein_matrix(depth, c.device), c)
+    chain = torch.einsum("kj,bcjd->bckd", bernstein_matrix(depth, c.device), c)
     CK = C_pad * K
     CK_pad = -(-CK // SC) * SC
     chain = torch.nn.functional.pad(chain.reshape(B, CK, 2), (0, 0, 0, CK_pad - CK))
@@ -296,12 +305,12 @@ def flat_chain_points(curves, translate, depth: int, chunk_map) -> torch.Tensor:
 
 def make_flat_kernel_loss(plan: FlatKernelPlan, depth: int):
     """Loss of the flat backend. The plan's arrays ride in the device
-    batch (``plan_tmeta`` [8, T_pad], ``plan_words``, ``row_map``,
-    ``chunk_map``); its static ints are closed over. The batch's plan
-    arrays must have passed `ops.sdf_cuda.check_flat_plan` (as
-    `FontFitter.init` has them): the kernels launch without their
-    wrappers' per-step checks, each of which would synchronize the
-    host."""
+    batch (``plan_tmeta`` [8, T_pad], ``plan_words``, ``chunk_map``,
+    ``glyph_rows``, ``target_tiles``); its static ints are closed over.
+    The batch's plan arrays must have passed `ops.sdf_cuda.check_flat_plan`
+    and `ops.flat_loss.check_plan` (as `FontFitter.init` has them): the
+    kernels launch without their wrappers' per-step checks, each of which
+    would synchronize the host."""
     TP = plan.TP
 
     def loss_fn(params, batch):
@@ -311,12 +320,30 @@ def make_flat_kernel_loss(plan: FlatKernelPlan, depth: int):
 
 
 def _flat_losses(params, batch: dict, depth: int, TP: int) -> torch.Tensor:
+    """The flat backend's per-glyph losses [B]: one fused autograd node
+    (`ops.sdf_grad.flat_fit_losses`), six kernel launches a step on the
+    card."""
+    from ..ops.sdf_grad import flat_fit_losses
+
+    return flat_fit_losses(params["curves"], params["translate"], params["log_gain"], batch,
+                           depth, TP)
+
+
+def flat_losses_reference(params, batch: dict, plan: FlatKernelPlan, depth: int) -> torch.Tensor:
+    """`_flat_losses` as PyTorch ops and autograd around the min-field
+    pair (the JAX package's decomposition): `flat_chain_points`, the
+    signed field, the gather of its tiles into [B, P_pad] by the plan's
+    ``row_map`` and `_glyph_losses` against the device batch's
+    ``target`` and ``pix_mask``. The fused loss computes the same up to
+    the order of its sums; the CPU tests hold it against this."""
     from ..ops.sdf_grad import signed_field_flat
 
     flat = flat_chain_points(params["curves"], params["translate"], depth, batch["chunk_map"])
-    field = signed_field_flat(flat, batch["plan_words"], batch["plan_tmeta"], TP, checked=True)
+    field = signed_field_flat(flat, batch["plan_words"], batch["plan_tmeta"], plan.TP,
+                              checked=True)
     B = params["curves"].shape[0]
-    fb = field.index_select(0, batch["row_map"].reshape(-1)).reshape(B, -1)
+    row_map = torch.as_tensor(plan.row_map, dtype=torch.int64, device=field.device)
+    fb = field.index_select(0, row_map.reshape(-1)).reshape(B, -1)
     return _glyph_losses(fb, params, batch)
 
 
@@ -607,8 +634,9 @@ class FontFitter:
 
     def _device_batch(self, batch: FitBatch, dev):
         """The batch's arrays on ``dev`` and, for the flat backend, its
-        plan (checked once here: the loss launches the kernels without
-        checks)."""
+        plan and the target in the tile layout (checked once here: the
+        loss launches the kernels without checks; on a card its kernels
+        are built here)."""
         dev_batch = {
             "curve_mask": torch.as_tensor(batch.curve_mask, device=dev),
             "px": torch.as_tensor(batch.px, dtype=torch.float32, device=dev),
@@ -618,15 +646,20 @@ class FontFitter:
         }
         if self.backend != "flat":
             return dev_batch, None
+        from ..ops import flat_loss
         from ..ops.sdf_cuda import check_flat_plan
 
         plan = build_flat_plan(batch.curve_mask, batch.meta, self.depth, batch.target.shape[1])
         dev_batch["meta"] = torch.as_tensor(batch.meta, dtype=torch.int32, device=dev)
         dev_batch["plan_tmeta"] = torch.as_tensor(plan.tmeta.T.copy(), device=dev)
         dev_batch["plan_words"] = torch.as_tensor(plan.mask_words, device=dev)
-        dev_batch["row_map"] = torch.as_tensor(plan.row_map, dtype=torch.int64, device=dev)
         dev_batch["chunk_map"] = torch.as_tensor(plan.chunk_map, dtype=torch.int64, device=dev)
+        dev_batch["glyph_rows"] = torch.as_tensor(plan.glyph_rows, device=dev)
+        dev_batch["target_tiles"] = torch.as_tensor(tile_target(plan, batch.target), device=dev)
         check_flat_plan(plan.N, dev_batch["plan_words"], dev_batch["plan_tmeta"], plan.TP)
+        flat_loss.check_plan(dev_batch, batch.curve_mask.shape[1], plan.K, plan.TP)
+        if dev.type == "cuda":
+            flat_loss.build()  # the step's six kernels, one nvcc each at once
         return dev_batch, plan
 
     def init(self, batch: FitBatch):

@@ -3,11 +3,21 @@
 
 The fitted model's geometry is the fixed-depth De Casteljau chain of
 its cubic control points (`models.glyph_model.curves_to_segments`);
-`fitted_prep` evaluates the same chain in float64 (the Bernstein rows at
-the dyadic parameters, exact at t=0/1) into `GlyphPrep`s with the
-reference's integer metrics, so the rendered outline is the model's
-polyline, not a re-flattening. The atlas goes through the same render
-session and PBF encode as `recurse`/`merge`.
+`fitted_prep` evaluates the chain (the Bernstein rows at the dyadic
+parameters, exact at t=0/1) into `GlyphPrep`s with the reference's
+integer metrics, so the rendered outline is the model's polyline, not a
+re-flattening. The atlas goes through the same render session and PBF
+encode as `recurse`/`merge`.
+
+`render_fitted_pbfs` renders the fit's own f32 chain (`fit_chain`): the
+points the flat loss saw, which every renderer's f32 wire carries
+unrounded. Fitted curves are open chains (the fit moves each curve's
+ends on their own), and the crossing rule decides at an open end whether
+its segment crosses a pixel row; a float64 chain whose end lies within
+f32 rounding of a row's centre (y = 10.5000003 on 10.5) is decided one
+way in float64 and the other on the f32 wire, and every pixel of the row
+right of the end flips. `fitted_prep`'s default, the float64 chain, is
+the JAX package's `fitted_prep`.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ import numpy as np
 import torch
 
 from ..constants import BUFFER, GLYPH_SIZE
+from ..ops.flat_loss import bernstein_matrix, bernstein_points
 from ..render.metrics import GlyphPrep, _round_half_away
 
 
@@ -27,7 +38,7 @@ def _host(v) -> np.ndarray:
 
 def _bernstein_f64(depth: int) -> np.ndarray:
     """[K, 4] float64 Bernstein evaluation matrix at the K = 2^depth+1
-    dyadic parameters (twin of `fitting._bernstein_matrix`, kept in f64
+    dyadic parameters (twin of `ops.flat_loss.bernstein_matrix`, kept in f64
     so chain endpoints equal the control points bitwise and consecutive
     curves sharing control points join watertight)."""
     K = (1 << depth) + 1
@@ -38,6 +49,14 @@ def _bernstein_f64(depth: int) -> np.ndarray:
     )
 
 
+def fit_chain(curves: np.ndarray, translate: np.ndarray, depth: int) -> np.ndarray:
+    """[C, K, 2] float64 holding the fit's own f32 chain of one glyph's
+    curves [C, 4, 2] moved by ``translate`` [2]: the flat loss's
+    arithmetic (`ops.flat_loss.bernstein_points`), bit for bit."""
+    q = torch.from_numpy(np.asarray(curves, np.float32) + np.asarray(translate, np.float32))
+    return bernstein_points(q, bernstein_matrix(depth, torch.device("cpu"))).double().numpy()
+
+
 def fitted_prep(
     codepoint: int,
     curves: np.ndarray,
@@ -45,6 +64,7 @@ def fitted_prep(
     depth: int,
     advance_units: float,
     units_per_em: int,
+    f32: bool = False,
 ) -> GlyphPrep:
     """One `GlyphPrep` from fitted parameters.
 
@@ -54,7 +74,9 @@ def fitted_prep(
     placement. Metrics re-derive from the fitted geometry with the
     reference's exact integer arithmetic (floor/ceil bbox ± BUFFER,
     `renderer.rs:64-91`); advance comes from the source font (fitting
-    moves outlines, not horizontal metrics)."""
+    moves outlines, not horizontal metrics). ``f32``: the chain is the
+    fit's own (`fit_chain`); else it is evaluated in float64, as the JAX
+    package's `fitted_prep` does."""
     scale = float(GLYPH_SIZE) / float(units_per_em)
     advance_float = float(advance_units) * scale * 0.95
     advance = _round_half_away(advance_float)
@@ -63,10 +85,11 @@ def fitted_prep(
     c = np.asarray(curves, np.float64)
     if c.shape[0] == 0:
         return GlyphPrep(codepoint=codepoint, advance=advance, dx=dx, empty=True)
-    c = c + np.asarray(translate, np.float64)[None, None, :]
-
-    M = _bernstein_f64(depth)
-    chain = np.einsum("kj,cjd->ckd", M, c)  # [C, K, 2]
+    if f32:
+        chain = fit_chain(c, translate, depth)
+    else:
+        c = c + np.asarray(translate, np.float64)[None, None, :]
+        chain = np.einsum("kj,cjd->ckd", _bernstein_f64(depth), c)  # [C, K, 2]
 
     # Merge consecutive curves whose endpoints join bitwise into one
     # chain (halves device lanes vs one chain per curve; the Bernstein
@@ -111,13 +134,13 @@ def fitted_prep(
     )
 
 
-def fitted_preps(params, batch, entry, depth: int) -> list[GlyphPrep]:
+def fitted_preps(params, batch, entry, depth: int, f32: bool = False) -> list[GlyphPrep]:
     """GlyphPreps for every fitted glyph of a batch.
 
     ``params`` is the (host-fetched) parameter dictionary from
     `FontFitter`; ``batch`` the `FitBatch` it was fitted on (supplies
     ``curve_mask`` and ``codepoints``); ``entry`` the source
-    `FontFileEntry` (advance metrics)."""
+    `FontFileEntry` (advance metrics); ``f32`` as in `fitted_prep`."""
     curves = np.asarray(params["curves"], np.float64)
     translate = np.asarray(params["translate"], np.float64)
     cps = batch.codepoints
@@ -143,6 +166,7 @@ def fitted_preps(params, batch, entry, depth: int) -> list[GlyphPrep]:
                 depth,
                 adv_units,
                 entry.units_per_em,
+                f32,
             )
         )
     return preps
@@ -164,7 +188,8 @@ def render_fitted_pbfs(
     ``params``: tensors or numpy arrays under ``curves``/``translate``;
     ``batch``: the `FitBatch` they were fitted on; ``entry``: the source
     font (advances, units per EM, metadata); ``renderer``: a port
-    `Renderer` (default ``"auto"``). Returns the block file names."""
+    `Renderer` (default ``"auto"``). The outlines are the fit's own f32
+    chains (`fit_chain`). Returns the block file names."""
     from ..font.index_files import build_font_families_json, build_index_json
     from ..proto.pbf import encode_glyphs
     from ..render.driver import Renderer
@@ -173,7 +198,7 @@ def render_fitted_pbfs(
     if renderer is None:
         renderer = Renderer("auto")
     host = {k: _host(params[k]) for k in ("curves", "translate")}
-    preps = fitted_preps(host, batch, entry, depth)
+    preps = fitted_preps(host, batch, entry, depth, f32=True)
     bitmaps = renderer.render_bitmaps([p for p in preps if not p.empty])
     glyphs = Renderer.assemble_glyphs(preps, iter(bitmaps))
 

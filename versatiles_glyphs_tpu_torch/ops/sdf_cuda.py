@@ -2,7 +2,7 @@
 and of the Pallas kernels of `ops.sdf_grad`, `ops.legacy` and the
 measurement scripts).
 
-The port's ten hand-written kernels, each on the current stream:
+The port's fourteen hand-written kernels, each on the current stream:
 
 - ``sdf_tiles_pts`` (render): `render_bitmaps_cuda_pts`,
   `render_bitmaps_cuda_delta`. A block of TP / R threads a tile, R
@@ -36,7 +36,12 @@ The port's ten hand-written kernels, each on the current stream:
 - ``alu_roof`` (the synthetic ALU roof on the tile kernel's launch
   shape): `alu_roof_cuda`, for `tools.roofline`;
 - ``adam_flat`` (the fit's Adam update, every leaf in one launch): wrapped
-  in `ops.adam`, whose plain version it gives bit for bit.
+  in `ops.adam`, whose plain version it gives bit for bit;
+- ``flat_chain_fwd``, ``flat_loss_fwd``, ``flat_loss_bwd`` and
+  ``flat_chain_bwd`` (the fused flat-fit loss around the min-field pair:
+  the point chain, each glyph's loss, the cotangent of d² and the
+  leaves' gradients): wrapped in `ops.flat_loss`, whose plain versions
+  they give bit for bit.
 
 On CUDA tensors a wrapper launches its kernel (``csrc/<name>.cu``); on
 CPU tensors it runs the kernel's plain version in `ops.sdf_torch`.
@@ -82,7 +87,7 @@ from .sdf_torch import (
     render_tiles_pts,
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # kernel name -> (C symbol, ctypes argument types)
 _SIGNATURES = {
     "sdf_tiles_pts": ("vg_sdf_tiles_pts", [_P, _I, _P, _P, _I, _I, _I, _F, _F, _P, _P]),
@@ -102,6 +107,14 @@ _SIGNATURES = {
     # Adam's update of the fit's leaves (`ops.adam`; host arrays of
     # pointers, counts and scalars).
     "adam_flat": ("vg_adam_flat", [_I, _P, _P, _P, _P]),
+    # The fused flat-fit loss (`ops.flat_loss`): the chain, the loss and
+    # their backwards around kernels 2 and 3.
+    "flat_chain_fwd": ("vg_flat_chain_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+    "flat_loss_fwd": ("vg_flat_loss_fwd", [_P, _P, _P, _P, _I, _P, _I, _P, _P]),
+    "flat_loss_bwd": (
+        "vg_flat_loss_bwd", [_P, _L, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P]),
+    "flat_chain_bwd": (
+        "vg_flat_chain_bwd", [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
 }
 # ``sdf_min_field_padded``: the most threads a block and pixels a
 # thread of the launcher's shape (`padded_launch_shape`: two blocks of

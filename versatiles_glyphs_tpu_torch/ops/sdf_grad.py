@@ -1,6 +1,6 @@
 """Differentiable signed-distance fields (counterparts of
 `versatiles_glyphs_tpu.ops.sdf_grad.signed_field_flat` and
-`signed_field_pallas`).
+`signed_field_pallas`), and the flat backend's fused loss.
 
 `signed_field_flat`, over the flat point-chain layout:
 
@@ -25,12 +25,22 @@ backward kernel (`ops.sdf_cuda.min_field_padded_bwd_cuda`, the same
 envelope-theorem terms per segment); ``sd = sgn·sqrt(max(d², 1e-12))``
 around it is plain autograd, as it is plain JAX there, with the winding
 sign carrying no gradient.
+
+`flat_fit_losses` (`FlatFitLoss`), the flat backend's per-glyph losses
+[B] from the leaves ``curves``, ``translate`` and ``log_gain``: the point
+chain, the signed field and `models.glyph_model.sdf_loss` of the
+unfused decomposition (`models.fitting.flat_losses_reference`) in one
+autograd node, whose forward and backward are three launches each
+around the min-field pair (`ops.flat_loss`: the chain, the loss, the
+cotangent of d², the leaves' gradients); on CPU tensors the plain
+versions.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import flat_loss
 from .sdf_cuda import (
     _check,
     launch_min_field_bwd,
@@ -123,3 +133,57 @@ def signed_field_padded(
     d = sqrt_rn(torch.clamp(d2, min=1e-12))
     sgn = torch.where(wn != 0, -1.0, 1.0)
     return sgn * d
+
+
+class FlatFitLoss(torch.autograd.Function):
+    """Per-glyph losses [B] from ``curves`` [B, C, 4, 2], ``translate``
+    [B, 2] and ``log_gain`` []; see `flat_fit_losses`."""
+
+    @staticmethod
+    def forward(ctx, curves, translate, log_gain, batch: dict, depth: int, TP: int):
+        words, tmeta = batch["plan_words"], batch["plan_tmeta"]
+        bern = flat_loss.bernstein_matrix(depth, curves.device)
+        pts = flat_loss.chain_fwd(curves.contiguous(), translate.contiguous(), bern,
+                                  batch["chunk_map"], batch["glyph_rows"], words.shape[0] * 32)
+        if pts.device.type == "cuda":
+            _check(pts, words, tmeta, TP)  # shapes and dtypes: no sync
+            d2, wn, am = launch_min_field_pts(pts, words, tmeta, TP)
+        else:
+            d2, wn, am = min_field_cuda_pts(pts, words, tmeta, TP)
+        losses = flat_loss.loss_fwd(d2, wn, batch["target_tiles"], batch["glyph_rows"],
+                                    log_gain, TP)
+        ctx.save_for_backward(log_gain, pts, d2, wn, am)
+        ctx.batch, ctx.bern, ctx.TP, ctx.C = batch, bern, TP, curves.shape[1]
+        return losses
+
+    @staticmethod
+    def backward(ctx, ct):
+        log_gain, pts, d2, wn, am = ctx.saved_tensors
+        batch, TP = ctx.batch, ctx.TP
+        ct_d2, gain_part = flat_loss.loss_bwd(ct, d2, wn, batch["target_tiles"],
+                                              batch["glyph_rows"], log_gain, TP)
+        bwd = launch_min_field_bwd if pts.device.type == "cuda" else min_field_bwd_cuda
+        dpts = bwd(pts, am, ct_d2, batch["plan_tmeta"], TP)
+        dcurves, dtranslate, dlog_gain = flat_loss.chain_bwd(
+            dpts, ctx.bern, batch["glyph_rows"], ctx.C, gain_part, log_gain)
+        return dcurves, dtranslate, dlog_gain, None, None, None
+
+
+def flat_fit_losses(curves, translate, log_gain, batch: dict, depth: int, TP: int = 256
+                    ) -> torch.Tensor:
+    """The flat backend's per-glyph losses [B] f32, differentiable in
+    ``curves``, ``translate`` and ``log_gain``: the masked SDF loss of
+    each glyph (`models.glyph_model.sdf_loss`) of the signed field over
+    the point chain of depth ``depth``, as `models.fitting.
+    flat_losses_reference` computes it, up to the order of its sums.
+
+    ``batch`` is a flat device batch (`models.fitting.FontFitter`):
+    ``plan_words``, ``plan_tmeta``, ``chunk_map``, ``glyph_rows`` and
+    ``target_tiles``, which must have passed `ops.sdf_cuda.check_flat_plan`
+    and `ops.flat_loss.check_plan` (the kernels launch without per-call
+    checks, each of which would synchronize the host). On the card a
+    forward is three launches (``flat_chain_fwd``, kernel 2,
+    ``flat_loss_fwd``) and a backward three more (``flat_loss_bwd``,
+    kernel 3, ``flat_chain_bwd``), none with a float atomic, so two runs
+    are bit-equal; on the CPU the plain versions."""
+    return FlatFitLoss.apply(curves, translate, log_gain, batch, depth, TP)

@@ -286,12 +286,28 @@ def steps_record(events, steps: int, seconds: float) -> dict:
             "device_events_a_step_by_name": {n: c / steps for n, c in sorted(by_name.items())}}
 
 
+def expected_launches(shards: int = 2) -> dict:
+    """{variant: {kernel: launches a step}} that `fit_steps` counts where
+    each step takes its path: the flat step's six kernels
+    (`ops.flat_loss.STEP_KERNELS`, kernels 2 and 3 and the fused loss's
+    four) once a shard (a graph's once a replay) and the Adam kernel once;
+    the padded pair once a step (its loop calls ``opt.step()``)."""
+    from ..ops.flat_loss import STEP_KERNELS
+
+    adam = {"adam_flat": 1.0}
+    return {"graphed_one_device": {**dict.fromkeys(STEP_KERNELS, 1.0), **adam},
+            "graphed_sharded": {**dict.fromkeys(STEP_KERNELS, float(shards)), **adam},
+            "eager_sharded": {**dict.fromkeys(STEP_KERNELS, float(shards)), **adam},
+            "padded_eager": dict.fromkeys(("sdf_min_field_padded",
+                                           "sdf_min_field_padded_bwd"), 1.0)}
+
+
 def fit_steps(font: str, dev: torch.device, devices: list, runs: int) -> dict:
     """{variant: record} of `FIT_STEPS` warm steps of each fit step on
     the font's fit batch (see the module docstring): the host wall a
     step (median of ``runs`` runs), peak memory from `init` through the
     warm-up above what was allocated before, the port's kernel launches
-    a step (`sdf_cuda.LAUNCHES`),
+    a step (`sdf_cuda.LAUNCHES`) beside `expected_launches`,
     and `steps_record` of one more run under `torch.profiler`."""
     from ..models.fitting import FontFitter, batch_loss_kernel
     from ..ops import sdf_cuda
@@ -324,6 +340,7 @@ def fit_steps(font: str, dev: torch.device, devices: list, runs: int) -> dict:
         "eager_sharded": (sh, eager(sh)),
         "padded_eager": (one, padded),
     }
+    expected = expected_launches(len(devices))
     res = {}
     for name, (fitter, run) in variants.items():
         if cuda:
@@ -349,6 +366,7 @@ def fit_steps(font: str, dev: torch.device, devices: list, runs: int) -> dict:
                "wall_ms_a_step": 1e3 * statistics.median(walls) / FIT_STEPS,
                "wall_ms_a_step_each": [1e3 * w / FIT_STEPS for w in walls],
                "peak_memory_above_start_bytes": peak, "kernel_launches_a_step": launches,
+               "kernel_launches_a_step_expected": expected[name],
                **steps_record(events, FIT_STEPS, seconds)}
         # The profiler slows the host, not the card: the device's busy
         # time over the unprofiled wall is the share a user's step sees.

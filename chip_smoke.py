@@ -157,10 +157,11 @@ JSON lines:
    crossing rule decides apart in float64 and in f32; the fitted atlas
    (the fit's own f32 chains) through the ``cuda`` renderer (f32 wire)
    against the exact one; seconds per step, warm. Then 20 Adam steps of the
-   padded-layout loss `models.fitting.batch_loss_kernel` from the same
-   start (each padded kernel launches once a step, the loss descends),
-   and its loss and gradients against the ``torch`` backend's on the
-   first 256-codepoint block.
+   padded-layout loss `models.fitting.batch_loss_kernel` on its own batch
+   (`padded_batch`) from the same start (each padded kernel and the Adam
+   kernel launch once a step, the loss descends), and its loss and
+   gradients against the ``torch`` backend's on the first 256-codepoint
+   block.
 6. sharded_fit — the fit of phase 5 sharded over the one card listed
    twice (`FontFitter(devices=[cuda:0, cuda:0])`, 850 glyphs a shard,
    each with its own flat plan): one loss and gradient against the
@@ -168,8 +169,8 @@ JSON lines:
    1e-5·max|g|); 20 Adam steps through `step_many`, which captures one
    CUDA graph a shard (`ShardedStepGraph`), with the counts reset just
    before (the loss descends; the step's six kernels launch 2 × (20 + 3):
-   each shard's 3 warm-up runs, then one launch a shard a replay) and
-   10 more (exactly 2 a step); one replay of a fresh graph against the
+   each shard's 3 warm-up runs, then one launch a shard a replay; the
+   Adam kernel once a step) and 10 more (exactly 2 a step); one replay of a fresh graph against the
    one-device fitter (the same tolerances; each shard's capture
    recorded each of the six once); 10 steps against 10 on one device
    (losses within 1e-5 relative, parameters within 1e-3 px); 5 + 5
@@ -177,8 +178,8 @@ JSON lines:
    and back into the same tensors (the graph kept); seconds a step
    warm in 8 turns each: graphed sharded, eager sharded and the graphed
    one-device step (its graph captured before the turns). The same for
-   `make_sharded_kernel_loss` against `batch_loss_kernel` (eager;
-   kernels 4 and 5 twice a step). Then 10 graphed sharded steps
+   `make_sharded_kernel_loss` against `batch_loss_kernel` on their own
+   batches (eager; kernels 4 and 5 twice a step). Then 10 graphed sharded steps
    against 10 eager sharded `step` calls, bit for bit in parameters and
    losses, with each one's peak memory: the ``flat`` backend at full
    size and the ``torch`` backend on block 0. Then the graft entry
@@ -213,6 +214,8 @@ top SM clock read in phase 1), and last ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -571,6 +574,20 @@ def heavy_fit_batch():
     from versatiles_glyphs_tpu_torch.utils.synth_font import synth_fit_batch
 
     return synth_fit_batch(1150, 0x600, seed=1, quads=24, depth=FIT_DEPTH, perturb=0.35)
+
+
+def eager_losses(loss_fn, params, opt, db, k: int):
+    """The losses of ``k`` eager Adam steps (`models.fitting.eager_step`)."""
+    from versatiles_glyphs_tpu_torch.models.fitting import eager_step
+
+    return torch.stack([eager_step(loss_fn, params, opt, db) for _ in range(k)]).cpu().numpy()
+
+
+def first_block(batch):
+    """The fit batch's glyphs of the first 256-codepoint block."""
+    rows = batch.codepoints < 256
+    return dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name)[rows] for f in dataclasses.fields(batch)})
 
 
 def fit_inputs(batch, dev):
@@ -1255,13 +1272,12 @@ def phase_profile() -> None:
     flat = ("flat_chain_fwd", "sdf_min_field_pts", "flat_loss_fwd", "flat_loss_bwd",
             "sdf_min_field_bwd", "flat_chain_bwd")
     padded = ("sdf_min_field_padded", "sdf_min_field_padded_bwd")
-    # Adam: one launch a step of FontFitter's steps (whole on the first
-    # device); the hand-stepped padded loss calls opt.step().
+    # Adam: one launch a step of every variant (whole on the first device).
     adam = {"adam_flat": 1.0}
     want = {"graphed_one_device": {**dict.fromkeys(flat, 1.0), **adam},
             "graphed_sharded": {**dict.fromkeys(flat, 2.0), **adam},
             "eager_sharded": {**dict.fromkeys(flat, 2.0), **adam},
-            "padded_eager": dict.fromkeys(padded, 1.0)}
+            "padded_eager": {**dict.fromkeys(padded, 1.0), **adam}}
     bad = [r["stage"] for r in res["render"] if r["device_ms_median"] is None]
     bad += [k for k, r in fit.items()
             if not r["device_events_a_step"] or r["kernel_launches_a_step"] != want[k]
@@ -2053,8 +2069,6 @@ def grads_agree(gt, gf, loss_t, loss_f, name: str = "flat") -> dict:
 
 
 def phase_fit(batch, work) -> dict:
-    import dataclasses
-
     from versatiles_glyphs_tpu_torch.models.fitting import FontFitter, StepGraph, build_flat_plan
     from versatiles_glyphs_tpu_torch.models.render_fitted import fitted_preps, render_fitted_pbfs
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda
@@ -2114,19 +2128,13 @@ def phase_fit(batch, work) -> dict:
     # Graphed steps against eager ones, bit for bit (parameters and
     # losses), for the flat backend at full size and the torch backend on
     # the first 256-codepoint block; each one's peak memory.
-    rows = batch.codepoints < 256
-    block = dataclasses.replace(batch, **{
-        f.name: getattr(batch, f.name)[rows] for f in dataclasses.fields(batch)})
+    block = first_block(batch)
     ft = FontFitter(depth=FIT_DEPTH, backend="torch", device=dev)
-
-    def eager_steps(f, p, o, d, k):
-        return torch.stack([f.step(p, o, d)[2] for _ in range(k)]).cpu().numpy()
-
     for name, f, b in (("flat", fitter, batch), ("torch", ft, block)):
         pe, oe, de = f.init(b)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        le = eager_steps(f, pe, oe, de, 10)
+        le = eager_losses(f.loss, pe, oe, de, 10)
         peak_e = torch.cuda.max_memory_allocated()
         pg, og, dg = f.init(b)
         torch.cuda.synchronize()
@@ -2147,7 +2155,7 @@ def phase_fit(batch, work) -> dict:
     # after one step that captures the graph of these tensors again.
     fitter.step_many(params, opt, db, 1)
     turns = {"eager": [], "graphed": []}
-    runs = {"eager": lambda: eager_steps(fitter, params, opt, db, 10),
+    runs = {"eager": lambda: eager_losses(fitter.loss, params, opt, db, 10),
             "graphed": lambda: fitter.step_many(params, opt, db, 10)}
     for name in ("eager", "graphed", "graphed", "eager") * 4:
         t0 = time.perf_counter()
@@ -2188,7 +2196,7 @@ def phase_fit(batch, work) -> dict:
     lt, gt = ft.value_and_grad(pt, dt)
     lf, gf = ff.value_and_grad(pf, df)
     cmp = grads_agree(gt, gf, float(lt), float(lf))
-    emit({"phase": "fit", "step": "backends", "glyphs": int(rows.sum()), **cmp})
+    emit({"phase": "fit", "step": "backends", "glyphs": len(block.codepoints), **cmp})
     if not cmp["agree"]:
         raise AssertionError("torch and flat backends disagree")
 
@@ -2236,29 +2244,20 @@ def phase_fit(batch, work) -> dict:
 
 
 def phase_padded_fit(batch) -> dict:
-    """20 Adam steps of `batch_loss_kernel` (the padded kernel pair) from
-    the fit phase's start, with the counts reset just before; then its
-    loss and gradients against the torch backend's on the first
-    256-codepoint block. Returns the launches per kernel."""
-    import dataclasses
-
-    from versatiles_glyphs_tpu_torch.models.fitting import PARAM_KEYS, FontFitter, batch_loss_kernel
+    """20 Adam steps of `batch_loss_kernel` (the padded kernel pair, on
+    its own batch) from the fit phase's start, with the counts reset just
+    before; then its loss and gradients against the torch backend's on
+    the first 256-codepoint block. Returns the launches per kernel."""
+    from versatiles_glyphs_tpu_torch.models.fitting import (
+        PARAM_KEYS, FontFitter, batch_loss_kernel, padded_batch)
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda
 
     dev = torch.device("cuda", 0)
     fitter = FontFitter(depth=FIT_DEPTH, backend="flat", device=dev)
+    steps = functools.partial(eager_losses, functools.partial(batch_loss_kernel, depth=FIT_DEPTH))
 
-    def steps(params, opt, db, k):
-        losses = []
-        for _ in range(k):
-            opt.zero_grad(set_to_none=True)
-            loss = batch_loss_kernel(params, db, FIT_DEPTH)
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-        return torch.stack(losses).cpu().numpy()
-
-    params, opt, db = fitter.init(batch)
+    params, opt = fitter.init(batch)[:2]
+    db = padded_batch(batch, dev)
     torch.cuda.synchronize()
     sdf_cuda.reset_launches()
     t0 = time.perf_counter()
@@ -2274,20 +2273,19 @@ def phase_padded_fit(batch) -> dict:
           "loss_after_30": float(more[-1]), "launches": launches})
     if not (np.isfinite(losses).all() and losses.min() < losses[0]):
         raise AssertionError(f"the padded fit did not descend: {losses.tolist()}")
-    if not (launches["sdf_min_field_padded"] == launches["sdf_min_field_padded_bwd"] == FIT_STEPS):
+    if not (launches["sdf_min_field_padded"] == launches["sdf_min_field_padded_bwd"]
+            == launches["adam_flat"] == FIT_STEPS):
         raise AssertionError(f"{launches} kernel launches for {FIT_STEPS} padded steps")
 
-    rows = batch.codepoints < 256
-    block = dataclasses.replace(batch, **{
-        f.name: getattr(batch, f.name)[rows] for f in dataclasses.fields(batch)})
+    block = first_block(batch)
     ft = FontFitter(depth=FIT_DEPTH, backend="torch", device=dev)
     pt, _, dt = ft.init(block)
-    pk, _, dk = fitter.init(block)
+    pk = fitter.init(block)[0]
     lt, gt = ft.value_and_grad(pt, dt)
-    lk = batch_loss_kernel(pk, dk, FIT_DEPTH)
+    lk = batch_loss_kernel(pk, padded_batch(block, dev), FIT_DEPTH)
     gk = dict(zip(PARAM_KEYS, torch.autograd.grad(lk, [pk[k] for k in PARAM_KEYS])))
     cmp = grads_agree(gt, gk, float(lt), float(lk.detach()), name="padded")
-    emit({"phase": "padded_fit", "step": "backends", "glyphs": int(rows.sum()), **cmp})
+    emit({"phase": "padded_fit", "step": "backends", "glyphs": len(block.codepoints), **cmp})
     if not cmp["agree"]:
         raise AssertionError("torch backend and batch_loss_kernel disagree")
     return launches
@@ -2340,7 +2338,7 @@ def sharded_graphed_vs_eager(fitter, batch, name: str) -> dict:
         return torch.cuda.memory_allocated(), *fitter.init(batch)
 
     held, pe, oe, se = fresh()
-    le = torch.stack([fitter.step(pe, oe, se)[2] for _ in range(10)]).cpu().numpy()
+    le = eager_losses(fitter.loss, pe, oe, se, 10)
     peak_e = torch.cuda.max_memory_allocated() - held
     held, pg, og, sg = fresh()
     lg = fitter.step_many(pg, og, sg, 10)[2]
@@ -2362,11 +2360,10 @@ def phase_sharded_fit(batch, work) -> dict:
     on block 0, then the graft entry's two functions; see the module
     docstring. Returns the launches per kernel of each loss's 20-step
     run and of the 10 steps after it."""
-    import dataclasses
-
     import __graft_entry_torch__ as graft
     from versatiles_glyphs_tpu_torch.models.fitting import (
-        PARAM_KEYS, FontFitter, StepGraph, batch_loss_kernel, make_sharded_kernel_loss)
+        PARAM_KEYS, FontFitter, StepGraph, batch_loss_kernel, make_sharded_kernel_loss,
+        padded_batch, split_batch)
     from versatiles_glyphs_tpu_torch.ops import sdf_cuda, sdf_torch
     from versatiles_glyphs_tpu_torch.ops.flat_loss import STEP_KERNELS
 
@@ -2380,38 +2377,34 @@ def phase_sharded_fit(batch, work) -> dict:
     def grads_of(loss, params):
         return dict(zip(PARAM_KEYS, torch.autograd.grad(loss, [params[k] for k in PARAM_KEYS])))
 
-    def eager_steps(loss_fn):
-        def steps(params, opt, db, k):
-            losses = []
-            for _ in range(k):
-                opt.zero_grad(set_to_none=True)
-                loss = loss_fn(params, db)
-                loss.backward()
-                opt.step()
-                losses.append(loss.detach())
-            return torch.stack(losses).cpu().numpy()
-        return steps
+    one_padded = functools.partial(batch_loss_kernel, depth=FIT_DEPTH)
 
-    def one_padded(p, b):
-        return batch_loss_kernel(p, b, FIT_DEPTH)
+    def eager_steps(loss_fn):
+        return functools.partial(eager_losses, loss_fn)
+
+    # The padded pair's own batches: one device's, and a shard's each (the sharded fitter's rows).
+    pad1 = padded_batch(batch, dev)
+    pads = [padded_batch(part, d) for part, d in zip(split_batch(batch, 2)[1], devices)]
 
     launches = {}
     failures = []
-    # name -> (sharded loss, one-device loss, k sharded steps, k one-device
-    # steps, k eager sharded steps where the sharded steps are graphed)
-    for name, (sharded_loss, one_loss, run, run_one, run_eager) in {
+    # name -> (sharded loss, one-device loss, k sharded steps, k one-device steps, k eager
+    # sharded steps where the sharded steps are graphed, sharded init, one-device init)
+    for name, (sharded_loss, one_loss, run, run_one, run_eager, init_sh, init_one) in {
         "flat": (sh.loss, one.loss, lambda *a: sh.step_many(*a)[2],
-                 lambda *a: one.step_many(*a)[2], eager_steps(sh.loss)),
-        "padded": (padded, one_padded, eager_steps(padded), eager_steps(one_padded), None),
+                 lambda *a: one.step_many(*a)[2], eager_steps(sh.loss), sh.init, one.init),
+        "padded": (padded, one_padded, eager_steps(padded), eager_steps(one_padded), None,
+                   lambda b: (*sh.init(b)[:2], pads), lambda b: (*one.init(b)[:2], pad1)),
     }.items():
-        ps, os_, ss = sh.init(batch)
-        p1, o1, d1 = one.init(batch)
+        ps, os_, ss = init_sh(batch)
+        p1, o1, d1 = init_one(batch)
         ls = sharded_loss(ps, ss)
         l1 = one_loss(p1, d1)
         g1 = grads_of(l1, p1)
         cmp = one_device_agree(ls.detach(), grads_of(ls, ps), l1.detach(), g1, B)
         emit({"phase": "sharded_fit", "loss": name, "step": "one_device", "glyphs": B,
-              "shards": len(ss), "glyphs_a_shard": [int(s["target"].shape[0]) for s in ss], **cmp})
+              "shards": len(ss),  # a glyph table a shard: the plan's, or the padded metas
+              "glyphs_a_shard": [len(s.get("glyph_rows", s.get("meta"))) for s in ss], **cmp})
         if not cmp["agree"]:
             failures.append(f"{name}: the sharded loss or gradients disagree with one device")
 
@@ -2453,8 +2446,8 @@ def phase_sharded_fit(batch, work) -> dict:
                 failures.append(f"graphed sharded step against one device: {graphed}")
 
         # 10 sharded steps against 10 on one device, from the start.
-        pa, oa, sa = sh.init(batch)
-        pb, ob, db = one.init(batch)
+        pa, oa, sa = init_sh(batch)
+        pb, ob, db = init_one(batch)
         la, lb = run(pa, oa, sa, 10), run_one(pb, ob, db, 10)
         diff10 = {k: float((pa[k][:B] if pa[k].dim() else pa[k]).sub(pb[k]).detach().abs().max())
                   for k in PARAM_KEYS}
@@ -2462,9 +2455,9 @@ def phase_sharded_fit(batch, work) -> dict:
 
         # 5 + 5 sharded steps through a checkpoint against 10: into a
         # fresh init, and back into the same tensors (the graph kept).
-        p10, o10, s10 = sh.init(batch)
+        p10, o10, s10 = init_sh(batch)
         run(p10, o10, s10, 10)
-        pc, oc, sc = sh.init(batch)
+        pc, oc, sc = init_sh(batch)
         run(pc, oc, sc, 5)
         ckpt = os.path.join(work, f"checkpoint_sharded_{name}")
         FontFitter.save_checkpoint(ckpt, pc, oc)
@@ -2473,7 +2466,7 @@ def phase_sharded_fit(batch, work) -> dict:
         FontFitter.restore_checkpoint(ckpt, like=(pc, oc))
         run(pc, oc, sc, 5)
         kept = sh._graph is kept_graph
-        pd, od, sd = sh.init(batch)
+        pd, od, sd = init_sh(batch)
         pd, od = FontFitter.restore_checkpoint(ckpt, like=(pd, od))
         run(pd, od, sd, 5)
         delta = max(float((p10[k] - pd[k]).detach().abs().max()) for k in PARAM_KEYS)
@@ -2492,8 +2485,11 @@ def phase_sharded_fit(batch, work) -> dict:
         emit(rec)
         if not (np.isfinite(losses).all() and losses.min() < losses[0]):
             failures.append(f"{name}: the sharded fit did not descend: {losses.tolist()}")
-        if not all(first[k] == 2 * (FIT_STEPS + warmup)
-                   and launches[name]["steps_10"][k] == 2 * 10 for k in kernels):
+        # The step's kernels once a shard, Adam once a step (on the first device).
+        if not (all(first[k] == 2 * (FIT_STEPS + warmup)
+                    and launches[name]["steps_10"][k] == 2 * 10 for k in kernels)
+                and first["adam_flat"] == FIT_STEPS
+                and launches[name]["steps_10"]["adam_flat"] == 10):
             failures.append(f"{name}: {launches[name]} launches for {FIT_STEPS} then 10 steps "
                             f"on 2 shards ({warmup} warm-up runs a shard)")
         if loss10 > 1e-5 or max(diff10.values()) > 1e-3:
@@ -2507,9 +2503,7 @@ def phase_sharded_fit(batch, work) -> dict:
 
     # Graphed sharded steps against eager sharded ones, bit for bit: the
     # flat backend at full size, the torch backend on block 0.
-    rows = batch.codepoints < 256
-    block = dataclasses.replace(batch, **{
-        f.name: getattr(batch, f.name)[rows] for f in dataclasses.fields(batch)})
+    block = first_block(batch)
     st = FontFitter(depth=FIT_DEPTH, backend="torch", devices=devices)
     for name, fitter, b in (("flat", sh, batch), ("torch", st, block)):
         rec = sharded_graphed_vs_eager(fitter, b, name)

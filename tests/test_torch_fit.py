@@ -557,7 +557,7 @@ def test_fit_path_never_loads_jax(tmp_path):
     code = (
         "import sys\n"
         "import chip_smoke\n"
-        "from versatiles_glyphs_tpu_torch.models.fitting import FontFitter, batch_loss_kernel\n"
+        "from versatiles_glyphs_tpu_torch.models.fitting import FontFitter, batch_loss_kernel, padded_batch\n"
         "from versatiles_glyphs_tpu_torch.models.render_fitted import render_fitted_pbfs\n"
         "from versatiles_glyphs_tpu_torch.ops import legacy\n"
         "from versatiles_glyphs_tpu_torch.render.batch import pack_flat\n"
@@ -567,7 +567,7 @@ def test_fit_path_never_loads_jax(tmp_path):
         "b = synth_fit_batch(3, 65, seed=2, depth=2, perturb=0.3)\n"
         "f = FontFitter(depth=2, backend='flat', device='cpu')\n"
         "p, o, d = f.init(b)\n"
-        "lk = batch_loss_kernel(p, d, 2)\n"
+        "lk = batch_loss_kernel(p, padded_batch(b, 'cpu'), 2)\n"
         "lk.backward()\n"
         "assert torch.isfinite(lk) and p['curves'].grad.abs().max() > 0\n"
         "flat, meta, P = pack_flat(curved_preps(3, 65, seed=2))\n"

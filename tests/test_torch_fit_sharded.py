@@ -119,6 +119,9 @@ def _sharded(name, devices=CPU2):
     fitter = fitting.FontFitter(depth=DEPTH, backend=backend, sharpness=sharpness, devices=devices)
     params, opt, shards = fitter.init(b)
     B_real = b.curves0.shape[0]
+    if padded:  # the pair's own batch a shard, on the rows the flat fitter gives each
+        shards = [fitting.padded_batch(part, dev)
+                  for part, dev in zip(fitting.split_batch(b, len(devices))[1], devices)]
     loss_fn = (fitting.make_sharded_kernel_loss(devices, DEPTH, B_real) if padded
                else fitter.loss)
     return fitter, params, opt, shards, loss_fn, B_real
@@ -168,11 +171,13 @@ def test_shard_plans_match_jax():
     equal JAX `build_flat_plan` on the same slice of the padded batch,
     array for array; the fused loss's target tiles hold each glyph's
     target at the rows the JAX plan's ``row_map`` gives its tiles, and
-    its glyph table starts each glyph at its first."""
+    its glyph table starts each glyph at its first. `split_batch` gives
+    the padded pair's shards the same rows."""
     from versatiles_glyphs_tpu.parallel.mesh import pad_to_multiple
 
     b = _odd_batch()
     _, _, shards = fitting.FontFitter(depth=DEPTH, backend="flat", devices=CPU2).init(b)
+    parts = fitting.split_batch(b, 2)[1]
     mask, meta = pad_to_multiple(b.curve_mask, 2), pad_to_multiple(b.meta, 2)
     assert mask.shape[0] == 6 and not mask[5].any() and not meta[5].any()
     for d, shard in enumerate(shards):
@@ -189,7 +194,8 @@ def test_shard_plans_match_jax():
             np.testing.assert_array_equal(tiles[want.row_map[g, :ntiles]].reshape(-1), target)
         np.testing.assert_array_equal(shard["glyph_rows"].numpy()[:, 0], want.row_map[:, 0])
         np.testing.assert_array_equal(shard["chunk_map"].numpy(), want.chunk_map)
-        np.testing.assert_array_equal(shard["meta"].numpy(), meta[rows])
+        np.testing.assert_array_equal(fitting.padded_batch(parts[d], "cpu")["meta"].numpy(),
+                                      meta[rows])
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -237,7 +243,7 @@ def test_sharded_matches_one_device(name):
     one = fitting.FontFitter(depth=DEPTH, backend=backend, sharpness=sharpness, device="cpu")
     p1, _, d1 = one.init(make())
     if padded:
-        l1 = fitting.batch_loss_kernel(p1, d1, DEPTH)
+        l1 = fitting.batch_loss_kernel(p1, fitting.padded_batch(make(), "cpu"), DEPTH)
         g1 = dict(zip(fitting.PARAM_KEYS, torch.autograd.grad(l1, [p1[k] for k in fitting.PARAM_KEYS])))
     else:
         l1, g1 = one.value_and_grad(p1, d1)

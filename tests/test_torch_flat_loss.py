@@ -67,7 +67,8 @@ def _close(got, want, what, rel=1e-6):
 
 def _reference(params, db, batch, depth):
     plan = fitting.build_flat_plan(batch.curve_mask, batch.meta, depth, batch.target.shape[1])
-    losses = fitting.flat_losses_reference(params, db, plan, depth)
+    padded = fitting.padded_batch(batch, params["curves"].device)
+    losses = fitting.flat_losses_reference(params, db, padded, plan, depth)
     loss = torch.mean(losses)
     return losses, loss, torch.autograd.grad(loss, [params[k] for k in KEYS])
 

@@ -212,15 +212,20 @@ def test_batch_loss_kernel_matches_jax(jax_padded):
 
 
 def test_flat_backend_batch_carries_meta():
-    """`FontFitter.init` of the flat backend puts meta into the device
-    batch, so `batch_loss_kernel` runs on it; its loss equals the flat
-    loss (both take the first argmin of the same d²)."""
+    """The meta that `batch_loss_kernel` needs rides in the padded pair's
+    own batch (`padded_batch`), not in the flat backend's, which holds
+    exactly the fused loss's five arrays; on the padded batch the pair's
+    loss equals the flat loss (both take the first argmin of the same
+    d²)."""
     b = synth_fit_batch(3, 65, seed=2, depth=DEPTH, perturb=0.3)
     fitter = fitting.FontFitter(depth=DEPTH, backend="flat", device="cpu")
     params, _, dev = fitter.init(b)
-    assert dev["meta"].dtype == torch.int32 and tuple(dev["meta"].shape) == (3, 4)
+    assert sorted(dev) == ["chunk_map", "glyph_rows", "plan_tmeta", "plan_words", "target_tiles"]
+    pad = fitting.padded_batch(b, "cpu")
+    assert sorted(pad) == ["curve_mask", "meta", "pix_mask", "target"]
+    assert pad["meta"].dtype == torch.int32 and tuple(pad["meta"].shape) == (3, 4)
     with torch.no_grad():
-        lk = float(fitting.batch_loss_kernel(params, dev, DEPTH))
+        lk = float(fitting.batch_loss_kernel(params, pad, DEPTH))
         lf = float(fitter.loss(params, dev))
     assert abs(lk - lf) <= 1e-5 * lf
 

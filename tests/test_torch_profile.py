@@ -135,6 +135,33 @@ def test_e2e_and_cpuprof_of_files_on_the_cpu(tiny):
     assert 0 < len(prof["top_frames"]) <= profile.TOP_FRAMES
 
 
+def test_fit_steps_never_call_torch_adam_step(tiny, monkeypatch):
+    """Every stepping loop of `fit_steps` (the CPU listed twice for the
+    sharded ones) steps Adam through `adam_step` alone: its four variants,
+    the padded pair's on its own batch, run with ``torch.optim.Adam.step``
+    refused, and each expects one ``adam_flat`` launch a step."""
+
+    def refuse(*a, **k):
+        raise AssertionError("torch.optim.Adam.step called")
+
+    monkeypatch.setattr(torch.optim.Adam, "step", refuse)
+    monkeypatch.setattr(profile, "FIT_STEPS", 1)
+    cpu = torch.device("cpu")
+    # Its ops are tiny: one intra-op thread keeps the test's time where
+    # the suite's workers share the cores.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        res = profile.fit_steps(tiny, cpu, [cpu, cpu], runs=1)
+    finally:
+        torch.set_num_threads(threads)
+    assert list(res) == list(profile.expected_launches())
+    for name, rec in res.items():
+        assert rec["glyphs"] == 20 and rec["kernel_launches_a_step"] == {}, name
+        assert rec["kernel_launches_a_step_expected"]["adam_flat"] == 1.0, name
+        assert rec["devices"] == ["cpu"] * (2 if "sharded" in name else 1), name
+
+
 def test_profile_raises_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     sdf_cuda.reset_launches()

@@ -36,11 +36,12 @@ Layers, from the entry points down to the device:
                               fontTools pens only for its fallback),
                               font stacks, 256-codepoint
                               blocks, names and the index files
-- ``models.fitting``        — `FontFitter` (`torch.optim.Adam`, torch
-                              checkpoints), the flat plan, the Bernstein
-                              point chain, the batches, the carry of JAX
-                              parameters and optax state, and the
-                              padded-layout loss `batch_loss_kernel`
+- ``models.fitting``        — `FontFitter` (`ops.adam.adam_step` on a
+                              `torch.optim.Adam`, torch checkpoints), the
+                              flat plan, the Bernstein point chain, the
+                              batches, the carry of JAX parameters and
+                              optax state, and the padded-layout loss
+                              `batch_loss_kernel` on its own batch
 - ``models.glyph_model``    — the differentiable pair-tensor model (the
                               ``torch`` backend)
 - ``models.render_fitted``  — fitted parameters → a glyph atlas

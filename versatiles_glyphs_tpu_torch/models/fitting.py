@@ -22,28 +22,25 @@ Two gradient backends:
 `batch_loss_kernel` is the JAX package's loss of the same name: the
 padded per-glyph layout through `ops.sdf_grad.signed_field_padded` (the
 padded min-field kernel pair). As there, no backend of `FontFitter`
-uses it; the ``flat`` backend's device batch carries the ``meta`` it
-needs.
+uses it; it reads a batch of its own (`padded_batch`).
 
 Sharded fitting (the JAX package's mesh path, ``fit --mesh``): one
 process over a list of local devices (`parallel.mesh.local_devices`),
 with no mesh object. `FontFitter(devices=...)` pads the batch of the
-``flat`` backend to a multiple of the device count (padded glyphs have
-all-false masks and ``w·h = 0`` metas, so they add exactly 0 to the loss
-and to every gradient) and gives each device an equal slice of it, with
-its own flat plan. `make_sharded_flat_loss` and
-`make_sharded_kernel_loss` (each a `ShardedLoss`) run the kernel pairs
-once a shard; the loss is the sum of the shards' sums, each brought
-back to the first device, over the real glyph count. The parameters
-stay whole on the first device, with one optimizer there: each shard
-reads its rows with ``.to(device)``, and autograd sums ``log_gain``'s
-gradient over the shards at that copy, which is the all-reduce the JAX
-package's ``psum`` gives. They are kept whole because they are small
-(~1-2 MB at 1,700 glyphs) and so keep the one-device shapes of
-`save_checkpoint`, `value_and_grad`, `params_from_numpy`,
-`adam_state_from_optax` and the CLI's ``fitted.npz``; a checkpoint of a
-sharded fit holds its padded rows, so a resume needs the same device
-count.
+``flat`` backend to a multiple of the device count and gives each device
+an equal slice of it (`split_batch`), with its own flat plan.
+`make_sharded_flat_loss` and `make_sharded_kernel_loss` (each a
+`ShardedLoss`) run the kernel pairs once a shard; the loss is the sum of
+the shards' sums, each brought back to the first device, over the real
+glyph count. The parameters stay whole on the first device, with one
+optimizer there: each shard reads its rows with ``.to(device)``, and
+autograd sums ``log_gain``'s gradient over the shards at that copy,
+which is the all-reduce the JAX package's ``psum`` gives. They are kept
+whole because they are small (~1-2 MB at 1,700 glyphs) and so keep the
+one-device shapes of `save_checkpoint`, `value_and_grad`,
+`params_from_numpy`, `adam_state_from_optax` and the CLI's
+``fitted.npz``; a checkpoint of a sharded fit holds its padded rows, so
+a resume needs the same device count.
 
 One dispatch for k steps (the JAX package's `_step_k`, a `lax.scan`
 under one jit): on one CUDA device `FontFitter.step_many` replays a CUDA
@@ -183,10 +180,44 @@ def _padded_losses(params, batch: dict, depth: int) -> torch.Tensor:
 def batch_loss_kernel(params, batch: dict, depth: int) -> torch.Tensor:
     """`batch_loss` with the signed field of the padded kernel pair
     (`ops.sdf_grad.signed_field_padded`) instead of the pair tensor;
-    hard min only. ``batch`` needs ``curve_mask``, ``meta`` [B, 4] i32,
-    ``target`` and ``pix_mask``."""
+    hard min only. ``batch``: `padded_batch`."""
     # Per-glyph masked mean, then the batch mean, as in `batch_loss`.
     return torch.mean(_padded_losses(params, batch, depth))
+
+
+def _arrays_on(batch: FitBatch, device, names) -> dict:
+    """The arrays ``names`` on ``device``: ``curve_mask`` as is, ``meta`` i32, the rest f32."""
+    dtypes = {"curve_mask": None, "meta": torch.int32}
+    return {k: torch.as_tensor(getattr(batch, k), dtype=dtypes.get(k, torch.float32),
+                               device=device) for k in names}
+
+
+def padded_batch(batch: FitBatch, device) -> dict:
+    """The device batch of `batch_loss_kernel` (a shard's, of `make_sharded_kernel_loss`)
+    on ``device``: ``curve_mask``, ``meta`` [B, 4] i32, ``target`` and ``pix_mask``."""
+    return _arrays_on(batch, device, ("curve_mask", "meta", "target", "pix_mask"))
+
+
+def split_batch(batch: FitBatch, n: int) -> tuple[FitBatch, list[FitBatch]]:
+    """(``batch`` padded to a multiple of ``n`` glyphs as the JAX package
+    pads its ``pallas`` mesh path, its ``n`` equal slices in order). Padded
+    glyphs (all-false masks, ``w·h = 0`` metas) add 0 to every loss and gradient."""
+    from ..parallel.mesh import pad_to_multiple
+
+    arrays = {f.name: pad_to_multiple(getattr(batch, f.name), n)
+              for f in dataclasses.fields(batch) if getattr(batch, f.name) is not None}
+    Bl = arrays["curves0"].shape[0] // n
+    return FitBatch(**arrays), [FitBatch(**{k: a[d * Bl : (d + 1) * Bl] for k, a in arrays.items()})
+                                for d in range(n)]
+
+
+def eager_step(loss_fn, params, opt, batch) -> torch.Tensor:
+    """One `ops.adam.adam_step` in place on ``loss_fn(params, batch)``; the loss, detached."""
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(params, batch)
+    loss.backward()
+    adam_step(opt)
+    return loss.detach()
 
 
 @dataclass
@@ -329,13 +360,14 @@ def _flat_losses(params, batch: dict, depth: int, TP: int) -> torch.Tensor:
                            depth, TP)
 
 
-def flat_losses_reference(params, batch: dict, plan: FlatKernelPlan, depth: int) -> torch.Tensor:
-    """`_flat_losses` as PyTorch ops and autograd around the min-field
-    pair (the JAX package's decomposition): `flat_chain_points`, the
-    signed field, the gather of its tiles into [B, P_pad] by the plan's
-    ``row_map`` and `_glyph_losses` against the device batch's
-    ``target`` and ``pix_mask``. The fused loss computes the same up to
-    the order of its sums; the CPU tests hold it against this."""
+def flat_losses_reference(params, batch: dict, padded: dict, plan: FlatKernelPlan,
+                          depth: int) -> torch.Tensor:
+    """`_flat_losses` as PyTorch ops and autograd around the min-field pair
+    (the JAX package's decomposition): `flat_chain_points` and the signed
+    field on the flat device ``batch``, its tiles gathered into [B, P_pad]
+    by the plan's ``row_map``, `_glyph_losses` against ``padded``'s target
+    and pixel mask (`padded_batch`). The fused loss computes the same up
+    to the order of its sums; the CPU tests hold it against this."""
     from ..ops.sdf_grad import signed_field_flat
 
     flat = flat_chain_points(params["curves"], params["translate"], depth, batch["chunk_map"])
@@ -344,34 +376,34 @@ def flat_losses_reference(params, batch: dict, plan: FlatKernelPlan, depth: int)
     B = params["curves"].shape[0]
     row_map = torch.as_tensor(plan.row_map, dtype=torch.int64, device=field.device)
     fb = field.index_select(0, row_map.reshape(-1)).reshape(B, -1)
-    return _glyph_losses(fb, params, batch)
+    return _glyph_losses(fb, params, padded)
 
 
 class ShardedLoss:
     """``loss(params, shards)`` over a list of devices: shard d owns the
-    parameter rows ``[d·Bl, (d+1)·Bl)`` (``Bl`` the shard's glyph count)
-    and its batch ``shards[d]`` on ``devices[d]``; ``shard_sum(params_d,
-    shard)``, with ``params_d`` already on the shard's device, is its sum
-    of per-glyph losses. The parameters live on ``devices[0]``, where the
-    shards' sums are added in shard order and divided by ``B_real``.
-    `ShardedStepGraph` captures ``shard_sum`` a shard."""
+    parameter rows ``[d·Bl, (d+1)·Bl)`` (``Bl`` the parameters' padded
+    glyph count over the device count) and its batch ``shards[d]`` on
+    ``devices[d]``; ``shard_sum(params_d, shard)``, with ``params_d``
+    already on the shard's device, is its sum of per-glyph losses. The
+    parameters live on ``devices[0]``, where the shards' sums are added in
+    shard order and divided by ``B_real``. `ShardedStepGraph` captures
+    ``shard_sum`` a shard."""
 
     def __init__(self, devices, B_real: int, shard_sum):
         self.devices = list(devices)
         self.B_real = B_real
         self.shard_sum = shard_sum
 
-    @staticmethod
-    def rows(d: int, shard: dict) -> slice:
+    def rows(self, d: int, params) -> slice:
         """The parameter rows of shard ``d``."""
-        Bl = shard["target"].shape[0]
+        Bl = params["curves"].shape[0] // len(self.devices)
         return slice(d * Bl, (d + 1) * Bl)
 
     def __call__(self, params, shards):
         home = self.devices[0]
         total = None
         for d, (dev, shard) in enumerate(zip(self.devices, shards, strict=True)):
-            rows = self.rows(d, shard)
+            rows = self.rows(d, params)
             part = self.shard_sum(
                 {
                     "curves": params["curves"][rows].to(dev),
@@ -403,9 +435,9 @@ def make_sharded_flat_loss(devices, plans: list, depth: int, B_real: int):
 def make_sharded_kernel_loss(devices, depth: int, B_real: int):
     """Sharded twin of `batch_loss_kernel` (the JAX package's
     `make_sharded_kernel_loss`): the padded kernel pair runs once a
-    shard on its glyphs. ``shards[d]`` needs ``curve_mask``, ``meta``,
-    ``target`` and ``pix_mask`` (a sharded ``flat`` fitter's shards have
-    them). Returns ``loss_fn(params, shards)``."""
+    shard on its glyphs. ``shards[d]``: `padded_batch` of slice d of
+    `split_batch`, whose rows are a sharded ``flat`` fitter's. Returns
+    ``loss_fn(params, shards)``."""
     return ShardedLoss(devices, B_real, lambda p, s: _padded_losses(p, s, depth).sum())
 
 
@@ -532,7 +564,7 @@ class ShardedStepGraph:
         self.shards: list[StepGraph] = []
         pools: dict = {}
         for d, (dev, shard) in enumerate(zip(loss.devices, shards, strict=True)):
-            rows = loss.rows(d, shard)
+            rows = loss.rows(d, params)
             inputs = self._rows_of(rows)
             if d:
                 inputs = {k: v.to(dev, copy=True) for k, v in inputs.items()}
@@ -633,29 +665,23 @@ class FontFitter:
     # -- state ----------------------------------------------------------
 
     def _device_batch(self, batch: FitBatch, dev):
-        """The batch's arrays on ``dev`` and, for the flat backend, its
-        plan and the target in the tile layout (checked once here: the
-        loss launches the kernels without checks; on a card its kernels
-        are built here)."""
-        dev_batch = {
-            "curve_mask": torch.as_tensor(batch.curve_mask, device=dev),
-            "px": torch.as_tensor(batch.px, dtype=torch.float32, device=dev),
-            "py": torch.as_tensor(batch.py, dtype=torch.float32, device=dev),
-            "pix_mask": torch.as_tensor(batch.pix_mask, dtype=torch.float32, device=dev),
-            "target": torch.as_tensor(batch.target, dtype=torch.float32, device=dev),
-        }
+        """(the device batch on ``dev``, the flat plan or None): the torch
+        backend's pixel arrays, or the five arrays the fused loss reads (the
+        plan and the target in the tile layout, checked once here: the loss
+        launches the kernels without checks; on a card they are built here)."""
         if self.backend != "flat":
-            return dev_batch, None
+            return _arrays_on(batch, dev, ("curve_mask", "px", "py", "pix_mask", "target")), None
         from ..ops import flat_loss
         from ..ops.sdf_cuda import check_flat_plan
 
         plan = build_flat_plan(batch.curve_mask, batch.meta, self.depth, batch.target.shape[1])
-        dev_batch["meta"] = torch.as_tensor(batch.meta, dtype=torch.int32, device=dev)
-        dev_batch["plan_tmeta"] = torch.as_tensor(plan.tmeta.T.copy(), device=dev)
-        dev_batch["plan_words"] = torch.as_tensor(plan.mask_words, device=dev)
-        dev_batch["chunk_map"] = torch.as_tensor(plan.chunk_map, dtype=torch.int64, device=dev)
-        dev_batch["glyph_rows"] = torch.as_tensor(plan.glyph_rows, device=dev)
-        dev_batch["target_tiles"] = torch.as_tensor(tile_target(plan, batch.target), device=dev)
+        dev_batch = {
+            "plan_tmeta": torch.as_tensor(plan.tmeta.T.copy(), device=dev),
+            "plan_words": torch.as_tensor(plan.mask_words, device=dev),
+            "chunk_map": torch.as_tensor(plan.chunk_map, dtype=torch.int64, device=dev),
+            "glyph_rows": torch.as_tensor(plan.glyph_rows, device=dev),
+            "target_tiles": torch.as_tensor(tile_target(plan, batch.target), device=dev),
+        }
         check_flat_plan(plan.N, dev_batch["plan_words"], dev_batch["plan_tmeta"], plan.TP)
         flat_loss.check_plan(dev_batch, batch.curve_mask.shape[1], plan.K, plan.TP)
         if dev.type == "cuda":
@@ -685,31 +711,20 @@ class FontFitter:
     def _shard(self, batch: FitBatch):
         """(the batch as sharded, the per-shard device batches), and the
         sharded loss. The flat backend pads the batch to a multiple of
-        the device count, as the JAX package pads its ``pallas`` mesh
-        path; the torch backend needs a batch that divides evenly, as the
-        JAX package's ``device_put`` onto the mesh does."""
-        from ..parallel.mesh import pad_to_multiple
-
-        def each_array(b, fn):
-            return dataclasses.replace(b, **{
-                f.name: fn(getattr(b, f.name))
-                for f in dataclasses.fields(b) if getattr(b, f.name) is not None
-            })
-
+        the device count (`split_batch`); the torch backend needs a batch
+        that divides evenly, as the JAX package's ``device_put`` onto the
+        mesh does."""
         devices = self.devices
         D = len(devices)
         B_real = batch.curves0.shape[0]
-        if self.backend == "flat":
-            batch = each_array(batch, lambda a: pad_to_multiple(a, D))
-        elif B_real % D:
+        if self.backend != "flat" and B_real % D:
             raise ValueError(
                 f"the torch backend shards {B_real} glyphs over {D} devices: the batch "
                 "must divide evenly (the flat backend pads it)"
             )
-        Bl = batch.curves0.shape[0] // D
+        batch, parts = split_batch(batch, D)
         shards, plans = [], []
-        for d, dev in enumerate(devices):
-            part = each_array(batch, lambda a: a[d * Bl : (d + 1) * Bl])
+        for part, dev in zip(parts, devices):
             shard, plan = self._device_batch(part, dev)
             shards.append(shard)
             plans.append(plan)
@@ -733,13 +748,8 @@ class FontFitter:
         return loss.detach(), dict(zip(PARAM_KEYS, grads))
 
     def step(self, params, opt, dev_batch):
-        """One Adam step in place (`ops.adam.adam_step`); returns
-        (params, opt, loss)."""
-        opt.zero_grad(set_to_none=True)
-        loss = self._loss(params, dev_batch)
-        loss.backward()
-        adam_step(opt)
-        return params, opt, loss.detach()
+        """One Adam step in place (`eager_step`): (params, opt, loss)."""
+        return params, opt, eager_step(self._loss, params, opt, dev_batch)
 
     def step_many(self, params, opt, dev_batch, k: int):
         """``k`` steps; the losses come back to the host once, as a

@@ -29,12 +29,12 @@ printing JSON lines:
 - ``fit``: 10 warm steps each of the graphed one-device ``flat`` step,
   the graphed sharded ``flat`` step over the card listed twice
   (`models.fitting.ShardedStepGraph`), the eager sharded step and the
-  padded `batch_loss_kernel` step (eager): the host wall a step, and
-  under `torch.profiler` the device-busy share (the union of the device
-  events' intervals over the profiled wall, `session_turns.union_us`;
-  also the busy time over the unprofiled wall, as the profiler slows
-  the host), the device time a step and the device events a step by
-  name.
+  padded `batch_loss_kernel` step (eager, on `fitting.padded_batch`):
+  the host wall a step, and under `torch.profiler` the device-busy share
+  (the union of the device events' intervals over the profiled wall,
+  `session_turns.union_us`; also the busy time over the unprofiled wall,
+  as the profiler slows the host), the device time a step and the device
+  events a step by name.
 
 ``--quick`` keeps every size but runs fewer repetitions and two fonts in
 ``e2e`` (``chip_smoke.py`` runs it). It runs on the first CUDA device
@@ -290,16 +290,16 @@ def expected_launches(shards: int = 2) -> dict:
     """{variant: {kernel: launches a step}} that `fit_steps` counts where
     each step takes its path: the flat step's six kernels
     (`ops.flat_loss.STEP_KERNELS`, kernels 2 and 3 and the fused loss's
-    four) once a shard (a graph's once a replay) and the Adam kernel once;
-    the padded pair once a step (its loop calls ``opt.step()``)."""
+    four) once a shard (a graph's once a replay), the padded pair once a
+    step, and the Adam kernel once a step of every variant."""
     from ..ops.flat_loss import STEP_KERNELS
 
     adam = {"adam_flat": 1.0}
     return {"graphed_one_device": {**dict.fromkeys(STEP_KERNELS, 1.0), **adam},
             "graphed_sharded": {**dict.fromkeys(STEP_KERNELS, float(shards)), **adam},
             "eager_sharded": {**dict.fromkeys(STEP_KERNELS, float(shards)), **adam},
-            "padded_eager": dict.fromkeys(("sdf_min_field_padded",
-                                           "sdf_min_field_padded_bwd"), 1.0)}
+            "padded_eager": {**dict.fromkeys(("sdf_min_field_padded",
+                                              "sdf_min_field_padded_bwd"), 1.0), **adam}}
 
 
 def fit_steps(font: str, dev: torch.device, devices: list, runs: int) -> dict:
@@ -309,7 +309,8 @@ def fit_steps(font: str, dev: torch.device, devices: list, runs: int) -> dict:
     warm-up above what was allocated before, the port's kernel launches
     a step (`sdf_cuda.LAUNCHES`) beside `expected_launches`,
     and `steps_record` of one more run under `torch.profiler`."""
-    from ..models.fitting import FontFitter, batch_loss_kernel
+    from ..models.fitting import (PARAM_KEYS, FontFitter, batch_loss_kernel, eager_step,
+                                  init_params, padded_batch)
     from ..ops import sdf_cuda
     from ..utils.synth_font import synth_fit_batch
 
@@ -319,26 +320,15 @@ def fit_steps(font: str, dev: torch.device, devices: list, runs: int) -> dict:
     sh = FontFitter(depth=FIT_DEPTH, backend="flat", devices=devices)
     cuda = dev.type == "cuda"
 
-    def eager(fitter):
-        def run(p, o, d):
-            return torch.stack([fitter.step(p, o, d)[2] for _ in range(FIT_STEPS)]).cpu()
-        return run
-
-    def padded(p, o, d):
-        losses = []
-        for _ in range(FIT_STEPS):
-            o.zero_grad(set_to_none=True)
-            loss = batch_loss_kernel(p, d, FIT_DEPTH)
-            loss.backward()
-            o.step()
-            losses.append(loss.detach())
-        return torch.stack(losses).cpu()
+    def eager(loss_fn):
+        return lambda p, o, d: torch.stack([eager_step(loss_fn, p, o, d)
+                                            for _ in range(FIT_STEPS)]).cpu()
 
     variants = {
         "graphed_one_device": (one, lambda p, o, d: one.step_many(p, o, d, FIT_STEPS)),
         "graphed_sharded": (sh, lambda p, o, d: sh.step_many(p, o, d, FIT_STEPS)),
-        "eager_sharded": (sh, eager(sh)),
-        "padded_eager": (one, padded),
+        "eager_sharded": (sh, eager(sh.loss)),
+        "padded_eager": (one, eager(lambda p, d: batch_loss_kernel(p, d, FIT_DEPTH))),
     }
     expected = expected_launches(len(devices))
     res = {}
@@ -347,7 +337,12 @@ def fit_steps(font: str, dev: torch.device, devices: list, runs: int) -> dict:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             held = torch.cuda.memory_allocated(dev)
-        p, o, d = fitter.init(batch)
+        if name == "padded_eager":  # the fitter's start; the padded pair's own batch
+            p = init_params(batch.curves0, dev)
+            o = torch.optim.Adam([p[k] for k in PARAM_KEYS], lr=one.learning_rate)
+            d = padded_batch(batch, dev)
+        else:
+            p, o, d = fitter.init(batch)
         run(p, o, d)  # warm-up: captures the graphs
         peak = torch.cuda.max_memory_allocated(dev) - held if cuda else None
         walls = host_runs(lambda: run(p, o, d), runs)
